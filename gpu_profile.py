@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Where the time of ``2pc check 10`` goes on one H100.
+
+    python3 gpu_profile.py [--runs N] [--trace-dir DIR]
+
+Builds the port's kernels, runs ``chip_smoke.run_rm10`` (the rm=10 run of
+its phase 4 through ``spawn_gpu()``, held to its goldens) ``--runs`` times
+untraced -- wall seconds of each, then median and spread -- and once more
+under ``torch.profiler``: device time per kernel name, the card's busy
+share of the traced run's wall time, and, with ``--trace-dir``, a
+Chrome trace written there.  The traced run pays the profiler's overhead; the
+untraced runs are the measurement.  Prints one JSON line last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--trace-dir", default=None)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gpu_profile: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from chip_smoke import GOLDEN_RM10, run_rm10
+    from stateright_tpu_torch.ops import cuda
+
+    unique = GOLDEN_RM10[0]
+    cuda.build()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"card: {card}", flush=True)
+
+    run_rm10(torch)  # warm-up: library loads, allocator pools
+    times = []
+    for i in range(args.runs):
+        checker, elapsed = run_rm10(torch)
+        times.append(elapsed)
+        print(f"run {i}: {elapsed:.4f} s, {checker.waves()} waves, "
+              f"{unique / elapsed:.1f} unique states/s", flush=True)
+    q = statistics.quantiles(times, n=4) if len(times) > 1 else [times[0]] * 3
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _checker, traced_s = run_rm10(torch)
+    trace = None
+    if args.trace_dir is not None:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        trace = os.path.join(args.trace_dir, "rm10_trace.json")
+        prof.export_chrome_trace(trace)
+    # Device-side events only (kernels, copies, fills): the CPU ops that
+    # launched them report the same time again.  One stream, so the sum
+    # is the busy time.
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
+    busy_ms = sum(by_name.values())
+    median = statistics.median(times)
+    print(f"traced run: {traced_s:.4f} s wall, device busy {busy_ms:.1f} ms; "
+          f"busy share {busy_ms / 1e3 / median:.3f} of the untraced median "
+          f"{median:.4f} s; trace {trace}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    for name, ms in top:
+        print(f"  {ms:9.2f} ms  {name[:100]}")
+    print(json.dumps({
+        "card": card,
+        "runs_s": times,
+        "median_s": median,
+        "quartiles_s": [q[0], q[2]],
+        "unique_per_s_median": unique / median,
+        "traced_s": traced_s,
+        "device_busy_ms": busy_ms,
+        "device_busy_share_of_median": busy_ms / 1e3 / median,
+        "device_ms_by_kernel": dict(top),
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,160 @@
+"""Checker surface and fluent builder.
+
+Reference: src/checker.rs -- ``CheckerBuilder`` (fluent config + spawn) and
+the ``Checker`` trait (counts, discoveries, join/report, assertion helpers).
+The port's builder carries the options its GPU engine reads and spawns it
+with :meth:`CheckerBuilder.spawn_gpu`, the counterpart of the JAX package's
+``spawn_tpu``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Optional
+
+from .has_discoveries import HasDiscoveries
+from .model import Expectation, Model
+from .path import Path
+from .report import ReportData, ReportDiscovery, Reporter
+
+
+class CheckerBuilder:
+    def __init__(self, model: Model):
+        self.model = model
+        self._target_state_count: Optional[int] = None
+        self._target_max_depth: Optional[int] = None
+        self._finish_when: HasDiscoveries = HasDiscoveries.ALL
+
+    def finish_when(self, has_discoveries: HasDiscoveries) -> "CheckerBuilder":
+        self._finish_when = has_discoveries
+        return self
+
+    def target_state_count(self, count: int) -> "CheckerBuilder":
+        self._target_state_count = count if count > 0 else None
+        return self
+
+    def target_max_depth(self, depth: int) -> "CheckerBuilder":
+        self._target_max_depth = depth if depth > 0 else None
+        return self
+
+    def spawn_gpu(self, **kwargs) -> "Checker":
+        """Spawn the single-GPU wavefront checker (parallel/wavefront.py):
+        successor expansion, fingerprinting, frontier dedup and property
+        evaluation run on the card in hand-written kernels.  ``device``
+        defaults to ``cuda``; with no card present the spawn raises -- pass
+        ``device="cpu"`` explicitly to run the plain-torch twins."""
+        from ..parallel.wavefront import GpuChecker
+
+        return GpuChecker(self, **kwargs)
+
+
+class Checker:
+    """Base checker surface.  Reference: the ``Checker`` trait,
+    src/checker.rs:294-578."""
+
+    def __init__(self, model: Model):
+        self._model = model
+
+    # --- interface implemented by engines -----------------------------------
+
+    def model(self) -> Model:
+        return self._model
+
+    def state_count(self) -> int:
+        raise NotImplementedError
+
+    def unique_state_count(self) -> int:
+        raise NotImplementedError
+
+    def max_depth(self) -> int:
+        raise NotImplementedError
+
+    def discoveries(self) -> Dict[str, Path]:
+        raise NotImplementedError
+
+    def handles(self) -> list:
+        return []
+
+    def is_done(self) -> bool:
+        raise NotImplementedError
+
+    def join(self) -> "Checker":
+        for h in self.handles():
+            h.join()
+        return self
+
+    # --- shared functionality -----------------------------------------------
+
+    def discovery(self, name: str) -> Optional[Path]:
+        return self.discoveries().get(name)
+
+    def discovery_classification(self, name: str) -> str:
+        prop = self._model.get_property(name)
+        return "example" if prop.expectation is Expectation.SOMETIMES else "counterexample"
+
+    def _report_data(self, start: float, done: bool) -> ReportData:
+        return ReportData(
+            total_states=self.state_count(),
+            unique_states=self.unique_state_count(),
+            max_depth=self.max_depth(),
+            duration=time.monotonic() - start,
+            done=done,
+        )
+
+    def join_and_report(self, reporter: Reporter) -> "Checker":
+        """Join while reporting; final timing is accurate rather than rounded
+        to the polling interval.  Reference: src/checker.rs:351-409."""
+        start = time.monotonic()
+        stop = threading.Event()
+
+        def poll():
+            while not stop.is_set() and not self.is_done():
+                reporter.report_checking(self._report_data(start, done=False))
+                stop.wait(reporter.delay())
+
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        try:
+            self.join()
+        finally:
+            stop.set()
+            poller.join()
+        reporter.report_checking(self._report_data(start, done=True))
+        discoveries = {
+            name: ReportDiscovery(path, self.discovery_classification(name))
+            for name, path in self.discoveries().items()
+        }
+        reporter.report_discoveries(self._model, discoveries)
+        return self
+
+    # --- assertion helpers (src/checker.rs:468-577) -------------------------
+
+    def assert_properties(self) -> None:
+        for p in self._model.properties():
+            if p.expectation is Expectation.SOMETIMES:
+                self.assert_any_discovery(p.name)
+            else:
+                self.assert_no_discovery(p.name)
+
+    def assert_any_discovery(self, name: str) -> Path:
+        found = self.discovery(name)
+        if found is not None:
+            return found
+        if not self.is_done():
+            raise AssertionError(
+                f'Discovery for "{name}" not found, but model checking is incomplete.'
+            )
+        raise AssertionError(f'Discovery for "{name}" not found.')
+
+    def assert_no_discovery(self, name: str) -> None:
+        found = self.discovery(name)
+        if found is not None:
+            raise AssertionError(
+                f'Unexpected "{name}" {self.discovery_classification(name)} '
+                f"{found}Last state: {found.last_state()!r}\n"
+            )
+        if not self.is_done():
+            raise AssertionError(
+                f'Discovery for "{name}" not found, but model checking is incomplete.'
+            )

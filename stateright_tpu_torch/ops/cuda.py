@@ -1,0 +1,166 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with :mod:`ctypes` --
+seconds per source, where a PyTorch C++ extension takes minutes.  Libraries
+land in ``stateright_tpu_torch/_build/`` (git-ignored) on first use and are
+reused while they are newer than their source and the shared header.
+:func:`build` compiles stale sources with one ``nvcc`` process each, all
+started together.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()`` after its launches; :func:`check` raises on a nonzero
+code.  Nothing here runs on import: the CPU tests import every module of the
+package on a machine with no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("device_fp", "twophase_step", "compact", "hashset")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+U32 = ctypes.c_uint32
+I64 = ctypes.c_int64
+U64 = ctypes.c_uint64
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[tuple, object] = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda``'s, or
+    the one on ``PATH``."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels are built on the "
+            "machine with the card (set CUDA_HOME)"
+        )
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    newest = max(
+        p.stat().st_mtime
+        for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    )
+    return lib.stat().st_mtime < newest
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every stale source among ``names``, one ``nvcc`` each, all
+    started together.  Returns the wall seconds of each compile that ran;
+    ``nvcc``'s output (with ``-Xptxas -v``'s register counts) is kept in
+    ``_build/<name>.log``.  Raises with the compiler's output on failure,
+    after stopping every compile it started."""
+    todo = [n for n in names if _stale(n)]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cc = nvcc()
+    procs = {}
+    try:
+        for name in todo:
+            tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+            cmd = [cc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )
+            procs[name] = (proc, time.monotonic(), tmp)
+        secs = {}
+        for name, (proc, t0, tmp) in procs.items():
+            out, _ = proc.communicate()
+            (BUILD_DIR / f"{name}.log").write_text(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}.cu:\n{out}")
+            os.replace(tmp, _lib_path(name))
+            secs[name] = time.monotonic() - t0
+        return secs
+    finally:
+        for proc, _t0, tmp in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp.exists():
+                tmp.unlink()
+
+
+def function(lib_name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``lib<lib_name>.so`` (built on first
+    use) with its argument types declared -- pointers and the stream as
+    ``c_void_p``, so ctypes never cuts them to 32 bits."""
+    fn = _FUNCS.get((lib_name, symbol))
+    if fn is not None:
+        return fn
+    lib = _LIBS.get(lib_name)
+    if lib is None:
+        build([lib_name])
+        lib = ctypes.CDLL(str(_lib_path(lib_name)))
+        lib.sr_error_string.argtypes = [I32]
+        lib.sr_error_string.restype = ctypes.c_char_p
+        _LIBS[lib_name] = lib
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = I32
+    _FUNCS[(lib_name, symbol)] = fn
+    return fn
+
+
+def check(code: int, lib_name: str, what: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if code:
+        msg = _LIBS[lib_name].sr_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def ptr(t: torch.Tensor) -> P:
+    return P(t.data_ptr())
+
+
+def stream() -> P:
+    return P(torch.cuda.current_stream().cuda_stream)
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+            device: torch.device) -> None:
+    """Reject what a kernel does not take: wrong dtype, rank or device, or
+    a non-contiguous layout."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,91 @@
+"""The compiled-model contract: what the GPU wavefront engine needs.
+
+The counterpart of ``stateright_tpu/parallel/compiled.py``, batched by
+construction (no ``vmap``): every device method takes a whole batch of
+packed states ``int32[F, W]`` -- the ``uint32`` words of the JAX package as
+int32 bit-views -- on the engine's device.
+
+- a bit-packed state encoding: ``encode``/``decode`` form a bijection
+  between host states and ``uint32[W]`` rows;
+- ``step(states[F, W]) -> (nexts[F, A, W], valid[F, A])``: every one of the
+  ``max_actions`` candidate successors with a validity mask;
+- ``property_conds(states[F, W]) -> bool[F, P]``: every property condition,
+  in the order of ``model.properties()``;
+- ``expand(states)``: both at once, plus the encoding-overflow flag, which
+  is what the engine calls each wave.  A model with a fused kernel
+  overrides it.
+
+The host ``Model`` stays the oracle for path reconstruction.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.model import Model
+
+
+class CompiledModel:
+    """Device form of a :class:`Model`.  Subclass per model family.
+
+    Attributes
+    ----------
+    model: the host oracle model.
+    state_width: W, uint32 words per packed state.
+    max_actions: A, action arity of :meth:`step`.
+    """
+
+    model: Model
+    state_width: int
+    max_actions: int
+
+    # --- host side -----------------------------------------------------------
+
+    def init_packed(self) -> np.ndarray:
+        """Packed init states, shape [num_init, W] uint32."""
+        states = [s for s in self.model.init_states() if self.model.within_boundary(s)]
+        return np.stack([self.encode(s) for s in states]).astype(np.uint32)
+
+    def encode(self, state: Any) -> np.ndarray:
+        """Host state -> uint32[W].  Must be injective."""
+        raise NotImplementedError
+
+    def decode(self, words: Sequence[int]) -> Any:
+        """uint32[W] -> host state; inverse of :meth:`encode`."""
+        raise NotImplementedError
+
+    # --- device side ----------------------------------------------------------
+
+    def step(self, states: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """int32[F, W] -> (int32[F, A, W] successors, bool[F, A] valid).
+
+        Invalid lanes may hold arbitrary words; the engine masks them."""
+        raise NotImplementedError
+
+    def property_conds(self, states: torch.Tensor) -> torch.Tensor:
+        """int32[F, W] -> bool[F, P], in ``model.properties()`` order."""
+        raise NotImplementedError
+
+    def expand(
+        self, states: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """``(nexts, valid, conds, step_flag)`` for one wave's states.
+        ``step_flag`` is a bool scalar tensor marking a successor that
+        overflowed the packed encoding, or None for a model whose encoding
+        cannot overflow."""
+        nexts, valid = self.step(states)
+        return nexts, valid, self.property_conds(states), None
+
+
+def compiled_model_for(model: Model) -> CompiledModel:
+    """Resolve the compiled form of ``model`` (its ``compiled()`` method)."""
+    fn = getattr(model, "compiled", None)
+    if fn is None:
+        raise NotImplementedError(
+            f"{type(model).__name__} has no compiled form; define "
+            "compiled() returning a CompiledModel to use spawn_gpu()"
+        )
+    return fn()

@@ -1,0 +1,206 @@
+"""Device-resident fingerprint hash set with batched insert-if-absent (K4).
+
+The counterpart of ``stateright_tpu/parallel/hashset.py``: an
+open-addressing table keyed by the 64-bit packed-state fingerprint, linear
+probing from :func:`home_slot`, whole waves of candidate keys inserted at
+once.  Empty slots are 0; fingerprints are never 0 (``ops/device_fp.py``).
+
+Layout: one ``int64`` word per slot holding the key's bits ``hi:lo`` -- the
+JAX package's ``key_hi``/``key_lo`` planes interleaved slot for slot, so a
+table converts either way without a rebuild (:meth:`HashSet.from_planes`,
+:meth:`HashSet.planes`): both engines probe from the same home slot, and
+linear probing places a key anywhere along its probe run, whatever the
+insertion order.  On the card a second ``int64`` plane, ``meta``, carries
+the per-call election tags of the K4 kernel (``csrc/hashset.cu``).
+
+The insert is IN PLACE: :func:`insert_batch_claim` mutates the table it is
+given (the JAX version returns a new one), so a wave holds one table, not
+two.  Only the sortless claim path is ported; the sorted fallback
+(``prededup`` / ``insert_batch_compact``) is not.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..ops import cuda
+from ..ops.device_fp import fp64_of
+from ..ops.u32 import fmix32, i32, rotl, u32
+from .wave_common import compact
+
+_EPOCH_MAX = 0xFFFFFFFF
+_I64_MAX = (1 << 63) - 1
+
+
+class HashSet:
+    """Key plane (and, on the card, the election plane) of the table;
+    capacity is a power of two."""
+
+    def __init__(self, keys: torch.Tensor):
+        cap = keys.shape[0]
+        if cap & (cap - 1) or not 1 <= cap <= 1 << 31:
+            raise ValueError("capacity must be a power of two <= 2**31")
+        self.keys = keys  # int64[capacity]: hi:lo, 0 = empty
+        self.meta = None  # int64[capacity] on the card, made on first insert
+        self.epoch = 0  # the last insert call's election tag
+
+    @classmethod
+    def empty(cls, capacity: int, device) -> "HashSet":
+        return cls(torch.zeros((capacity,), dtype=torch.int64, device=device))
+
+    @classmethod
+    def from_planes(cls, key_hi: np.ndarray, key_lo: np.ndarray, device) -> "HashSet":
+        """Adopt the JAX package's two u32 planes (a snapshot's table)."""
+        hi = torch.from_numpy(np.asarray(key_hi, np.uint32).view(np.int32).copy())
+        lo = torch.from_numpy(np.asarray(key_lo, np.uint32).view(np.int32).copy())
+        return cls(fp64_of(hi, lo).to(device))
+
+    def planes(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The table as the JAX package's ``(key_hi, key_lo)`` u32 planes."""
+        keys = self.keys.to("cpu")
+        hi = i32(keys >> 32).numpy().view(np.uint32)
+        lo = i32(keys).numpy().view(np.uint32)
+        return hi, lo
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[0]
+
+    def load_factor(self) -> float:
+        """Occupied-slot fraction, read from the key plane."""
+        return int((self.keys != 0).sum()) / self.capacity
+
+
+def home_slot(hi: torch.Tensor, lo: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Initial probe slot of each key (int64), bit-identical to the JAX
+    ``home_slot``: a second mix of the fingerprint, so table position is
+    not correlated with the key planes."""
+    return fmix32(u32(hi) ^ rotl(u32(lo), 16) ^ 0x7FEB352D) & (capacity - 1)
+
+
+def unique_buffer_size(b: int, dedup_factor: int) -> int:
+    """The compaction buffer width for a B-lane candidate batch:
+    ``max(min(B, 16K), B/dedup_factor)``, as in the JAX package."""
+    return max(min(b, 1 << 14), b // dedup_factor)
+
+
+def compact_valid(hi, lo, valid, size: int):
+    """Compact a sparse-valid key batch into a ``size``-lane buffer.
+
+    Returns ``(v_hi, v_lo, v_orig, v_act, n_valid)``: the JAX
+    ``compact_valid``'s buffers, and in place of its ``overflow`` flag the
+    valid-lane count it is taken from.  ``v_orig`` maps buffer lanes back
+    to original ones; inactive buffer lanes hold lane 0's key, which
+    ``v_act`` masks.  The JAX version derives ``size`` from the batch and a
+    ``dedup_factor`` (:func:`unique_buffer_size`); the port's engine passes
+    it, because it expands only a wave's active states.
+
+    OVERFLOW CRITERION (the JAX contract): the buffer overflows on the
+    VALID-lane count, ``n_valid > size``: exactly full at ``size`` and
+    tripped at ``size + 1``."""
+    v_orig, n_valid = compact(valid, size)
+    # Filled lanes hold strictly increasing lane indices and the rest 0, so
+    # every lane but the first is active iff its index is nonzero -- no
+    # buffer-sized arange.
+    v_act = v_orig != 0
+    v_act[0] = n_valid > 0
+    return (
+        torch.index_select(hi, 0, v_orig), torch.index_select(lo, 0, v_orig),
+        v_orig, v_act, n_valid,
+    )
+
+
+def insert_batch_claim(
+    table: HashSet, hi: torch.Tensor, lo: torch.Tensor, active: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sortless insert-if-absent of a key batch, IN PLACE.
+
+    ``hi``/``lo``: int32[B] fingerprint halves; ``active``: bool[B].
+    Returns ``(new bool[B], probe_ok bool scalar)``: ``new`` marks exactly
+    the LOWEST active lane of each key that was absent before the call --
+    the representative the JAX ``insert_batch_claim`` elects, so parents,
+    ebits and row-log order stay bit-identical to the JAX engine.
+    ``probe_ok`` is False when some lane probed the whole table without
+    finding its key or a free slot (a full table)."""
+    if hi.device.type == "cpu":
+        return insert_batch_claim_plain(table.keys, hi, lo, active)
+    dev = hi.device
+    n = hi.shape[0]
+    cuda.require(table.keys, "table.keys", torch.int64, 1, dev)
+    cuda.require(hi, "hi", torch.int32, 1, dev)
+    cuda.require(lo, "lo", torch.int32, 1, dev)
+    cuda.require(active, "active", torch.bool, 1, dev)
+    if lo.shape[0] != n or active.shape[0] != n:
+        raise ValueError("hi, lo and active differ in length")
+    if n >= 1 << 32:
+        raise ValueError("at most 2**32 - 1 lanes per insert")
+    if table.meta is None or table.epoch >= _EPOCH_MAX:
+        table.meta = torch.zeros_like(table.keys)
+        table.epoch = 0
+    table.epoch += 1
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    is_new = torch.empty((n,), dtype=torch.bool, device=dev)
+    ok = torch.ones((), dtype=torch.int32, device=dev)
+    fn = cuda.function(
+        "hashset", "sr_insert_claim",
+        [cuda.P, cuda.P, cuda.U64, cuda.P, cuda.P, cuda.P, cuda.I64,
+         cuda.U32, cuda.P, cuda.P, cuda.P, cuda.P],
+    )
+    insert_batch_claim.launches += 1
+    code = fn(
+        cuda.ptr(table.keys), cuda.ptr(table.meta), table.capacity,
+        cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, table.epoch,
+        cuda.ptr(slot), cuda.ptr(is_new), cuda.ptr(ok), cuda.stream(),
+    )
+    cuda.check(code, "hashset", "insert_batch_claim")
+    return is_new, ok != 0
+
+
+insert_batch_claim.launches = 0
+
+
+def insert_batch_claim_plain(
+    keys: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, active: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of the K4 kernel (any device), IN PLACE on ``keys``:
+    the JAX ``_probe_rounds(elect=True)`` round by round.  Each round every
+    unresolved lane reads its slot; its key there -> done (a duplicate);
+    empty -> the lanes that want the slot scatter-``amin`` their lane id
+    into a claim plane, and the winner writes its key; another key -> probe
+    on.  Equal keys move in lockstep, so each key's winner is its lowest
+    lane, and a same-key loser finds the key on the next round."""
+    cap = keys.shape[0]
+    dev = keys.device
+    n = hi.shape[0]
+    key = fp64_of(hi, lo)
+    new = torch.zeros((n,), dtype=torch.bool, device=dev)
+    lane = torch.nonzero(active).flatten()
+    slot = home_slot(hi[lane], lo[lane], cap)
+    claim = torch.full((cap,), _I64_MAX, dtype=torch.int64, device=dev)
+    rounds = 0
+    while lane.numel() and rounds < 4 * cap:
+        cur = keys[slot]
+        k = key[lane]
+        present = cur == k
+        empty = cur == 0
+        claim.scatter_reduce_(0, slot[empty], lane[empty], "amin")
+        won = empty & (claim[slot] == lane)
+        keys[slot[won]] = k[won]
+        new[lane[won]] = True
+        undone = ~(present | won)
+        advance = undone & ~empty
+        slot = torch.where(advance, (slot + 1) & (cap - 1), slot)
+        lane, slot = lane[undone], slot[undone]
+        rounds += 1
+    return new, torch.tensor(lane.numel() == 0, device=dev)
+
+
+def keys_equal(a: HashSet, b: HashSet) -> bool:
+    """Whether two tables hold the same key set (slots may differ)."""
+    ka = torch.sort(a.keys[a.keys != 0]).values
+    kb = torch.sort(b.keys[b.keys != 0]).values
+    return ka.shape == kb.shape and bool((ka == kb).all())
+

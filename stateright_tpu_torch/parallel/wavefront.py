@@ -1,0 +1,609 @@
+"""The single-GPU wavefront checker.
+
+The counterpart of ``stateright_tpu/parallel/wavefront.py`` (``TpuChecker``):
+a wavefront BFS that expands a whole chunk of the frontier at once,
+fingerprints every candidate successor, deduplicates them by a batched
+insert-if-absent into a device-resident fingerprint table, and evaluates
+property conditions as fused predicates over the wave.  The device work of
+a wave runs in four hand-written kernels -- the model step (K2), the
+fingerprint (K1), stable compaction (K3) and the claim insert (K4) -- glued
+by a few torch tensor operations.
+
+States are identified by BFS position (the order of first discovery): the
+row log is one flat ``int32`` buffer (the u32 words as bit-views), a level
+is a contiguous range of positions, a chunk's read and the new states'
+append are contiguous block copies, and only the hash table is indexed at
+random.  The log, parents and eventually-bits are updated IN PLACE; the
+JAX engine threads them through its loop as donated buffers.
+
+Semantics are the JAX engine's, and the tests hold the port to it bit for
+bit (row log, parents, ebits, counts, discoveries):
+
+- properties are evaluated when a state is expanded; states beyond
+  ``target_max_depth`` are counted but never expanded;
+- ``state_count`` counts init states plus generated successors before
+  dedup; ``unique_state_count`` counts table insertions;
+- the representative of a key generated several times in one wave is its
+  lowest candidate lane (state-major, action-minor), so new states take
+  positions in the order of (parent position, action) of first generation;
+- eventually-bits travel with each state (the first inserter's bits win,
+  the reference's documented join behaviour);
+- discoveries are first-writer-wins in wave order; paths are rebuilt by
+  walking the parent chain, decoding rows and re-executing the host model.
+
+The host reads one small stats tensor per wave and keeps the scalar carry
+(level bounds, tail, counts, depth, discoveries); an overflowing wave
+(flags 1/2/4/8) commits nothing, and growth rebuilds the table from the
+committed log before the same chunk runs again.
+"""
+
+from __future__ import annotations
+
+import ast
+import hashlib
+import logging
+import os
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.checker import Checker
+from ..core.model import Expectation
+from ..core.path import Path
+from ..ops.device_fp import device_fp64
+from ..ops.u32 import M32, from_numpy_u32, i32, to_numpy_u32
+from .compiled import CompiledModel, compiled_model_for
+from .hashset import (
+    HashSet, compact_valid, insert_batch_claim, unique_buffer_size,
+)
+from .wave_common import NO_ID, compact, make_finish_when_device, wave_eval
+from .wave_loop import WaveLoop, fingerprints_of_rows
+
+# Growth bounds, sized for one 80 GB card: a table slot costs 16 bytes there
+# (key word + election word), a row-log position 4 * state_width + 8.
+_MAX_TABLE_CAPACITY = 1 << 30
+_ROW_LOG_BYTE_BUDGET = 16 << 30
+# Rows per insert when the table is rebuilt from the log after growth.
+_REHASH_ROWS = 1 << 22
+
+
+def snapshot_engine_key(cm, properties) -> str:
+    """Compatibility key of engine snapshots -- the JAX package's
+    ``snapshot_engine_key`` for a run without symmetry, character for
+    character, so the two engines resume each other's snapshots."""
+    init_digest = hashlib.sha256(cm.init_packed().tobytes()).hexdigest()[:16]
+    return repr(
+        (
+            "rowlog-v3",
+            type(cm).__qualname__,
+            cm.state_width,
+            cm.max_actions,
+            tuple(p.name for p in properties),
+            init_digest,
+        )
+    )
+
+
+@dataclass
+class Carry:
+    """The whole run state: the device table and logs plus the host-side
+    scalars the JAX engine keeps in its stats vector."""
+
+    table: HashSet
+    rows: torch.Tensor  # int32[log_capacity * W], positions in BFS order
+    parent: torch.Tensor  # int32[log_capacity], NO_ID (-1) for init states
+    ebits: torch.Tensor  # int32[log_capacity], remaining eventually-bits
+    level_start: int
+    level_end: int
+    tail: int
+    state_count: int
+    unique_count: int
+    depth: int
+    disc: List[int]  # per property: BFS position of its discovery, or NO_ID
+
+
+def _sized(t: torch.Tensor, n: int, fill: int) -> torch.Tensor:
+    """A copy of the 1-D ``t`` trimmed or padded with ``fill`` to ``n``."""
+    out = torch.full((n,), fill, dtype=t.dtype, device=t.device)
+    k = min(n, t.shape[0])
+    out[:k] = t[:k]
+    return out
+
+
+def carry_from_snapshot(npz_arrays, device="cpu") -> Carry:
+    """Carry a run state across from the JAX engine: turn the arrays of a
+    ``TpuChecker.save_snapshot`` npz (``key_hi``, ``key_lo``, ``rows``,
+    ``parent``, ``ebits``, the scalars, ``disc``, ``log_capacity``) into the
+    port's tensors on ``device``.
+
+    The table needs no rebuild: the port's 64-bit slot is the JAX package's
+    ``(key_hi, key_lo)`` pair of the same slot, and both engines probe the
+    same home slot linearly.  The logs are trimmed or padded to
+    ``log_capacity`` positions (the JAX engine keeps an append pad past
+    it).  The state width is read from the snapshot's ``engine_key``."""
+    qcap = int(npz_arrays["log_capacity"])
+    w = int(ast.literal_eval(str(npz_arrays["engine_key"]))[2])
+    rows = np.asarray(npz_arrays["rows"], np.uint32)
+    table = HashSet.from_planes(npz_arrays["key_hi"], npz_arrays["key_lo"], device)
+    sc = (int(npz_arrays["sc_hi"]) << 32) | int(npz_arrays["sc_lo"])
+    return Carry(
+        table=table,
+        rows=_sized(from_numpy_u32(rows, device), qcap * w, 0),
+        parent=_sized(from_numpy_u32(npz_arrays["parent"], device), qcap, -1),
+        ebits=_sized(from_numpy_u32(npz_arrays["ebits"], device), qcap, 0),
+        level_start=int(npz_arrays["level_start"]),
+        level_end=int(npz_arrays["level_end"]),
+        tail=int(npz_arrays["tail"]),
+        state_count=sc,
+        unique_count=int(npz_arrays["unique_count"]),
+        depth=int(npz_arrays["depth"]),
+        disc=[int(d) for d in np.asarray(npz_arrays["disc"], np.uint32)],
+    )
+
+
+def snapshot_arrays(
+    carry: Carry, capacity: int, log_capacity: int
+) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`carry_from_snapshot`: the JAX npz arrays."""
+    key_hi, key_lo = carry.table.planes()
+    u32 = np.uint32
+    return {
+        "capacity": np.int64(capacity),
+        "log_capacity": np.int64(log_capacity),
+        "key_hi": key_hi,
+        "key_lo": key_lo,
+        "rows": to_numpy_u32(carry.rows),
+        "parent": to_numpy_u32(carry.parent),
+        "ebits": to_numpy_u32(carry.ebits),
+        "level_start": u32(carry.level_start),
+        "level_end": u32(carry.level_end),
+        "tail": u32(carry.tail),
+        "sc_lo": u32(carry.state_count & M32),
+        "sc_hi": u32(carry.state_count >> 32),
+        "unique_count": u32(carry.unique_count),
+        "depth": u32(carry.depth),
+        "disc": np.asarray(carry.disc, u32),
+    }
+
+
+class GpuChecker(Checker):
+    """Single-GPU wavefront checker behind the standard Checker surface."""
+
+    def __init__(
+        self,
+        options,
+        capacity: int = 1 << 20,
+        max_frontier: int = 1 << 15,  # per-chunk batch size, not a level cap
+        dedup_factor: int = 8,
+        device=None,
+        compiled: Optional[CompiledModel] = None,
+        resume_from: Optional[str] = None,
+        log_capacity: Optional[int] = None,
+    ):
+        """``capacity`` sizes the fingerprint table (slots; load is kept at
+        or below 50%), ``log_capacity`` the row log (positions = unique
+        states; defaults to ``capacity``), ``max_frontier`` the states one
+        wave expands and ``dedup_factor`` the compaction buffer
+        (``max(min(B, 16K), B / dedup_factor)`` lanes for B = max_frontier
+        * max_actions candidates).  An overflow grows the tripped buffer in
+        place: the table x16 (dragging a defaulted log), the log x2, the
+        compaction buffer straight to ``dedup_factor=1``, which cannot
+        overflow.  A buffer already at its ceiling raises instead.
+
+        ``device`` defaults to ``cuda``; with no card present the spawn
+        raises -- it never carries on on the CPU unless the caller asks for
+        ``device="cpu"``.  ``resume_from`` continues a run from a snapshot
+        of either engine (``save_snapshot``, JAX npz format), adopting its
+        table and log geometry."""
+        super().__init__(options.model)
+        if device is None:
+            device = "cuda"
+        device = torch.device(device)
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "spawn_gpu(): no CUDA device is available; pass "
+                    "device='cpu' to run the plain-torch twins on the CPU"
+                )
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+        self._device = device
+        self._options = options
+        self._compiled = compiled or compiled_model_for(options.model)
+        if capacity & (capacity - 1):
+            raise ValueError("capacity must be a power of two")
+        self._capacity = capacity
+        self._log_capacity = log_capacity or capacity
+        # An explicit log_capacity is the caller's memory geometry: growth of
+        # the table does not drag it along.
+        self._log_capacity_explicit = log_capacity is not None
+        self._max_frontier = max_frontier
+        self._dedup_factor = dedup_factor
+        self._resume_from = resume_from
+        self._properties = self._model.properties()
+        if len(self._properties) > 32:
+            raise ValueError("at most 32 properties supported on device")
+        self._ev_indices = [
+            i
+            for i, p in enumerate(self._properties)
+            if p.expectation is Expectation.EVENTUALLY
+        ]
+        self._fw_matched = make_finish_when_device(
+            options._finish_when, self._properties
+        )
+        self._discovery_slots: Dict[str, int] = {}
+        self._state_count = 0
+        self._unique_count = 0
+        self._max_depth = 0
+        self._carry: Optional[Carry] = None
+        self._waves = 0
+        self._grow_flags: List[int] = []  # overflow flags of each growth
+        self._discoveries_cache: Optional[Dict[str, Path]] = None
+        self._done = threading.Event()
+        self._errors: List[BaseException] = []
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    # --- run -------------------------------------------------------------
+
+    def _run(self) -> None:
+        try:
+            if self._device.type == "cuda":
+                torch.cuda.set_device(self._device)
+            self._carry = (
+                self._resume() if self._resume_from is not None else self._seed()
+            )
+            self._waves = WaveLoop(self).run()
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+        except BaseException as e:  # propagate at join, like the host engine
+            self._errors.append(e)
+        finally:
+            self._done.set()
+
+    def _seed(self) -> Carry:
+        """Insert the init states (through K1 and K4, electing the lowest
+        lane of equal init states, where the JAX engine uses its sorted
+        insert) and write the unique ones to positions 0.. in lane order."""
+        cm = self._compiled
+        w = cm.state_width
+        dev = self._device
+        init = cm.init_packed()
+        n_init = init.shape[0]
+        if n_init > self._max_frontier:
+            raise ValueError(
+                f"{n_init} init states exceed the chunk size "
+                f"({self._max_frontier}); raise spawn_gpu(max_frontier=...)"
+            )
+        init_t = from_numpy_u32(init, dev)
+        hi, lo = device_fp64(init_t)
+        active = torch.ones((n_init,), dtype=torch.bool, device=dev)
+        while True:
+            table = HashSet.empty(self._capacity, dev)
+            is_new, ok = insert_batch_claim(table, hi, lo, active)
+            sel, fcount = compact(is_new, n_init)
+            fcount, ok = (int(x) for x in torch.stack([fcount, ok.long()]).tolist())
+            if ok:
+                break
+            if self._grow_knob(1) is None:
+                raise RuntimeError(
+                    "init-state seeding overflowed the fingerprint table; "
+                    "raise spawn_gpu(capacity=...)"
+                )
+        qcap = max(self._log_capacity, fcount)
+        self._log_capacity = qcap
+        rows = torch.zeros((qcap * w,), dtype=torch.int32, device=dev)
+        rows[: fcount * w] = init_t[sel[:fcount].long()].reshape(-1)
+        parent = torch.full((qcap,), -1, dtype=torch.int32, device=dev)
+        ebits = torch.zeros((qcap,), dtype=torch.int32, device=dev)
+        eb0 = (1 << len(self._ev_indices)) - 1
+        ebits[:fcount] = (eb0 ^ 0x80000000) - 0x80000000  # as an int32 bit-view
+        return Carry(
+            table=table, rows=rows, parent=parent, ebits=ebits,
+            level_start=0, level_end=fcount, tail=fcount,
+            state_count=n_init, unique_count=fcount, depth=0,
+            disc=[NO_ID] * len(self._properties),
+        )
+
+    def _resume(self) -> Carry:
+        with np.load(self._resume_from, allow_pickle=False) as snap:
+            if "capacity" not in snap.files:
+                raise ValueError(
+                    "snapshot predates the rowlog-v3 format (no persisted "
+                    "geometry); re-run the original check"
+                )
+            got = str(snap["engine_key"])
+            want = snapshot_engine_key(self._compiled, self._properties)
+            if got != want:
+                raise ValueError(
+                    "snapshot does not match this checker configuration"
+                    f" (snapshot {got}, expected {want})"
+                )
+            arrays = {k: snap[k] for k in snap.files}
+        self._capacity = int(arrays["capacity"])
+        self._log_capacity = int(arrays["log_capacity"])
+        carry = carry_from_snapshot(arrays, self._device)
+        for p, prop in enumerate(self._properties):
+            if carry.disc[p] != NO_ID:
+                self._discovery_slots[prop.name] = carry.disc[p]
+        return carry
+
+    # --- wave-loop adapter (wave_loop.py) ---------------------------------
+
+    def _wl_remaining(self) -> int:
+        return self._carry.level_end - self._carry.level_start
+
+    def _wl_depth(self) -> int:
+        return self._carry.depth
+
+    def _wl_publish(self) -> None:
+        c = self._carry
+        with self._lock:
+            self._state_count = c.state_count
+            self._unique_count = c.unique_count
+            self._max_depth = c.depth + (1 if self._wl_remaining() else 0)
+            for p, prop in enumerate(self._properties):
+                if c.disc[p] != NO_ID:
+                    self._discovery_slots.setdefault(prop.name, c.disc[p])
+
+    def _wl_can_wave(self) -> bool:
+        c = self._carry
+        if c.level_start >= c.level_end:
+            return False
+        target = self._options._target_max_depth
+        # States at the target depth are counted but not expanded (the
+        # reference skips jobs with depth >= target at pop time).
+        if target and c.depth >= target - 1:
+            return False
+        return not self._fw_matched([d != NO_ID for d in c.disc])
+
+    def _wl_wave(self) -> int:
+        """Expand one chunk of the current level.  Returns the overflow
+        flags; the carry changes only when they are 0."""
+        c = self._carry
+        cm = self._compiled
+        w, a = cm.state_width, cm.max_actions
+        count = min(c.level_end - c.level_start, self._max_frontier)
+        lo_pos = c.level_start
+        states = c.rows[lo_pos * w : (lo_pos + count) * w].view(count, w)
+        ev = wave_eval(
+            cm, self._properties, self._ev_indices, states, lo_pos,
+            c.ebits[lo_pos : lo_pos + count], [d != NO_ID for d in c.disc],
+        )
+        flat = ev.nexts.view(count * a, w)
+        hi, lo = device_fp64(flat)
+        size = unique_buffer_size(self._max_frontier * a, self._dedup_factor)
+        v_hi, v_lo, v_orig, v_act, n_valid = compact_valid(
+            hi, lo, ev.valid.view(-1), size
+        )
+        is_new, probe_ok = insert_batch_claim(c.table, v_hi, v_lo, v_act)
+        sel, n_new = compact(is_new, size)
+        step_flag = (
+            ev.step_flag if ev.step_flag is not None
+            else torch.zeros((), dtype=torch.bool, device=self._device)
+        )
+        # The wave's one readback.
+        stats = torch.cat([
+            torch.stack([
+                n_new, n_valid, probe_ok.long(), step_flag.long(),
+            ]),
+            ev.disc_cand,
+        ]).tolist()
+        n_new, generated, ok, s_flag = (int(x) for x in stats[:4])
+        cands = [int(x) for x in stats[4:]]
+
+        flags = 0
+        if not ok or (c.unique_count + n_new) * 2 > self._capacity:
+            flags |= 1
+        if c.tail + n_new > self._log_capacity:
+            flags |= 2
+        if generated > size:
+            flags |= 4
+        if s_flag:
+            flags |= 8
+        if flags:
+            # Nothing commits.  The table may hold this wave's keys; growth
+            # rebuilds it from the committed log, which erases them.
+            return flags
+
+        if n_new:
+            # Append the new representatives' rows, parents and ebits as
+            # three contiguous block writes at the tail.
+            idxs = v_orig[sel[:n_new].long()].long()
+            src = idxs // a
+            t = c.tail
+            c.rows[t * w : (t + n_new) * w] = flat[idxs].reshape(-1)
+            c.parent[t : t + n_new] = i32(src + lo_pos)
+            c.ebits[t : t + n_new] = ev.eb[src]
+        c.tail += n_new
+        c.unique_count += n_new
+        c.state_count += generated
+        for p, cand in enumerate(cands):
+            if c.disc[p] == NO_ID and cand != NO_ID:
+                c.disc[p] = cand
+        c.level_start += count
+        if c.level_start >= c.level_end:
+            c.depth += 1
+            c.level_end = c.tail
+        return 0
+
+    def _wl_overflow_message(self, flags: int) -> str:
+        if flags & 8:
+            return (
+                "the model step kernel flagged an encoding-capacity "
+                "overflow (a successor exceeded the packed layout's "
+                "bounds); the compiled model's capacity assumptions "
+                "do not hold for this configuration"
+            )
+        return f"wavefront engine overflow flags={flags}"
+
+    def _wl_grow(self, flags: int) -> None:
+        """Grow the tripped buffers in place, then rebuild the table from
+        the committed log prefix (erasing the aborted wave's keys)."""
+        msgs = {
+            1: f"fingerprint table overfull (capacity {self._capacity}); "
+               "raise spawn_gpu(capacity=...)",
+            2: f"the state row log is full (log_capacity "
+               f"{self._log_capacity}); raise spawn_gpu(log_capacity=...)",
+            4: "a wave generated more valid successor candidates than the "
+               "compaction buffer holds; lower spawn_gpu(dedup_factor=...) "
+               f"(now {self._dedup_factor}; 1 is always safe)",
+        }
+        qcap = self._log_capacity
+        grown = []
+        for bit in (1, 2, 4):
+            if not flags & bit:
+                continue
+            if bit == 2 and self._log_capacity > qcap:
+                continue  # the table's growth already dragged the log
+            note = self._grow_knob(bit)
+            if note is None:
+                raise RuntimeError(msgs[bit])
+            grown.append(note)
+        self._grow_flags.append(flags)
+        logging.getLogger(__name__).warning(
+            "auto-tune: overflow flags=%d; growing in place (%s) at "
+            "unique=%d depth=%d", flags, " ".join(grown),
+            self._carry.unique_count, self._carry.depth,
+        )
+        c = self._carry
+        w = self._compiled.state_width
+        if self._log_capacity != qcap:
+            c.rows = _sized(c.rows, self._log_capacity * w, 0)
+            c.parent = _sized(c.parent, self._log_capacity, -1)
+            c.ebits = _sized(c.ebits, self._log_capacity, 0)
+        c.table = self._rehash(c.rows, c.tail)
+
+    def _grow_knob(self, flag: int) -> Optional[str]:
+        """Adjust the knob named by ``flag``; None if it cannot grow."""
+        row_bytes = 4 * self._compiled.state_width + 8
+        log_bound = max(self._log_capacity, _ROW_LOG_BYTE_BUDGET // row_bytes)
+        if flag == 1:
+            if self._capacity >= _MAX_TABLE_CAPACITY:
+                return None
+            self._capacity = min(self._capacity * 16, _MAX_TABLE_CAPACITY)
+            if not self._log_capacity_explicit:
+                self._log_capacity = min(
+                    max(
+                        self._log_capacity,
+                        min(self._capacity // 2, self._log_capacity * 2),
+                    ),
+                    log_bound,
+                )
+            return f"capacity={self._capacity}"
+        if flag == 2:
+            if self._log_capacity >= log_bound:
+                return None
+            self._log_capacity = min(self._log_capacity * 2, log_bound)
+            return f"log_capacity={self._log_capacity}"
+        if self._dedup_factor == 1:
+            return None
+        self._dedup_factor = 1
+        return "dedup_factor=1"
+
+    def _rehash(self, rows: torch.Tensor, tail: int) -> HashSet:
+        """A fresh table of the current capacity holding the fingerprints
+        of log positions ``[0, tail)`` (K1 + K4, every position a distinct
+        state)."""
+        w = self._compiled.state_width
+        table = HashSet.empty(self._capacity, self._device)
+        oks = []
+        for start in range(0, tail, _REHASH_ROWS):
+            n = min(_REHASH_ROWS, tail - start)
+            hi, lo = device_fp64(rows[start * w : (start + n) * w].view(n, w))
+            active = torch.ones((n,), dtype=torch.bool, device=self._device)
+            oks.append(insert_batch_claim(table, hi, lo, active)[1])
+        if oks and not bool(torch.stack(oks).all()):
+            raise RuntimeError(
+                "rehash after auto-tune growth could not place every "
+                "committed state; the grown table is still overfull"
+            )
+        return table
+
+    # --- results -----------------------------------------------------------
+
+    def save_snapshot(self, path: str) -> None:
+        """Persist the full run state in the JAX engine's npz format, so
+        either engine can resume it (``resume_from``)."""
+        self.join()
+        arrays = snapshot_arrays(self._carry, self._capacity, self._log_capacity)
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as fh:
+            np.savez_compressed(
+                fh,
+                engine_key=snapshot_engine_key(self._compiled, self._properties),
+                **arrays,
+            )
+        os.replace(tmp, path)
+
+    def discovered_fingerprints(self) -> np.ndarray:
+        """Sorted uint64 fingerprints of every discovered unique state."""
+        self.join()
+        c = self._carry
+        w = self._compiled.state_width
+        return fingerprints_of_rows(c.rows[: c.tail * w].view(c.tail, w))
+
+    def state_count(self) -> int:
+        return self._state_count
+
+    def unique_state_count(self) -> int:
+        return self._unique_count
+
+    def max_depth(self) -> int:
+        return self._max_depth
+
+    def table_load_factor(self) -> float:
+        """Occupied fraction of the finished run's fingerprint table."""
+        self.join()
+        return self._carry.table.load_factor()
+
+    def waves(self) -> int:
+        """Waves the finished run executed (re-runs after growth included)."""
+        self.join()
+        return self._waves
+
+    def _slot_path(self, slot: int) -> Path:
+        """Walk the parent chain from ``slot`` (one scalar read per step),
+        gather its rows and re-execute the host model along them."""
+        c = self._carry
+        w = self._compiled.state_width
+        chain = []
+        s = slot
+        while s != NO_ID:
+            if len(chain) > c.tail:
+                raise RuntimeError("parent chain does not end at an init state")
+            chain.append(s)
+            s = int(c.parent[s]) & M32
+        chain.reverse()
+        idx = torch.tensor(chain, dtype=torch.int64, device=self._device)
+        rows = to_numpy_u32(c.rows.view(-1, w)[idx])
+        fps = [
+            self._model.fingerprint(self._compiled.decode(r)) for r in rows
+        ]
+        return Path.from_fingerprints(self._model, fps)
+
+    def discoveries(self) -> Dict[str, Path]:
+        self.join()
+        if self._discoveries_cache is None:
+            with self._lock:
+                items = list(self._discovery_slots.items())
+            self._discoveries_cache = {
+                name: self._slot_path(slot) for name, slot in items
+            }
+        return dict(self._discoveries_cache)
+
+    def handles(self) -> List[threading.Thread]:
+        return [self._thread]
+
+    def is_done(self) -> bool:
+        return self._done.is_set()
+
+    def join(self) -> "GpuChecker":
+        self._thread.join()
+        if self._errors:
+            raise self._errors[0]
+        return self
