@@ -1,30 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA H100.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the four CUDA kernels of ``stateright_tpu_torch/csrc``
+1. build: compile the eight CUDA kernels of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
-   together) and print the card's name and power limit;
-2. per kernel, at the shapes the ``2pc check 10`` main path gives it
-   (F = 2**20 states, A = 52 actions, a 2**27-slot table, seeded inputs with
-   duplicate and pre-present keys): hold the kernel against its plain-torch
-   twin on the same tensors on the card -- bit-equal, these are integer
-   functions -- and time kernel, twin and, where one torch call computes
-   the same function, that call (CUDA events, after warm-up);
+   together), log each kernel entry that ``ptxas -v`` gave a stack frame
+   or spills, and print the card's name and power limit;
+2. the kernels of the ``2pc check 10`` path (K1-K4, K8) against their
+   plain-torch twins at the shapes that path gives them (F = 2**20
+   states, A = 52 actions, a 2**27-slot table, seeded inputs with
+   duplicate and pre-present keys) -- bit-equal, these are integer
+   functions -- timing kernel, twin and, where one torch call computes the
+   same function, that call (CUDA events, after warm-up);
 3. ``2pc check 5`` through ``spawn_gpu()``: 8,832 unique / 58,146 states /
    depth 17, its row log, parents and ebits bit-equal to the port's own CPU
-   run, every kernel launched;
+   run;
 4. ``2pc check 10`` through ``spawn_gpu()``: 61,515,776 unique at depth 32,
-   every kernel launched, the discoveries' paths re-executed on the host;
-5. one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
-   ``{"ok": true, "device": {...}}`` line.
+   K1-K4 and K8 launched, the discoveries' paths re-executed on the host;
+5. ``paxos check 2`` through ``spawn_gpu()``: 16,668 unique / 32,971
+   states / depth 21, bit-equal to the port's CPU run;
+6. ``paxos check 3`` through ``spawn_gpu()`` (two-phase expansion): the
+   golden 1,194,428 unique at depth 28, K1 and K3-K8 launched, the
+   discoveries re-executed on the host;
+7. the kernels of the ``paxos check 3`` path (K1, K3-K8) against their
+   twins on one real wave of that run, replayed from the card's own row
+   log -- the first wave of its widest level, against a table rebuilt as
+   it stood then -- bit-equal, timed like phase 2; the replayed wave must
+   append exactly the rows, parents and ebits the run appended;
+8. ``paxos check 3`` with the ``never decided`` property under
+   ANY_FAILURES: the counterexample found, replayed on the host, and the
+   time to it;
+9. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+   launches, times and bound all from that path's run and shapes -- the
+   ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
+   line.
 
-It imports neither ``jax`` nor ``stateright_tpu``, and exits non-zero with
-no result line where no CUDA device is visible or the port's package is not
-beside it.
+The launch counts of each path are set to 0 just before it and read just
+after; a kernel of the path launched no time fails the run.  The script
+imports neither ``jax`` nor ``stateright_tpu``, uses one card (the first
+visible one), and exits non-zero with no result line where no CUDA device
+is visible or the port's package is not beside it.
 """
 
 from __future__ import annotations
@@ -44,36 +62,103 @@ LOG_CAPACITY = 1 << 26  # >= 61,515,776 positions
 HBM_BYTES_PER_SEC = 3.35e12  # H100 SXM, NVIDIA data sheet
 GOLDEN_RM5 = (8_832, 58_146, 17)
 GOLDEN_RM10 = (61_515_776, 32)
+GOLDEN_PAXOS2 = (16_668, 32_971, 21)
+GOLDEN_PAXOS3 = (1_194_428, 28)
+# paxos check 3: 1,194,428 states fill a 2**22-slot table to 0.28 and a
+# 2**21-position log to 0.57; a wave expands 2**16 states (2**21 lanes) into
+# a compaction buffer of 2**21 / 4 lanes, about five times the valid lanes
+# of the widest wave.
+PAXOS3_GEOMETRY = dict(
+    capacity=1 << 22, log_capacity=1 << 21, max_frontier=1 << 16,
+    dedup_factor=4,
+)
 SEED = 20261017
 
-KERNELS = (
-    # name, source, the JAX function it replaces
-    ("device_fp64", "stateright_tpu_torch/csrc/device_fp.cu",
-     "stateright_tpu/ops/device_fp.py:52"),
-    ("twophase_step", "stateright_tpu_torch/csrc/twophase_step.cu",
-     "stateright_tpu/models/twophase_compiled.py:95"),
-    ("compact", "stateright_tpu_torch/csrc/compact.cu",
-     "stateright_tpu/parallel/wave_common.py:267"),
-    ("insert_batch_claim", "stateright_tpu_torch/csrc/hashset.cu",
-     "stateright_tpu/parallel/hashset.py:365"),
-)
+KERNELS = {
+    # name: (source, the JAX function it replaces)
+    "device_fp64": ("stateright_tpu_torch/csrc/device_fp.cu",
+                    "stateright_tpu/ops/device_fp.py:52"),
+    "twophase_step": ("stateright_tpu_torch/csrc/twophase_step.cu",
+                      "stateright_tpu/models/twophase_compiled.py:95"),
+    "compact": ("stateright_tpu_torch/csrc/compact.cu",
+                "stateright_tpu/parallel/wave_common.py:267"),
+    "insert_batch_claim": ("stateright_tpu_torch/csrc/hashset.cu",
+                           "stateright_tpu/parallel/hashset.py:365"),
+    "paxos_step_valid": ("stateright_tpu_torch/csrc/paxos_valid.cu",
+                         "stateright_tpu/models/paxos_compiled.py:549"),
+    "paxos_conds": ("stateright_tpu_torch/csrc/paxos_conds.cu",
+                    "stateright_tpu/models/paxos_compiled.py:919"),
+    "paxos_step_lane": ("stateright_tpu_torch/csrc/paxos_lane.cu",
+                        "stateright_tpu/models/paxos_compiled.py:625"),
+    "wave_eval": ("stateright_tpu_torch/csrc/wave_eval.cu",
+                  "stateright_tpu/parallel/wave_common.py:282"),
+}
+# The kernels each path must launch; the kernels line has a row for each.
+PATH_KERNELS = {
+    "rm10": ("device_fp64", "twophase_step", "compact", "insert_batch_claim",
+             "wave_eval"),
+    "paxos3": ("device_fp64", "compact", "insert_batch_claim",
+               "paxos_step_valid", "paxos_conds", "paxos_step_lane",
+               "wave_eval"),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def use_one_card() -> str:
+    """Make only the first visible card visible to this process (before
+    torch is imported), so the run uses one card and
+    ``torch.cuda.device_count()`` says so; returns its ``nvidia-smi``
+    index or UUID."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
+    os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    return visible
+
+
 def gpu_line() -> str:
+    """``name, power.limit`` of the card the run uses."""
+    card = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "-i", card, "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
 
 
+def ptxas_frames(build_dir) -> dict:
+    """Each kernel entry's local-memory use as ``ptxas -v`` reported it in
+    ``_build/<source>.log``: ``{entry: (stack frame, spill stores, spill
+    loads)}`` in bytes."""
+    import re
+
+    frames = {}
+    for log_path in sorted(build_dir.glob("*.log")):
+        entry = None
+        for line in log_path.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and entry:
+                frames[entry] = tuple(int(x) for x in m.groups())
+    return frames
+
+
+# Cycles of the spin queued ahead of each timed call (about 1 ms at the
+# H100's clock): the host queues the call while the card spins, so the
+# window holds the call's device time and not its launch overhead.
+SPIN_CYCLES = 2_000_000
+
+
 def time_ms(torch, fn, reps: int, setup=None) -> float:
     """Mean CUDA-event time of ``fn`` over ``reps`` runs after two warm-up
-    runs; ``setup`` runs before each, outside the timed window."""
+    runs; ``setup`` runs before each, outside the timed window.  Each run is
+    queued behind a spin on the card; a twin that waits on the card inside
+    ``fn`` still counts its host time."""
     for _ in range(2):
         if setup is not None:
             setup()
@@ -84,6 +169,7 @@ def time_ms(torch, fn, reps: int, setup=None) -> float:
             setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -136,38 +222,29 @@ def probe_bytes(torch, keys, hi, lo, active) -> int:
     return 8 * probes
 
 
-def phase_kernels(torch):
-    """Each kernel against its twin at main-path shapes; returns rows of
-    the kernels line keyed by kernel name (launches filled in later)."""
+def phase_kernels(torch, rows):
+    """The ``2pc check 10`` path's kernels against their twins at that
+    path's shapes; adds their rows of the kernels line to ``rows``
+    (launches filled in later)."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
     from stateright_tpu_torch.models.twophase_compiled import (
         twophase_step, twophase_step_plain,
     )
     from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
     from stateright_tpu_torch.ops.u32 import i32
     from stateright_tpu_torch.parallel.hashset import (
-        HashSet, insert_batch_claim, insert_batch_claim_plain, keys_equal,
-        unique_buffer_size,
+        HashSet, insert_batch_claim, unique_buffer_size,
     )
-    from stateright_tpu_torch.parallel.wave_common import compact, compact_plain
+    from stateright_tpu_torch.parallel.wave_common import (
+        prop_kinds, wave_eval, wave_eval_plain,
+    )
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     a = 2 + 5 * RM
-    rows = {}
 
-    def row(name, err, ms, plain_ms, nbytes, library_ms=None):
-        rows[name] = dict(
-            name=name, route="cuda", max_abs_err=err, bit_equal=err == 0,
-            ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-            bound_ms=nbytes / HBM_BYTES_PER_SEC * 1e3, bound_by="bytes",
-            library_ms=library_ms,
-        )
-        log(f"  {name}: max_abs_err={err} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={rows[name]['bound_ms']:.4f} "
-            f"library_ms={library_ms}")
-        if err:
-            raise AssertionError(f"{name} disagrees with its plain twin")
+    row = kernel_row(rows, "rm10")
 
     # K2 at F states.
     states = random_states(torch, gen, F, RM)
@@ -178,7 +255,7 @@ def phase_kernels(torch):
         time_ms(torch, lambda: twophase_step(states, RM), 10),
         time_ms(torch, lambda: twophase_step_plain(states, RM), 2),
         F * 8 + F * a * (8 + 1) + F * 3)
-    nexts, valid, _conds = k2
+    nexts, valid, conds = k2
     del p2
 
     # K1 on the F*A successor rows.
@@ -194,18 +271,10 @@ def phase_kernels(torch):
 
     # K3 on the F*A validity lanes into the dd=1 buffer the main path uses.
     mask = valid.view(-1)
-    size = unique_buffer_size(F * a, 1)
-    k3 = compact(mask, size)
-    p3 = compact_plain(mask, size)
-    lanes = torch.arange(mask.shape[0], dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    row("compact", max_abs_err(torch, zip(k3, p3)),
-        time_ms(torch, lambda: compact(mask, size), 10),
-        time_ms(torch, lambda: compact_plain(mask, size), 2),
-        mask.shape[0] + size * 4 + 8,
-        library_ms=time_ms(torch, lambda: lanes[mask], 10))
-    log(f"  compact: {int(k3[1])} of {mask.shape[0]} lanes valid")
-    del p3, lanes
+    err, ms, plain_ms, library_ms, nbytes, _out = measure_compact(
+        torch, mask, unique_buffer_size(F * a, 1))
+    row("compact", err, ms, plain_ms, nbytes, library_ms=library_ms)
+    log(f"  compact: {int(mask.sum())} of {mask.shape[0]} lanes valid")
 
     # K4: a 2**27-slot table prefilled with a quarter of its slots' worth of
     # keys, then a main-path-sized batch (one lane per candidate) whose
@@ -225,38 +294,63 @@ def phase_kernels(torch):
     pick = torch.randint(0, CAPACITY // 2, (n,), generator=gen, device=dev)
     b_hi, b_lo = pool_hi[pick].contiguous(), pool_lo[pick].contiguous()
     active = torch.rand((n,), generator=gen, device=dev) < 0.3
-    saved = base.keys.clone()
-    k_table = base
-    k_new, k_ok = insert_batch_claim(k_table, b_hi, b_lo, active)
-    p_keys = saved.clone()
-    p_new, p_ok = insert_batch_claim_plain(p_keys, b_hi, b_lo, active)
+    check_insert(torch, row, base, b_hi, b_lo, active)
+    del base, pool, b_hi, b_lo, active
+
+    # K8 on K2's conds and validity with 2pc's property kinds (no
+    # eventually property, so the eventually-bits stay 0), nothing
+    # discovered yet.  K8 gates its valid input in place: each call gets a
+    # fresh copy.
+    kinds = prop_kinds(TwoPhaseSys(rm_count=RM).properties())
+    eb = torch.zeros((F,), dtype=torch.int32, device=dev)
+    gated = valid.clone()
+
+    def fresh():
+        gated.copy_(valid)
+
+    k8 = wave_eval(conds, gated, eb, 0, kinds, 0)
+    p8 = wave_eval_plain(conds, valid.clone(), eb, 0, kinds, 0)
     torch.cuda.synchronize()
-    same_set = keys_equal(k_table, HashSet(p_keys))
-    err = max_abs_err(torch, [(k_new, p_new), (k_ok, p_ok)]) + (0 if same_set else 1)
-    # Every lane's active byte read and new byte written; the key words of
-    # the active lanes only (the kernel skips the rest); each probed slot
-    # once; each new key written once.
-    n_active = int(active.sum())
-    nbytes = (
-        n * (1 + 1)
-        + n_active * (4 + 4)
-        + probe_bytes(torch, k_table.keys, b_hi, b_lo, active)
-        + 8 * int(k_new.sum())
+    n_props = conds.shape[1]
+    row("wave_eval", max_abs_err(torch, zip(k8, p8)),
+        time_ms(torch, lambda: wave_eval(conds, gated, eb, 0, kinds, 0), 10,
+                setup=fresh),
+        time_ms(torch, lambda: wave_eval_plain(conds, valid, eb, 0, kinds, 0), 2),
+        F * n_props + 2 * F * a + 2 * F * 4 + n_props * 8)
+    log(f"  wave_eval: candidates {k8[2].tolist()}")
+
+
+def kernel_row(rows, path):
+    """A recorder of ``path``'s kernels-line rows into ``rows``, keyed by
+    (kernel, path); raises on a kernel that disagrees with its twin."""
+
+    def row(name, err, ms, plain_ms, nbytes, library_ms=None):
+        rows[name, path] = r = dict(
+            name=name, path=path, route="cuda", max_abs_err=err,
+            bit_equal=err == 0, ms=ms, plain_ms=plain_ms,
+            bound_ms=nbytes / HBM_BYTES_PER_SEC * 1e3, bound_by="bytes",
+            library_ms=library_ms,
+        )
+        log(f"  {name} [{path}]: max_abs_err={err} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"bytes={nbytes} library_ms={library_ms}")
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain twin")
+
+    return row
+
+
+def launch_counted():
+    from stateright_tpu_torch.models.paxos_compiled import (
+        paxos_conds, paxos_step_lane, paxos_step_valid,
     )
-    log(f"  insert_batch_claim: {n_active} active lanes, "
-        f"{int(k_new.sum())} new, load after {k_table.load_factor():.4f}")
-    del p_keys
+    from stateright_tpu_torch.models.twophase_compiled import twophase_step
+    from stateright_tpu_torch.ops.device_fp import device_fp64
+    from stateright_tpu_torch.parallel.hashset import insert_batch_claim
+    from stateright_tpu_torch.parallel.wave_common import compact, wave_eval
 
-    def restore():
-        k_table.keys.copy_(saved)
-
-    row("insert_batch_claim", err,
-        time_ms(torch, lambda: insert_batch_claim(k_table, b_hi, b_lo, active),
-                10, setup=restore),
-        time_ms(torch, lambda: insert_batch_claim_plain(
-            k_table.keys, b_hi, b_lo, active), 2, setup=restore),
-        nbytes)
-    return rows
+    return (device_fp64, twophase_step, compact, insert_batch_claim,
+            paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval)
 
 
 def reset_launches():
@@ -264,24 +358,19 @@ def reset_launches():
         fn.launches = 0
 
 
-def launch_counted():
-    from stateright_tpu_torch.models.twophase_compiled import twophase_step
-    from stateright_tpu_torch.ops.device_fp import device_fp64
-    from stateright_tpu_torch.parallel.hashset import insert_batch_claim
-    from stateright_tpu_torch.parallel.wave_common import compact
-
-    return (device_fp64, twophase_step, compact, insert_batch_claim)
-
-
-def read_launches():
+def read_launches(path):
+    """The launch counts since the last reset; raises if a kernel of
+    ``path`` was launched no time."""
     counts = {fn.__name__: fn.launches for fn in launch_counted()}
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(
+            f"kernels never launched on the {path} path: {missing}"
+        )
     return counts
 
 
-def snapshot_logs(checker, tmpdir, tag):
+def snapshot_logs(checker, tmpdir, tag, width):
     import numpy as np
 
     path = os.path.join(tmpdir, f"{tag}.npz")
@@ -289,10 +378,25 @@ def snapshot_logs(checker, tmpdir, tag):
     with np.load(path) as snap:
         tail = int(snap["tail"])
         return {
-            "rows": snap["rows"][: 2 * tail].copy(),
+            "rows": snap["rows"][: width * tail].copy(),
             "parent": snap["parent"][:tail].copy(),
             "ebits": snap["ebits"][:tail].copy(),
         }
+
+
+def assert_same_as_cpu(gpu, cpu, what, width):
+    """The card's run against the port's CPU run: logs, fingerprints and
+    discoveries bit-equal."""
+    with tempfile.TemporaryDirectory() as tmp:
+        g = snapshot_logs(gpu, tmp, "gpu", width)
+        c = snapshot_logs(cpu, tmp, "cpu", width)
+    for k in g:
+        if g[k].shape != c[k].shape or not (g[k] == c[k]).all():
+            raise AssertionError(f"{what} {k} differs between card and CPU runs")
+    if sorted(gpu.discoveries()) != sorted(cpu.discoveries()):
+        raise AssertionError(f"{what} discoveries differ between card and CPU")
+    if not (gpu.discovered_fingerprints() == cpu.discovered_fingerprints()).all():
+        raise AssertionError(f"{what} fingerprints differ between card and CPU")
 
 
 def phase_rm5(torch):
@@ -301,22 +405,14 @@ def phase_rm5(torch):
     kw = dict(capacity=1 << 14, max_frontier=1 << 9)
     reset_launches()
     gpu = TwoPhaseSys(rm_count=5).checker().spawn_gpu(**kw).join()
-    launches = read_launches()
+    launches = read_launches("rm10")
     cpu = TwoPhaseSys(rm_count=5).checker().spawn_gpu(device="cpu", **kw).join()
     got = (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth())
     log(f"  rm=5 on the card: unique={got[0]} states={got[1]} depth={got[2]} "
         f"launches={launches}")
     if got != GOLDEN_RM5:
         raise AssertionError(f"rm=5 counts {got} != {GOLDEN_RM5}")
-    with tempfile.TemporaryDirectory() as tmp:
-        g, c = snapshot_logs(gpu, tmp, "gpu"), snapshot_logs(cpu, tmp, "cpu")
-    for k in g:
-        if g[k].shape != c[k].shape or not (g[k] == c[k]).all():
-            raise AssertionError(f"rm=5 {k} differs between card and CPU runs")
-    if sorted(gpu.discoveries()) != sorted(cpu.discoveries()):
-        raise AssertionError("rm=5 discoveries differ between card and CPU")
-    if not (gpu.discovered_fingerprints() == cpu.discovered_fingerprints()).all():
-        raise AssertionError("rm=5 fingerprints differ between card and CPU")
+    assert_same_as_cpu(gpu, cpu, "rm=5", 2)
     gpu.assert_properties()
     log("  rm=5: row log, parents and ebits bit-equal to the CPU run")
 
@@ -345,7 +441,7 @@ def phase_rm10(torch, gpu):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     checker, elapsed = run_rm10(torch)
-    launches = read_launches()
+    launches = read_launches("rm10")
     unique, depth = checker.unique_state_count(), checker.max_depth()
     peak = torch.cuda.max_memory_allocated()
     log(f"  rm=10: unique={unique} states={checker.state_count()} "
@@ -359,7 +455,315 @@ def phase_rm10(torch, gpu):
     return launches
 
 
+def paxos_model(c, never_decided=False):
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+
+    return PaxosModelCfg(
+        c, 3, Network.new_unordered_nonduplicating(), never_decided=never_decided
+    ).into_model()
+
+
+def phase_paxos2(torch):
+    from stateright_tpu_torch.models.paxos_compiled import state_width
+
+    kw = dict(capacity=1 << 16, max_frontier=1 << 12)
+    gpu = paxos_model(2).checker().spawn_gpu(**kw).join()
+    cpu = paxos_model(2).checker().spawn_gpu(device="cpu", **kw).join()
+    got = (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth())
+    log(f"  paxos check 2 on the card: unique={got[0]} states={got[1]} "
+        f"depth={got[2]} waves={gpu.waves()}")
+    if got != GOLDEN_PAXOS2:
+        raise AssertionError(f"paxos check 2 counts {got} != {GOLDEN_PAXOS2}")
+    assert_same_as_cpu(gpu, cpu, "paxos check 2", state_width(2))
+    gpu.assert_properties()
+    log("  paxos check 2: row log, parents and ebits bit-equal to the CPU run")
+
+
+def run_paxos3(torch):
+    """``paxos check 3`` through ``spawn_gpu()`` at ``PAXOS3_GEOMETRY``,
+    held to its golden; returns the joined checker and its wall seconds.
+    ``gpu_profile.py --model paxos3`` times and traces this same run."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = paxos_model(3).checker().spawn_gpu(**PAXOS3_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.max_depth())
+    if got != GOLDEN_PAXOS3:
+        raise AssertionError(f"paxos check 3 {got} != {GOLDEN_PAXOS3}")
+    return checker, elapsed
+
+
+def phase_paxos3(torch, gpu):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    checker, elapsed = run_paxos3(torch)
+    launches = read_launches("paxos3")
+    unique, depth = checker.unique_state_count(), checker.max_depth()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  paxos check 3: unique={unique} states={checker.state_count()} "
+        f"depth={depth} waves={checker.waves()} growths={checker._grow_flags} "
+        f"elapsed_s={elapsed:.3f} unique_per_s={unique / elapsed:.1f} "
+        f"peak_bytes={peak} load={checker.table_load_factor():.4f} card={gpu!r}")
+    log(f"  paxos check 3 launches: {launches}")
+    checker.assert_properties()
+    paths = {k: len(p) - 1 for k, p in checker.discoveries().items()}
+    log(f"  paxos check 3 discoveries re-executed: {paths}")
+    return launches, checker
+
+
+def replay_wave(torch, checker):
+    """One real wave of the card's own ``paxos check 3`` run: the first
+    chunk of its widest level.  Returns its rows, start position,
+    eventually-bits, discovered mask, the run's table as it stood when the
+    wave ran (every state of the levels before, rebuilt from the log), and
+    the positions the run appended from that wave."""
+    from stateright_tpu_torch.ops.device_fp import device_fp64
+    from stateright_tpu_torch.parallel.hashset import HashSet, insert_batch_claim
+    from stateright_tpu_torch.parallel.wave_common import NO_ID
+
+    carry = checker._carry
+    w = checker._compiled.state_width
+    f = PAXOS3_GEOMETRY["max_frontier"]
+    parent = carry.parent[: carry.tail].long()
+    # BFS depth of every position: the log is in level order.
+    depth = torch.zeros_like(parent)
+    has_parent = parent >= 0
+    for _ in range(checker.max_depth() + 1):
+        depth = torch.where(has_parent, depth[parent.clamp(min=0)] + 1, 0)
+    sizes = torch.bincount(depth)
+    widest = int(sizes.argmax())
+    start = int(sizes[:widest].sum())
+    level_end = start + int(sizes[widest])
+    n = min(f, level_end - start)
+    states = carry.rows[start * w : (start + n) * w].view(n, w)
+    # When the level's first chunk ran, the table held exactly the states
+    # of the levels before it and of this one: positions [0, level_end).
+    table = HashSet.empty(PAXOS3_GEOMETRY["capacity"], states.device)
+    hi, lo = device_fp64(carry.rows[: level_end * w].view(level_end, w))
+    insert_batch_claim(table, hi, lo,
+                       torch.ones((level_end,), dtype=torch.bool,
+                                  device=states.device))
+    discovered = sum(
+        1 << p for p, d in enumerate(carry.disc) if d != NO_ID and d < start
+    )
+    from_wave = (parent >= start) & (parent < start + n)
+    appended = torch.nonzero(from_wave).flatten()
+    log(f"  replayed wave: level {widest} of {int(sizes[widest])} states, "
+        f"log positions {start}..{start + n}, table of {level_end} states, "
+        f"discovered mask {discovered}, {appended.numel()} states appended")
+    return states, start, carry.ebits[start : start + n], discovered, table, appended
+
+
+def phase_paxos_kernels(torch, checker, rows):
+    """The ``paxos check 3`` path's kernels against their twins on one real
+    wave of its run (:func:`replay_wave`), each called as the engine calls
+    it; the replayed wave must append what the run appended."""
+    from stateright_tpu_torch.models.paxos_compiled import (
+        paxos_conds, paxos_conds_plain, paxos_step_lane, paxos_step_lane_plain,
+        paxos_step_valid, paxos_step_valid_plain,
+    )
+    from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
+    from stateright_tpu_torch.parallel.hashset import (
+        compact_valid_indices, unique_buffer_size,
+    )
+    from stateright_tpu_torch.parallel.wave_common import (
+        prop_kinds, wave_eval, wave_eval_plain,
+    )
+
+    row = kernel_row(rows, "paxos3")
+    cm = checker._compiled
+    c, w, m = cm.c, cm.state_width, cm.m
+    carry = checker._carry
+    states, start, eb, discovered, table, appended = replay_wave(torch, checker)
+    f = states.shape[0]
+
+    k5 = paxos_step_valid(states, c)
+    p5 = paxos_step_valid_plain(states, c)
+    torch.cuda.synchronize()
+    row("paxos_step_valid", max_abs_err(torch, [(k5, p5)]),
+        time_ms(torch, lambda: paxos_step_valid(states, c), 10),
+        time_ms(torch, lambda: paxos_step_valid_plain(states, c), 2),
+        f * w * 4 + f * m)
+    log(f"  paxos_step_valid: {int(k5.sum())} of {f * m} lanes valid")
+
+    k6 = paxos_conds(states, c, cm.never_decided)
+    p6 = paxos_conds_plain(states, c, cm.never_decided)
+    torch.cuda.synchronize()
+    n_props = k6.shape[1]
+    row("paxos_conds", max_abs_err(torch, [(k6, p6)]),
+        time_ms(torch, lambda: paxos_conds(states, c, cm.never_decided), 10),
+        time_ms(torch, lambda: paxos_conds_plain(states, c, cm.never_decided), 2),
+        f * w * 4 + f * n_props)
+
+    # K8 gates its valid input in place: each call gets a fresh copy.
+    kinds = prop_kinds(checker._properties)
+    valid = k5.clone()
+
+    def fresh():
+        valid.copy_(k5)
+
+    k8 = wave_eval(k6, valid, eb, start, kinds, discovered)
+    p8 = wave_eval_plain(k6, k5.clone(), eb, start, kinds, discovered)
+    torch.cuda.synchronize()
+    row("wave_eval", max_abs_err(torch, zip(k8, p8)),
+        time_ms(torch, lambda: wave_eval(k6, valid, eb, start, kinds,
+                                         discovered), 10, setup=fresh),
+        time_ms(torch, lambda: wave_eval_plain(k6, k5, eb, start, kinds,
+                                               discovered), 2),
+        f * n_props + 2 * f * m + 2 * f * 4 + n_props * 8)
+    log(f"  wave_eval: candidates {k8[2].tolist()}")
+
+    # K3 runs twice a wave: on the F * M lane validity (through
+    # compact_valid_indices), then on the U-lane "new" mask after K4.  Its
+    # row is the mean of the two calls, as its launches count both.
+    size = unique_buffer_size(PAXOS3_GEOMETRY["max_frontier"] * m,
+                              PAXOS3_GEOMETRY["dedup_factor"])
+    gated = k8[0].view(-1)
+    v_orig, v_act, n_valid = compact_valid_indices(gated, size)
+    n = int(n_valid)
+    if n > size:
+        raise AssertionError(f"{n} valid lanes overflow the {size}-lane buffer")
+    k3_valid = measure_compact(torch, gated, size)
+    if k3_valid[0] or not (k3_valid[5] == v_orig).all():
+        raise AssertionError("compact_valid_indices disagrees with its twin")
+
+    k_rows, k_flags = paxos_step_lane(states, v_orig, n_valid, c)
+    p_rows, p_flags = paxos_step_lane_plain(states, v_orig, n_valid, c)
+    torch.cuda.synchronize()
+    parents = int(torch.unique(v_orig[:n].long() // m).numel())
+    row("paxos_step_lane",
+        max_abs_err(torch, [(k_rows[:n], p_rows[:n]), (k_flags, p_flags)]),
+        time_ms(torch, lambda: paxos_step_lane(states, v_orig, n_valid, c), 10),
+        time_ms(torch, lambda: paxos_step_lane_plain(states, v_orig, n_valid, c), 2),
+        n * 4 + parents * w * 4 + 8 + n * w * 4 + size)
+    log(f"  paxos_step_lane: {n} lanes of a {size}-lane buffer, "
+        f"{parents} parent rows, {int(k_flags.sum())} flagged")
+    del p_rows, p_flags
+
+    # K1 on the whole U-row successor buffer, as the engine hashes it.
+    k1 = device_fp64(k_rows)
+    p1 = device_fp64_plain(k_rows)
+    torch.cuda.synchronize()
+    row("device_fp64", max_abs_err(torch, zip(k1, p1)),
+        time_ms(torch, lambda: device_fp64(k_rows), 10),
+        time_ms(torch, lambda: device_fp64_plain(k_rows), 2),
+        size * (w * 4 + 8))
+    hi, lo = k1
+
+    # K4 into the table as it stood when the wave ran.
+    k_new = check_insert(torch, row, table, hi, lo, v_act)
+    n_new = int(k_new.sum())
+
+    k3_new = measure_compact(torch, k_new, size)
+    sel = k3_new[5]
+    (e1, t1, q1, l1, b1, _), (e2, t2, q2, l2, b2, _) = k3_valid, k3_new
+    log(f"  compact on the validity: {t1:.4f} ms (bound "
+        f"{b1 / HBM_BYTES_PER_SEC * 1e3:.4f}); on the new mask: {t2:.4f} ms "
+        f"(bound {b2 / HBM_BYTES_PER_SEC * 1e3:.4f})")
+    row("compact", e1 + e2, (t1 + t2) / 2, (q1 + q2) / 2, (b1 + b2) / 2,
+        library_ms=(l1 + l2) / 2)
+
+    # The replayed wave appends exactly what the run appended.
+    lanes = sel[:n_new].long()
+    idxs = v_orig[lanes].long()
+    at = torch.arange(appended.numel(), device=appended.device)
+    if n_new != appended.numel() or not (
+        (appended == appended[0] + at).all()
+        and (k_rows[lanes] == carry.rows.view(-1, w)[appended]).all()
+        and (carry.parent[appended].long() == start + idxs // m).all()
+        and (carry.ebits[appended] == k8[1][idxs // m]).all()
+    ):
+        raise AssertionError("the replayed wave does not append what the run did")
+    log(f"  the replayed wave appends the run's {n_new} rows, parents and ebits")
+
+
+def check_insert(torch, row, table, hi, lo, active):
+    """K4 into ``table`` against its twin on a copy, timed from the same
+    table contents each call; records its row and returns the kernel's
+    new-key mask."""
+    from stateright_tpu_torch.parallel.hashset import (
+        HashSet, insert_batch_claim, insert_batch_claim_plain, keys_equal,
+    )
+
+    saved = table.keys.clone()
+    k_new, k_ok = insert_batch_claim(table, hi, lo, active)
+    p_keys = saved.clone()
+    p_new, p_ok = insert_batch_claim_plain(p_keys, hi, lo, active)
+    torch.cuda.synchronize()
+    same_set = keys_equal(table, HashSet(p_keys))
+    err = max_abs_err(torch, [(k_new, p_new), (k_ok, p_ok)]) + (0 if same_set else 1)
+    del p_keys
+    # Every lane's active byte read and new byte written; the key words of
+    # the active lanes only (the kernel skips the rest); each probed slot
+    # once; each new key written once.
+    n_active, n_new = int(active.sum()), int(k_new.sum())
+    nbytes = (
+        active.shape[0] * (1 + 1) + n_active * (4 + 4)
+        + probe_bytes(torch, table.keys, hi, lo, active) + 8 * n_new
+    )
+    log(f"  insert_batch_claim: {n_active} active lanes, {n_new} new, "
+        f"load after {table.load_factor():.4f}")
+
+    def restore():
+        table.keys.copy_(saved)
+
+    row("insert_batch_claim", err,
+        time_ms(torch, lambda: insert_batch_claim(table, hi, lo, active), 10,
+                setup=restore),
+        time_ms(torch, lambda: insert_batch_claim_plain(table.keys, hi, lo, active),
+                2, setup=restore),
+        nbytes)
+    return k_new
+
+
+def measure_compact(torch, mask, size):
+    """K3 on ``mask`` into ``size`` lanes against its twin: returns
+    ``(max_abs_err, ms, plain_ms, library_ms, bytes, out)``; the bytes are
+    the mask read once, the lanes and the count written once."""
+    from stateright_tpu_torch.parallel.wave_common import compact, compact_plain
+
+    k = compact(mask, size)
+    p = compact_plain(mask, size)
+    lanes = torch.arange(mask.shape[0], dtype=torch.int32, device=mask.device)
+    torch.cuda.synchronize()
+    return (
+        max_abs_err(torch, zip(k, p)),
+        time_ms(torch, lambda: compact(mask, size), 10),
+        time_ms(torch, lambda: compact_plain(mask, size), 2),
+        time_ms(torch, lambda: lanes[mask], 10),
+        mask.shape[0] + size * 4 + 8,
+        k[0],
+    )
+
+
+def phase_never_decided(torch):
+    """The time-to-first-violation run: ``never decided`` fails, the run
+    stops at the first wave that finds it, and the path replays."""
+    from stateright_tpu_torch.core.has_discoveries import HasDiscoveries
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = (
+        paxos_model(3, never_decided=True).checker()
+        .finish_when(HasDiscoveries.ANY_FAILURES)
+        .spawn_gpu(**PAXOS3_GEOMETRY).join()
+    )
+    elapsed = time.monotonic() - t0
+    path = checker.discoveries().get("never decided")
+    if path is None:
+        raise AssertionError("never decided: no counterexample found")
+    last = path.last_state()
+    if not any(getattr(a, "is_decided", False) for a in last.actor_states):
+        raise AssertionError("never decided: the replayed path ends undecided")
+    log(f"  never decided: counterexample of {len(path) - 1} steps replayed; "
+        f"time_to_violation_s={elapsed:.3f} unique={checker.unique_state_count()} "
+        f"depth={checker.max_depth()} waves={checker.waves()}")
+
+
 def main() -> int:
+    use_one_card()
     try:
         import torch
     except ImportError:
@@ -381,38 +785,61 @@ def main() -> int:
     secs = kcuda.build()
     log(f"  built {sorted(secs)} in {time.monotonic() - t0:.1f}s "
         f"(per source: {', '.join(f'{k}={v:.1f}s' for k, v in secs.items())})")
+    frames = ptxas_frames(kcuda.BUILD_DIR)
+    local = {k: v for k, v in frames.items() if any(v)}
+    log(f"  ptxas: {len(frames)} kernel entries, those with a stack frame or "
+        f"spills (bytes of frame, spill stores, spill loads): {local}")
     gpu = gpu_line()
     log(f"  card: {gpu}")
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    log("phase 2: kernels against their plain twins at main-path shapes")
-    rows = phase_kernels(torch)
+    log("phase 2: the 2pc check 10 path's kernels against their twins")
+    rows = {}
+    phase_kernels(torch, rows)
     torch.cuda.empty_cache()
 
     log("phase 3: 2pc check 5 on the card")
     phase_rm5(torch)
 
     log("phase 4: 2pc check 10 on the card")
-    launches = phase_rm10(torch, gpu)
+    launches = {"rm10": phase_rm10(torch, gpu)}
+    torch.cuda.empty_cache()
+
+    log("phase 5: paxos check 2 on the card")
+    phase_paxos2(torch)
+
+    log("phase 6: paxos check 3 on the card")
+    launches["paxos3"], checker = phase_paxos3(torch, gpu)
+
+    log("phase 7: the paxos check 3 path's kernels against their twins on "
+        "one of its waves")
+    phase_paxos_kernels(torch, checker, rows)
+    del checker
+    torch.cuda.empty_cache()
+
+    log("phase 8: paxos check 3, never decided, to the first violation")
+    phase_never_decided(torch)
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []
-    for name, source, replaces in KERNELS:
-        r = rows[name]
-        kernels.append(dict(
-            name=name, route=r["route"], source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
-            bit_equal=r["bit_equal"], ms=r["ms"], kernel_ms=r["kernel_ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
-        ))
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            r = rows[name, path]
+            source, replaces = KERNELS[name]
+            kernels.append(dict(
+                name=name, path=path, route=r["route"], source=source,
+                replaces=replaces, launches=launches[path][name],
+                max_abs_err=r["max_abs_err"], bit_equal=r["bit_equal"],
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+            ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,
     }}), flush=True)
     return 0
 

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of ``2pc check 10`` goes on one H100.
+"""Where the time of a full check goes on one H100.
 
-    python3 gpu_profile.py [--runs N] [--trace-dir DIR]
+    python3 gpu_profile.py [--model rm10|paxos3] [--runs N] [--trace-dir DIR]
 
-Builds the port's kernels, runs ``chip_smoke.run_rm10`` (the rm=10 run of
-its phase 4 through ``spawn_gpu()``, held to its goldens) ``--runs`` times
-untraced -- wall seconds of each, then median and spread -- and once more
-under ``torch.profiler``: device time per kernel name, the card's busy
-share of the traced run's wall time, and, with ``--trace-dir``, a
-Chrome trace written there.  The traced run pays the profiler's overhead; the
-untraced runs are the measurement.  Prints one JSON line last.
+Builds the port's kernels, runs one of ``chip_smoke.py``'s full checks
+through ``spawn_gpu()`` at its geometry, held to its goldens --
+``run_rm10`` (``2pc check 10``, phase 4) or ``run_paxos3`` (``paxos check
+3``, phase 6) -- ``--runs`` times untraced (wall seconds of each, then
+median and spread), and once more under ``torch.profiler``: device time per
+kernel name, the card's busy share of the traced run's wall time, and, with
+``--trace-dir``, a Chrome trace written there.  The traced run pays the
+profiler's overhead; the untraced runs are the measurement.  Prints one
+JSON line last.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -26,6 +27,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("rm10", "paxos3"), default="rm10")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -35,21 +37,22 @@ def main() -> int:
         print("gpu_profile: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import GOLDEN_RM10, run_rm10
+    import chip_smoke
     from stateright_tpu_torch.ops import cuda
 
-    unique = GOLDEN_RM10[0]
+    run, golden = {
+        "rm10": (chip_smoke.run_rm10, chip_smoke.GOLDEN_RM10),
+        "paxos3": (chip_smoke.run_paxos3, chip_smoke.GOLDEN_PAXOS3),
+    }[args.model]
+    unique = golden[0]
     cuda.build()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(f"card: {card}", flush=True)
+    card = chip_smoke.gpu_line()
+    print(f"card: {card}; model {args.model}", flush=True)
 
-    run_rm10(torch)  # warm-up: library loads, allocator pools
+    run(torch)  # warm-up: library loads, allocator pools
     times = []
     for i in range(args.runs):
-        checker, elapsed = run_rm10(torch)
+        checker, elapsed = run(torch)
         times.append(elapsed)
         print(f"run {i}: {elapsed:.4f} s, {checker.waves()} waves, "
               f"{unique / elapsed:.1f} unique states/s", flush=True)
@@ -59,11 +62,11 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _checker, traced_s = run_rm10(torch)
+        _checker, traced_s = run(torch)
     trace = None
     if args.trace_dir is not None:
         os.makedirs(args.trace_dir, exist_ok=True)
-        trace = os.path.join(args.trace_dir, "rm10_trace.json")
+        trace = os.path.join(args.trace_dir, f"{args.model}_trace.json")
         prof.export_chrome_trace(trace)
     # Device-side events only (kernels, copies, fills): the CPU ops that
     # launched them report the same time again.  One stream, so the sum
@@ -82,6 +85,7 @@ def main() -> int:
         print(f"  {ms:9.2f} ms  {name[:100]}")
     print(json.dumps({
         "card": card,
+        "model": args.model,
         "runs_s": times,
         "median_s": median,
         "quartiles_s": [q[0], q[2]],

@@ -8,6 +8,11 @@ of ``stateright_tpu``.
 
     from stateright_tpu_torch.models.twophase import TwoPhaseSys
     TwoPhaseSys(rm_count=10).checker().spawn_gpu().join()
+
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+    PaxosModelCfg(3, 3, Network.new_unordered_nonduplicating()) \
+        .into_model().checker().spawn_gpu().join()
 """
 
 from .core.checker import Checker, CheckerBuilder

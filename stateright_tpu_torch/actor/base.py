@@ -1,0 +1,73 @@
+"""The ``Actor`` abstraction and its command output.
+
+The counterpart of ``stateright_tpu/actor/base.py`` (reference:
+src/actor.rs) with the one command the port's actor models emit: a send.
+Handlers *return* the next state, or ``None`` for "unchanged" (the
+reference's ``Cow::Borrowed``); a no-op is a ``None`` return with no
+commands.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Iterable, List, Optional
+
+from .ids import Id
+
+
+@dataclass(frozen=True)
+class SendCmd:
+    dst: Id
+    msg: Any
+
+
+def model_peers(self_ix: int, count: int) -> List[Id]:
+    """Peer ids for actor ``self_ix`` out of ``count``
+    (reference: src/actor/model.rs:85-90)."""
+    return [Id(j) for j in range(count) if j != self_ix]
+
+
+def majority(count: int) -> int:
+    """Minimum size of a majority quorum (reference: src/actor.rs:634-638)."""
+    return count // 2 + 1
+
+
+class Out:
+    """Collects the commands an actor handler emits.
+    Reference: src/actor.rs:160-247."""
+
+    __slots__ = ("commands",)
+
+    def __init__(self):
+        self.commands: List[SendCmd] = []
+
+    def send(self, recipient: Id, msg: Any) -> None:
+        self.commands.append(SendCmd(Id(recipient), msg))
+
+    def broadcast(self, recipients: Iterable[Id], msg: Any) -> None:
+        for r in recipients:
+            self.send(r, msg)
+
+    def __repr__(self) -> str:
+        return f"Out({self.commands!r})"
+
+
+def is_no_op(returned_state: Optional[Any], out: Out) -> bool:
+    """True iff the handler neither updated state nor emitted commands.
+    Reference: src/actor.rs:282-284."""
+    return returned_state is None and not out.commands
+
+
+class Actor:
+    """Event-driven actor.  Reference: the ``Actor`` trait,
+    src/actor.rs:305-411.  ``on_msg`` returns the next actor state, or
+    ``None`` for no change."""
+
+    def on_start(self, id: Id, storage: Optional[Any], o: Out) -> Any:
+        raise NotImplementedError
+
+    def on_msg(self, id: Id, state: Any, src: Id, msg: Any, o: Out) -> Optional[Any]:
+        return None
+
+    def name(self) -> str:
+        return ""

@@ -28,7 +28,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("device_fp", "twophase_step", "compact", "hashset")
+SOURCES = (
+    "device_fp", "twophase_step", "compact", "hashset",
+    "paxos_valid", "paxos_lane", "paxos_conds", "wave_eval",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -15,6 +15,17 @@ int32 bit-views -- on the engine's device.
   is what the engine calls each wave.  A model with a fused kernel
   overrides it.
 
+Two-phase contract (optional; :func:`two_phase_capable`): a model whose
+lanes are mostly invalid answers validity alone and builds successors
+only for the lanes that survive compaction --
+
+- ``step_valid(states[F, W]) -> valid[F, A]``, without successors;
+- ``step_lane(states[F, W], v_orig[U], count) -> (nexts[U, W],
+  flags[U])``: the successor of each compacted flat lane ``v_orig[j] =
+  state * A + action`` for ``j < count`` (a device scalar), and its
+  encoding-overflow flag (False past ``count``).  Its validity must agree
+  with ``step_valid`` on every lane.
+
 The host ``Model`` stays the oracle for path reconstruction.
 """
 
@@ -89,3 +100,11 @@ def compiled_model_for(model: Model) -> CompiledModel:
             "compiled() returning a CompiledModel to use spawn_gpu()"
         )
     return fn()
+
+
+def two_phase_capable(cm) -> bool:
+    """Whether the engine expands ``cm`` in two phases (the counterpart of
+    the JAX ``wave_common.two_phase_capable``): it exposes ``step_valid``
+    and ``step_lane``.  The JAX gate also asks for an unbounded model; the
+    port has no device boundary yet."""
+    return hasattr(cm, "step_valid") and hasattr(cm, "step_lane")

@@ -87,26 +87,35 @@ def unique_buffer_size(b: int, dedup_factor: int) -> int:
     return max(min(b, 1 << 14), b // dedup_factor)
 
 
-def compact_valid(hi, lo, valid, size: int):
-    """Compact a sparse-valid key batch into a ``size``-lane buffer.
-
-    Returns ``(v_hi, v_lo, v_orig, v_act, n_valid)``: the JAX
-    ``compact_valid``'s buffers, and in place of its ``overflow`` flag the
-    valid-lane count it is taken from.  ``v_orig`` maps buffer lanes back
-    to original ones; inactive buffer lanes hold lane 0's key, which
-    ``v_act`` masks.  The JAX version derives ``size`` from the batch and a
-    ``dedup_factor`` (:func:`unique_buffer_size`); the port's engine passes
-    it, because it expands only a wave's active states.
-
-    OVERFLOW CRITERION (the JAX contract): the buffer overflows on the
-    VALID-lane count, ``n_valid > size``: exactly full at ``size`` and
-    tripped at ``size + 1``."""
+def compact_valid_indices(valid: torch.Tensor, size: int):
+    """Index half of :func:`compact_valid`: compact the valid LANE INDICES
+    only -- two-phase expansion builds successor rows after compaction, so
+    there are no keys to compact yet.  Returns ``(v_orig, v_act,
+    n_valid)``: ``v_orig`` int32[size] maps buffer lanes back to original
+    ones (K3), ``v_act`` marks the filled buffer lanes, and ``n_valid`` is
+    the int64 device count of valid lanes, in place of the JAX version's
+    ``overflow`` flag, which is ``n_valid > size`` (exactly full at
+    ``size``, tripped at ``size + 1``).  The JAX version derives ``size``
+    from the batch and a ``dedup_factor`` (:func:`unique_buffer_size`); the
+    port's engine passes it."""
     v_orig, n_valid = compact(valid, size)
     # Filled lanes hold strictly increasing lane indices and the rest 0, so
     # every lane but the first is active iff its index is nonzero -- no
     # buffer-sized arange.
     v_act = v_orig != 0
     v_act[0] = n_valid > 0
+    return v_orig, v_act, n_valid
+
+
+def compact_valid(hi, lo, valid, size: int):
+    """Compact a sparse-valid key batch into a ``size``-lane buffer.
+
+    Returns ``(v_hi, v_lo, v_orig, v_act, n_valid)``: the JAX
+    ``compact_valid``'s buffers (inactive buffer lanes hold lane 0's key,
+    which ``v_act`` masks), and in place of its ``overflow`` flag the
+    valid-lane count it is taken from -- the criterion of
+    :func:`compact_valid_indices`."""
+    v_orig, v_act, n_valid = compact_valid_indices(valid, size)
     return (
         torch.index_select(hi, 0, v_orig), torch.index_select(lo, 0, v_orig),
         v_orig, v_act, n_valid,

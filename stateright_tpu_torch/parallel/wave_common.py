@@ -1,15 +1,17 @@
-"""Wave evaluation and stream compaction (kernel K3).
+"""Wave evaluation (kernel K8) and stream compaction (kernel K3).
 
 The counterpart of ``stateright_tpu/parallel/wave_common.py``: property
 evaluation at expansion time (the pop-time analog of src/checker/
 bfs.rs:230-281), eventually-bit clearing, successor expansion and terminal
 eventually-counterexample detection, plus the stable compaction every
-later stage of a wave is built on.
+later stage of a wave is built on.  The engine runs the model's device
+functions and :func:`wave_eval` (K8, ``csrc/wave_eval.cu``) turns their
+conds and validity into the wave's verdicts.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -106,33 +108,65 @@ def make_finish_when_device(fw, props):
     return matched
 
 
-class WaveEval(NamedTuple):
-    disc_cand: torch.Tensor  # int64[P]: first hit's BFS position, NO_ID none
-    eb: torch.Tensor  # int32[F]: eventually-bits after the state's own clears
-    nexts: torch.Tensor  # int32[F, A, W] successor candidates
-    valid: torch.Tensor  # bool[F, A]; its count is the generated count
-    step_flag: Optional[torch.Tensor]  # bool scalar: encoding overflow
+def prop_kinds(props) -> Tuple[int, int, int]:
+    """``(always, sometimes, eventually)``: bit p set in the mask of
+    property p's expectation."""
+    masks = {e: 0 for e in Expectation}
+    for p, prop in enumerate(props):
+        masks[prop.expectation] |= 1 << p
+    return (
+        masks[Expectation.ALWAYS], masks[Expectation.SOMETIMES],
+        masks[Expectation.EVENTUALLY],
+    )
 
 
-def wave_eval(cm, props, ev_indices: List[int], states: torch.Tensor,
-              start_id: int, eb_in: torch.Tensor,
-              discovered: Sequence[bool]) -> WaveEval:
-    """One wave's expansion and property evaluation (everything but the
-    dedup and the append).  ``states`` are the wave's F active rows, whose
-    BFS positions are ``start_id + arange(F)``; ``discovered`` says which
-    properties had a discovery when the wave started (a host list -- the
-    engine keeps discoveries on the host).
+def wave_eval(conds: torch.Tensor, valid: torch.Tensor, eb: torch.Tensor,
+              start_id: int, kinds: Tuple[int, int, int], discovered: int):
+    """The wave's verdicts from its conds ``bool[F, P]`` and lane validity
+    ``bool[F, A]`` (K8): returns ``(valid, eb, cands)`` -- validity gated by
+    "awaiting discoveries" (IN PLACE on the card), the eventually-bits
+    ``int32[F]`` with each state's satisfied bits cleared, and per property
+    the first hit's BFS position (int64, NO_ID for none).  ``kinds`` is
+    :func:`prop_kinds`; ``start_id`` is the wave's first position."""
+    if conds.device.type == "cpu":
+        return wave_eval_plain(conds, valid, eb, start_id, kinds, discovered)
+    dev = conds.device
+    cuda.require(conds, "conds", torch.bool, 2, dev)
+    cuda.require(valid, "valid", torch.bool, 2, dev)
+    cuda.require(eb, "eb", torch.int32, 1, dev)
+    f, p = conds.shape
+    if valid.shape[0] != f or eb.shape[0] != f:
+        raise ValueError("conds, valid and eb differ in state count")
+    if p > 32:
+        raise ValueError("at most 32 properties supported on device")
+    eb_out = torch.empty_like(eb)
+    cands = torch.empty((p,), dtype=torch.int64, device=dev)
+    fn = cuda.function(
+        "wave_eval", "sr_wave_eval",
+        [cuda.P, cuda.I64, cuda.I32, cuda.P, cuda.I32, cuda.P, cuda.P,
+         cuda.I64, cuda.U32, cuda.U32, cuda.U32, cuda.U32, cuda.P, cuda.P],
+    )
+    wave_eval.launches += 1
+    always, sometimes, eventually = kinds
+    code = fn(
+        cuda.ptr(conds), f, p, cuda.ptr(valid), valid.shape[1], cuda.ptr(eb),
+        cuda.ptr(eb_out), start_id, always, sometimes, eventually,
+        discovered, cuda.ptr(cands), cuda.stream(),
+    )
+    cuda.check(code, "wave_eval", "wave_eval")
+    return valid, eb_out, cands
 
-    The JAX version folds candidates into the discovery vector on device;
-    here the candidates come back per property and the engine folds them
-    first-writer-wins once the wave commits.  The generated count the JAX
-    version returns is the count of ``valid``, which the engine's
-    compaction of ``valid`` yields anyway."""
-    dev = states.device
-    f = states.shape[0]
-    nexts, valid, conds, step_flag = cm.expand(states)
+
+wave_eval.launches = 0
+
+
+def wave_eval_plain(conds, valid, eb, start_id: int, kinds, discovered: int):
+    """Plain-torch twin of the K8 kernel (any device)."""
+    always, sometimes, eventually = kinds
+    f, p = conds.shape
+    dev = conds.device
     no_id = torch.tensor(NO_ID, dtype=torch.int64, device=dev)
-    cands = [no_id] * len(props)
+    cands = [no_id] * p
 
     def first_hit(hit):
         # argmax of a bool vector is its first True lane.
@@ -142,34 +176,37 @@ def wave_eval(cm, props, ev_indices: List[int], states: torch.Tensor,
     # "Awaiting discoveries": the reference stops expanding a state when
     # every property already has a discovery and this state contributes
     # none (src/checker/bfs.rs:231-281), against the discoveries as of wave
-    # start.
+    # start.  With zero properties nothing is awaited and nothing expands.
     awaiting = torch.zeros((f,), dtype=torch.bool, device=dev)
-    for p, prop in enumerate(props):
-        if prop.expectation is Expectation.ALWAYS:
-            if not discovered[p]:
-                awaiting |= conds[:, p]
-            cands[p] = first_hit(~conds[:, p])
-        elif prop.expectation is Expectation.SOMETIMES:
-            if not discovered[p]:
-                awaiting |= ~conds[:, p]
-            cands[p] = first_hit(conds[:, p])
-        elif not discovered[p]:  # EVENTUALLY: discovered only at trace ends
-            awaiting[:] = True
+    ev = []
+    for q in range(p):
+        undiscovered = not (discovered >> q) & 1
+        if (always >> q) & 1:
+            if undiscovered:
+                awaiting |= conds[:, q]
+            cands[q] = first_hit(~conds[:, q])
+        elif (sometimes >> q) & 1:
+            if undiscovered:
+                awaiting |= ~conds[:, q]
+            cands[q] = first_hit(conds[:, q])
+        else:  # EVENTUALLY: discovered only at trace ends
+            ev.append(q)
+            if undiscovered:
+                awaiting[:] = True
 
     # Clear this state's own satisfied eventually bits.
-    eb = eb_in
-    for bit, p in enumerate(ev_indices):
-        eb = eb & ~(conds[:, p].to(torch.int32) << bit)
-
-    # With zero properties nothing is ever awaited and the reference
-    # expands nothing at all -- the gate reproduces that too.
+    for bit, q in enumerate(ev):
+        eb = eb & ~(conds[:, q].to(torch.int32) << bit)
     valid = valid & awaiting[:, None]
 
     # Terminal states with leftover ebits -> eventually counterexamples
     # (src/checker/bfs.rs:326-333).
-    if ev_indices:
+    if ev:
         terminal = ~valid.any(dim=1)
-        for bit, p in enumerate(ev_indices):
-            cands[p] = first_hit(terminal & (((eb >> bit) & 1) == 1))
-
-    return WaveEval(torch.stack(cands), eb, nexts, valid, step_flag)
+        for bit, q in enumerate(ev):
+            cands[q] = first_hit(terminal & (((eb >> bit) & 1) == 1))
+    stacked = (
+        torch.stack(cands) if cands
+        else torch.empty((0,), dtype=torch.int64, device=dev)
+    )
+    return valid, eb, stacked

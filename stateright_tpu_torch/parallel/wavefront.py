@@ -5,9 +5,15 @@ a wavefront BFS that expands a whole chunk of the frontier at once,
 fingerprints every candidate successor, deduplicates them by a batched
 insert-if-absent into a device-resident fingerprint table, and evaluates
 property conditions as fused predicates over the wave.  The device work of
-a wave runs in four hand-written kernels -- the model step (K2), the
-fingerprint (K1), stable compaction (K3) and the claim insert (K4) -- glued
-by a few torch tensor operations.
+a wave runs in hand-written kernels -- the model's step and conds (K2 for
+2pc; K5, K6 and K7 for paxos), the wave verdicts (K8), the fingerprint
+(K1), stable compaction (K3) and the claim insert (K4) -- glued by a few
+torch tensor operations.
+
+A model with the two-phase contract (``compiled.py``; paxos) is expanded
+in two phases, as in the JAX engine: lane validity first (K5), the valid
+lanes compacted (K3), and successors built (K7), fingerprinted (K1) and
+inserted (K4) only for those -- about one lane in twenty for paxos.
 
 States are identified by BFS position (the order of first discovery): the
 row log is one flat ``int32`` buffer (the u32 words as bit-views), a level
@@ -55,11 +61,14 @@ from ..core.model import Expectation
 from ..core.path import Path
 from ..ops.device_fp import device_fp64
 from ..ops.u32 import M32, from_numpy_u32, i32, to_numpy_u32
-from .compiled import CompiledModel, compiled_model_for
+from .compiled import CompiledModel, compiled_model_for, two_phase_capable
 from .hashset import (
-    HashSet, compact_valid, insert_batch_claim, unique_buffer_size,
+    HashSet, compact_valid, compact_valid_indices, insert_batch_claim,
+    unique_buffer_size,
 )
-from .wave_common import NO_ID, compact, make_finish_when_device, wave_eval
+from .wave_common import (
+    NO_ID, compact, make_finish_when_device, prop_kinds, wave_eval,
+)
 from .wave_loop import WaveLoop, fingerprints_of_rows
 
 # Growth bounds, sized for one 80 GB card: a table slot costs 16 bytes there
@@ -231,6 +240,8 @@ class GpuChecker(Checker):
             for i, p in enumerate(self._properties)
             if p.expectation is Expectation.EVENTUALLY
         ]
+        self._kinds = prop_kinds(self._properties)
+        self._two_phase = two_phase_capable(self._compiled)
         self._fw_matched = make_finish_when_device(
             options._finish_when, self._properties
         )
@@ -370,28 +381,45 @@ class GpuChecker(Checker):
         count = min(c.level_end - c.level_start, self._max_frontier)
         lo_pos = c.level_start
         states = c.rows[lo_pos * w : (lo_pos + count) * w].view(count, w)
-        ev = wave_eval(
-            cm, self._properties, self._ev_indices, states, lo_pos,
-            c.ebits[lo_pos : lo_pos + count], [d != NO_ID for d in c.disc],
-        )
-        flat = ev.nexts.view(count * a, w)
-        hi, lo = device_fp64(flat)
+        discovered = sum(1 << p for p, d in enumerate(c.disc) if d != NO_ID)
+        eb_in = c.ebits[lo_pos : lo_pos + count]
         size = unique_buffer_size(self._max_frontier * a, self._dedup_factor)
-        v_hi, v_lo, v_orig, v_act, n_valid = compact_valid(
-            hi, lo, ev.valid.view(-1), size
-        )
-        is_new, probe_ok = insert_batch_claim(c.table, v_hi, v_lo, v_act)
+        # The JAX version folds the discovery candidates into the discovery
+        # vector on device; here they come back per property and are folded
+        # first-writer-wins once the wave commits.
+        if self._two_phase:
+            # Screen lane validity, compact the valid lanes, then build
+            # successors only for them (K7, about 5% of the lanes for
+            # paxos) and fingerprint those U rows instead of all F * A
+            # candidates.
+            valid, eb, cands = wave_eval(
+                cm.property_conds(states), cm.step_valid(states), eb_in,
+                lo_pos, self._kinds, discovered,
+            )
+            v_orig, v_act, n_valid = compact_valid_indices(valid.view(-1), size)
+            cand_rows, lane_flags = cm.step_lane(states, v_orig, n_valid)
+            hi, lo = device_fp64(cand_rows)
+            step_flag = lane_flags.any()
+        else:
+            nexts, valid, conds, step_flag = cm.expand(states)
+            valid, eb, cands = wave_eval(
+                conds, valid, eb_in, lo_pos, self._kinds, discovered,
+            )
+            cand_rows = nexts.view(count * a, w)
+            hi, lo = device_fp64(cand_rows)
+            hi, lo, v_orig, v_act, n_valid = compact_valid(
+                hi, lo, valid.view(-1), size
+            )
+        is_new, probe_ok = insert_batch_claim(c.table, hi, lo, v_act)
         sel, n_new = compact(is_new, size)
-        step_flag = (
-            ev.step_flag if ev.step_flag is not None
-            else torch.zeros((), dtype=torch.bool, device=self._device)
-        )
+        if step_flag is None:
+            step_flag = torch.zeros((), dtype=torch.bool, device=self._device)
         # The wave's one readback.
         stats = torch.cat([
             torch.stack([
                 n_new, n_valid, probe_ok.long(), step_flag.long(),
             ]),
-            ev.disc_cand,
+            cands,
         ]).tolist()
         n_new, generated, ok, s_flag = (int(x) for x in stats[:4])
         cands = [int(x) for x in stats[4:]]
@@ -412,13 +440,17 @@ class GpuChecker(Checker):
 
         if n_new:
             # Append the new representatives' rows, parents and ebits as
-            # three contiguous block writes at the tail.
-            idxs = v_orig[sel[:n_new].long()].long()
+            # three contiguous block writes at the tail.  Two-phase rows
+            # are already compacted: buffer lane j holds original lane
+            # v_orig[j]'s successor.
+            lanes = sel[:n_new].long()
+            idxs = v_orig[lanes].long()
             src = idxs // a
             t = c.tail
-            c.rows[t * w : (t + n_new) * w] = flat[idxs].reshape(-1)
+            rows_new = cand_rows[lanes] if self._two_phase else cand_rows[idxs]
+            c.rows[t * w : (t + n_new) * w] = rows_new.reshape(-1)
             c.parent[t : t + n_new] = i32(src + lo_pos)
-            c.ebits[t : t + n_new] = ev.eb[src]
+            c.ebits[t : t + n_new] = eb[src]
         c.tail += n_new
         c.unique_count += n_new
         c.state_count += generated

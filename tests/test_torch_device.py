@@ -19,6 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from stateright_tpu_torch.actor import Envelope, Id, Network
+from stateright_tpu_torch.actor.register import Get, Internal, Put
+from stateright_tpu_torch.models import paxos as port_paxos
+from stateright_tpu_torch.models import paxos_compiled as pc
+from stateright_tpu_torch.models.paxos import PaxosModelCfg
 from stateright_tpu_torch.models.twophase import TwoPhaseSys
 from stateright_tpu_torch.models.twophase_compiled import (
     twophase_step, twophase_step_plain,
@@ -28,7 +33,9 @@ from stateright_tpu_torch.ops.u32 import from_numpy_u32
 from stateright_tpu_torch.parallel.hashset import (
     HashSet, insert_batch_claim, insert_batch_claim_plain, keys_equal,
 )
-from stateright_tpu_torch.parallel.wave_common import compact, compact_plain
+from stateright_tpu_torch.parallel.wave_common import (
+    compact, compact_plain, wave_eval, wave_eval_plain,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOMETRY = dict(capacity=1 << 14, max_frontier=1 << 9)
@@ -54,6 +61,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from stateright_tpu_torch.models.twophase import TwoPhaseSys\n"
         "c = TwoPhaseSys(rm_count=3).checker().spawn_gpu(device='cpu').join()\n"
         "assert c.unique_state_count() == 288\n"
+        "from stateright_tpu_torch.actor import Network\n"
+        "from stateright_tpu_torch.models.paxos import PaxosModelCfg\n"
+        "m = PaxosModelCfg(1, 3, Network.new_unordered_nonduplicating()).into_model()\n"
+        "c = m.checker().spawn_gpu(device='cpu', capacity=1 << 12,"
+        " max_frontier=1 << 8).join()\n"
+        "assert c.unique_state_count() == 265, c.unique_state_count()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -104,12 +117,12 @@ def _card():
     return torch.device("cuda", 0)
 
 
-def _logs(checker, path):
+def _logs(checker, path, width=2):
     checker.save_snapshot(str(path))
     with np.load(path) as snap:
         tail = int(snap["tail"])
         return [snap[k][: tail * w].copy() for k, w in
-                (("rows", 2), ("parent", 1), ("ebits", 1))]
+                (("rows", width), ("parent", 1), ("ebits", 1))]
 
 
 @pytest.mark.cuda
@@ -182,3 +195,125 @@ def test_cuda_insert_batch_claim_matches_twin():
         p_new, p_ok = insert_batch_claim_plain(p_keys, hi, lo, active)
         assert torch.equal(k_new, p_new) and bool(k_ok) and bool(p_ok)
         assert keys_equal(k_table, HashSet(p_keys))
+
+
+def _paxos(c, never_decided=False):
+    return PaxosModelCfg(
+        c, 3, Network.new_unordered_nonduplicating(), never_decided=never_decided
+    ).into_model()
+
+
+def _paxos_rows(c, depth):
+    """Reachable paxos rows from the port's CPU run to ``depth``, plus
+    hand-made rows on the flagged, wrapping branches (the cases of
+    test_torch_paxos.py::_hazard_rows) and a slot overflow."""
+    model = _paxos(c)
+    run = model.checker().target_max_depth(depth).spawn_gpu(
+        device="cpu", capacity=1 << 17, max_frontier=1 << 13
+    ).join()
+    cm = model.compiled()
+    w = cm.state_width
+    rows = run._carry.rows[: run._carry.tail * w].view(-1, w)
+
+    def server(ballot, prepares=(), accepts=frozenset(), decided=False):
+        return port_paxos.PaxosState(
+            ballot=ballot, proposal=None, prepares=tuple(prepares),
+            accepts=accepts, accepted=None, is_decided=decided,
+        )
+
+    def row(servers, envs):
+        r = np.zeros(w, np.uint32)
+        for i, st in enumerate(servers):
+            bits = cm._encode_server(st)
+            r[2 * i], r[2 * i + 1] = bits & 0xFFFFFFFF, bits >> 32
+        r[6] = 0x666
+        codes = sorted(cm._env_code(e) for e in envs)[: cm.m]
+        r[7 : 7 + len(codes)] = codes
+        return r
+
+    idle = server((0, Id(0)))
+    b0, b1 = (1, Id(0)), (1, Id(1))
+    prepares = [
+        Envelope(Id(s), Id(d), Internal(port_paxos.Prepare((r, Id(s)))))
+        for r in range(2, 10) for s in range(3) for d in range(3) if s != d
+    ]
+    hand = np.stack([
+        row([idle, server((0, Id(0)), decided=True), idle],
+            [Envelope(Id(3), Id(1), Get(6))]),
+        row([idle, server(b1, prepares=[(Id(1), None)]), idle],
+            [Envelope(Id(0), Id(1), Internal(port_paxos.Prepared(b1, None)))]),
+        row([server(b0, accepts=frozenset([Id(0)])), idle, idle],
+            [Envelope(Id(2), Id(0), Internal(port_paxos.Accepted(b0)))] * 2),
+        row([idle, idle, idle], [Envelope(Id(3), Id(0), Put(3, "A"))] + prepares),
+    ])
+    return torch.cat([rows, from_numpy_u32(hand, "cpu")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,depth", [(1, 30), (2, 30), (3, 9)])
+def test_cuda_paxos_kernels_match_twins(c, depth):
+    """K5, K7 (every lane, then a compacted buffer with a short count) and
+    K6 against their twins, bit for bit, on reachable and hand-made rows."""
+    dev = _card()
+    rows = _paxos_rows(c, depth)
+    card = rows.to(dev)
+    valid = pc.paxos_step_valid(card, c)
+    assert torch.equal(valid.cpu(), pc.paxos_step_valid_plain(rows, c))
+    f, m = valid.shape
+    lanes = torch.arange(f * m, dtype=torch.int32)
+    k_next, k_flag = pc.paxos_step_lane(
+        card, lanes.to(dev), torch.tensor(f * m, device=dev), c
+    )
+    p_next, p_flag = pc.paxos_step_lane_plain(rows, lanes, f * m, c)
+    assert torch.equal(k_next.cpu(), p_next)
+    assert torch.equal(k_flag.cpu(), p_flag)
+    assert bool(p_flag[-4 * m :].any())  # the hand-made rows flag
+    v_orig, n = compact(valid.view(-1), f * m)
+    short = n - 1
+    k_next, k_flag = pc.paxos_step_lane(card, v_orig, short, c)
+    p_next, p_flag = pc.paxos_step_lane_plain(rows, v_orig.cpu(), int(short), c)
+    live = int(short)
+    assert torch.equal(k_next[:live].cpu(), p_next[:live])
+    assert torch.equal(k_flag.cpu(), p_flag)
+    for never_decided in (False, True):
+        assert torch.equal(
+            pc.paxos_conds(card, c, never_decided).cpu(),
+            pc.paxos_conds_plain(rows, c, never_decided),
+        )
+
+
+@pytest.mark.cuda
+def test_cuda_wave_eval_matches_twin():
+    dev = _card()
+    rng = np.random.default_rng(25)
+    f, p, a = 100_003, 5, 32
+    kinds = (0b00101, 0b00010, 0b11000)  # always, sometimes, eventually
+    for discovered in (0, 0b00011, 0b11111):
+        conds = torch.from_numpy(rng.random((f, p)) < [0.999, 0.01, 0.5, 0.3, 0.6])
+        valid = torch.from_numpy(rng.random((f, a)) < 0.05)
+        eb = torch.from_numpy(rng.integers(0, 4, f).astype(np.int32))
+        want = wave_eval_plain(conds, valid, eb, 777, kinds, discovered)
+        got = wave_eval(conds.to(dev), valid.to(dev), eb.to(dev), 777, kinds,
+                        discovered)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_paxos_engine_matches_cpu_run(tmp_path):
+    """``paxos check 2`` on the card: two-phase waves through K1 and K3-K8,
+    its row log, parents and ebits bit-equal to the CPU run."""
+    _card()
+    geometry = dict(capacity=1 << 16, max_frontier=1 << 12)
+    gpu = _paxos(2).checker().spawn_gpu(device="cuda", **geometry).join()
+    cpu = _paxos(2).checker().spawn_gpu(device="cpu", **geometry).join()
+    assert (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth()) == (
+        16_668, 32_971, 21
+    )
+    w = pc.state_width(2)
+    g = _logs(gpu, tmp_path / "gpu.npz", w)
+    c = _logs(cpu, tmp_path / "cpu.npz", w)
+    for a, b in zip(g, c):
+        assert np.array_equal(a, b)
+    assert sorted(gpu.discoveries()) == ["value chosen"]
+    gpu.assert_properties()
