@@ -5,10 +5,10 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the eight CUDA kernels of ``stateright_tpu_torch/csrc``
+1. build: compile the nine CUDA kernels of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
-   or spills, and print the card's name and power limit;
+   or spills, and print the card's name, power limit and SM clock;
 2. the kernels of the ``2pc check 10`` path (K1-K4, K8) against their
    plain-torch twins at the shapes that path gives them (F = 2**20
    states, A = 52 actions, a 2**27-slot table, seeded inputs with
@@ -33,10 +33,27 @@ Phases, in order; any failure exits non-zero:
 8. ``paxos check 3`` with the ``never decided`` property under
    ANY_FAILURES: the counterexample found, replayed on the host, and the
    time to it;
-9. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
-   launches, times and bound all from that path's run and shapes -- the
-   ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
-   line.
+9. ``paxos check 6`` to depth 6 through ``spawn_gpu()`` (64 slots, the
+   DP a warp a state): 1,227 unique, bit-equal to the port's CPU run;
+10. ``paxos check 6`` (bench.sh:28) through ``spawn_gpu()``: the golden
+    9,357,525 unique at depth 28, K1 and K3-K8 launched, ``value chosen``
+    re-executed on the host;
+11. the ``paxos check 6`` path's kernels against their twins on one real
+    wave of that run, as phase 7 does for ``check 3``;
+12. the single-copy register: 3 clients / 1 server (4,243 / 6,778 /
+    depth 13) bit-equal to the port's CPU run, and 2 clients / 2 servers,
+    whose ``linearizable`` counterexample the card finds and the host
+    replays;
+13. ``single-copy-register check 4`` (bench.sh:29) through ``spawn_gpu()``
+    (single-phase waves through K9): the golden 400,233 unique at depth
+    17, K1, K3, K4, K8 and K9 launched;
+14. the ``single-copy-register check 4`` path's kernels (K1, K3, K4, K8,
+    K9) against their twins on one real wave of that run, replayed as in
+    phase 7; the wave must append what the run appended;
+15. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+    launches, times and bound all from that path's run and shapes -- the
+    ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
+    line.
 
 The launch counts of each path are set to 0 just before it and read just
 after; a kernel of the path launched no time fails the run.  The script
@@ -64,6 +81,10 @@ GOLDEN_RM5 = (8_832, 58_146, 17)
 GOLDEN_RM10 = (61_515_776, 32)
 GOLDEN_PAXOS2 = (16_668, 32_971, 21)
 GOLDEN_PAXOS3 = (1_194_428, 28)
+GOLDEN_PAXOS6 = (9_357_525, 28)
+GOLDEN_PAXOS6_D6 = (1_227, 2_003, 6)
+GOLDEN_SC3 = (4_243, 6_778, 13)
+GOLDEN_SC4 = (400_233, 17)
 # paxos check 3: 1,194,428 states fill a 2**22-slot table to 0.28 and a
 # 2**21-position log to 0.57; a wave expands 2**16 states (2**21 lanes) into
 # a compaction buffer of 2**21 / 4 lanes, about five times the valid lanes
@@ -72,6 +93,17 @@ PAXOS3_GEOMETRY = dict(
     capacity=1 << 22, log_capacity=1 << 21, max_frontier=1 << 16,
     dedup_factor=4,
 )
+# paxos check 6: 9,357,525 states fill a 2**25-slot table to 0.28 and a
+# 2**24-position log (5.2 GB of rows) to 0.56; a wave expands 2**17 states
+# (2**23 lanes, 64 a state) into a 2**21-lane compaction buffer.
+PAXOS6_GEOMETRY = dict(
+    capacity=1 << 25, log_capacity=1 << 24, max_frontier=1 << 17,
+    dedup_factor=4,
+)
+# single-copy-register check 4: 400,233 states in a 2**21-slot table (load
+# 0.19); a wave expands 2**16 states (2**19 lanes, 8 a state) into a
+# buffer as wide as the candidates.
+SC4_GEOMETRY = dict(capacity=1 << 21, max_frontier=1 << 16, dedup_factor=1)
 SEED = 20261017
 
 KERNELS = {
@@ -92,6 +124,8 @@ KERNELS = {
                         "stateright_tpu/models/paxos_compiled.py:625"),
     "wave_eval": ("stateright_tpu_torch/csrc/wave_eval.cu",
                   "stateright_tpu/parallel/wave_common.py:282"),
+    "single_copy_step": ("stateright_tpu_torch/csrc/single_copy_step.cu",
+                         "stateright_tpu/models/single_copy_compiled.py:202"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -100,6 +134,11 @@ PATH_KERNELS = {
     "paxos3": ("device_fp64", "compact", "insert_batch_claim",
                "paxos_step_valid", "paxos_conds", "paxos_step_lane",
                "wave_eval"),
+    "paxos6": ("device_fp64", "compact", "insert_batch_claim",
+               "paxos_step_valid", "paxos_conds", "paxos_step_lane",
+               "wave_eval"),
+    "sc4": ("device_fp64", "single_copy_step", "compact",
+            "insert_batch_claim", "wave_eval"),
 }
 
 
@@ -117,15 +156,27 @@ def use_one_card() -> str:
     return visible
 
 
-def gpu_line() -> str:
-    """``name, power.limit`` of the card the run uses."""
+def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
+    """One ``nvidia-smi --query-gpu`` line of the card the run uses."""
     card = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
     out = subprocess.run(
-        ["nvidia-smi", "-i", card, "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", "-i", card, f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def gpu_line() -> str:
+    """``name, power.limit`` of the card the run uses."""
+    return nvidia_smi("name,power.limit")
+
+
+def int32_rate() -> float:
+    """The card's 32-bit integer issue rate in operations a second, derived
+    (not a data-sheet figure): 132 SMs x 64 INT32 lanes x the maximum SM
+    clock ``nvidia-smi`` reports."""
+    mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    return 132 * 64 * mhz * 1e6
 
 
 def ptxas_frames(build_dir) -> dict:
@@ -322,18 +373,25 @@ def phase_kernels(torch, rows):
 
 def kernel_row(rows, path):
     """A recorder of ``path``'s kernels-line rows into ``rows``, keyed by
-    (kernel, path); raises on a kernel that disagrees with its twin."""
+    (kernel, path); raises on a kernel that disagrees with its twin.  A
+    row's bound is the larger of its bytes over the memory rate and its
+    INT32 operations over :func:`int32_rate`."""
+    ops_per_sec = int32_rate()
 
-    def row(name, err, ms, plain_ms, nbytes, library_ms=None):
+    def row(name, err, ms, plain_ms, nbytes, library_ms=None, ops=0):
+        bytes_ms = nbytes / HBM_BYTES_PER_SEC * 1e3
+        ops_ms = ops / ops_per_sec * 1e3
         rows[name, path] = r = dict(
             name=name, path=path, route="cuda", max_abs_err=err,
             bit_equal=err == 0, ms=ms, plain_ms=plain_ms,
-            bound_ms=nbytes / HBM_BYTES_PER_SEC * 1e3, bound_by="bytes",
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="operations" if ops_ms > bytes_ms else "bytes",
             library_ms=library_ms,
         )
         log(f"  {name} [{path}]: max_abs_err={err} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"bytes={nbytes} library_ms={library_ms}")
+            f"({r['bound_by']}: bytes={nbytes} -> {bytes_ms:.4f} ms, "
+            f"int32 ops={ops} -> {ops_ms:.4f} ms) library_ms={library_ms}")
         if err:
             raise AssertionError(f"{name} disagrees with its plain twin")
 
@@ -344,13 +402,15 @@ def launch_counted():
     from stateright_tpu_torch.models.paxos_compiled import (
         paxos_conds, paxos_step_lane, paxos_step_valid,
     )
+    from stateright_tpu_torch.models.single_copy_compiled import single_copy_step
     from stateright_tpu_torch.models.twophase_compiled import twophase_step
     from stateright_tpu_torch.ops.device_fp import device_fp64
     from stateright_tpu_torch.parallel.hashset import insert_batch_claim
     from stateright_tpu_torch.parallel.wave_common import compact, wave_eval
 
     return (device_fp64, twophase_step, compact, insert_batch_claim,
-            paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval)
+            paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
+            single_copy_step)
 
 
 def reset_launches():
@@ -399,22 +459,31 @@ def assert_same_as_cpu(gpu, cpu, what, width):
         raise AssertionError(f"{what} fingerprints differ between card and CPU")
 
 
+def card_and_cpu(what, builder, golden, width, **kw):
+    """Run ``builder()`` (a fresh checker builder) on the card and on the
+    CPU at ``kw``: the card's (unique, states, depth) must be ``golden``
+    and its logs, fingerprints and discoveries the CPU run's.  Returns the
+    card's checker."""
+    gpu = builder().spawn_gpu(**kw).join()
+    cpu = builder().spawn_gpu(device="cpu", **kw).join()
+    got = (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth())
+    log(f"  {what} on the card: unique={got[0]} states={got[1]} "
+        f"depth={got[2]} waves={gpu.waves()}")
+    if got != golden:
+        raise AssertionError(f"{what} counts {got} != {golden}")
+    assert_same_as_cpu(gpu, cpu, what, width)
+    log(f"  {what}: row log, parents and ebits bit-equal to the CPU run")
+    return gpu
+
+
 def phase_rm5(torch):
     from stateright_tpu_torch.models.twophase import TwoPhaseSys
 
-    kw = dict(capacity=1 << 14, max_frontier=1 << 9)
     reset_launches()
-    gpu = TwoPhaseSys(rm_count=5).checker().spawn_gpu(**kw).join()
-    launches = read_launches("rm10")
-    cpu = TwoPhaseSys(rm_count=5).checker().spawn_gpu(device="cpu", **kw).join()
-    got = (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth())
-    log(f"  rm=5 on the card: unique={got[0]} states={got[1]} depth={got[2]} "
-        f"launches={launches}")
-    if got != GOLDEN_RM5:
-        raise AssertionError(f"rm=5 counts {got} != {GOLDEN_RM5}")
-    assert_same_as_cpu(gpu, cpu, "rm=5", 2)
+    gpu = card_and_cpu("rm=5", TwoPhaseSys(rm_count=5).checker, GOLDEN_RM5, 2,
+                       capacity=1 << 14, max_frontier=1 << 9)
+    log(f"  rm=5 launches: {read_launches('rm10')}")
     gpu.assert_properties()
-    log("  rm=5: row log, parents and ebits bit-equal to the CPU run")
 
 
 def run_rm10(torch):
@@ -436,25 +505,6 @@ def run_rm10(torch):
     return checker, elapsed
 
 
-def phase_rm10(torch, gpu):
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    checker, elapsed = run_rm10(torch)
-    launches = read_launches("rm10")
-    unique, depth = checker.unique_state_count(), checker.max_depth()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  rm=10: unique={unique} states={checker.state_count()} "
-        f"depth={depth} waves={checker.waves()} elapsed_s={elapsed:.3f} "
-        f"unique_per_s={unique / elapsed:.1f} peak_bytes={peak} "
-        f"load={checker.table_load_factor():.4f} card={gpu!r}")
-    log(f"  rm=10 launches: {launches}")
-    checker.assert_properties()
-    paths = {k: len(p) - 1 for k, p in checker.discoveries().items()}
-    log(f"  rm=10 discoveries re-executed: {paths}")
-    return launches
-
-
 def paxos_model(c, never_decided=False):
     from stateright_tpu_torch.actor import Network
     from stateright_tpu_torch.models.paxos import PaxosModelCfg
@@ -467,17 +517,9 @@ def paxos_model(c, never_decided=False):
 def phase_paxos2(torch):
     from stateright_tpu_torch.models.paxos_compiled import state_width
 
-    kw = dict(capacity=1 << 16, max_frontier=1 << 12)
-    gpu = paxos_model(2).checker().spawn_gpu(**kw).join()
-    cpu = paxos_model(2).checker().spawn_gpu(device="cpu", **kw).join()
-    got = (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth())
-    log(f"  paxos check 2 on the card: unique={got[0]} states={got[1]} "
-        f"depth={got[2]} waves={gpu.waves()}")
-    if got != GOLDEN_PAXOS2:
-        raise AssertionError(f"paxos check 2 counts {got} != {GOLDEN_PAXOS2}")
-    assert_same_as_cpu(gpu, cpu, "paxos check 2", state_width(2))
-    gpu.assert_properties()
-    log("  paxos check 2: row log, parents and ebits bit-equal to the CPU run")
+    card_and_cpu("paxos check 2", paxos_model(2).checker, GOLDEN_PAXOS2,
+                 state_width(2), capacity=1 << 16,
+                 max_frontier=1 << 12).assert_properties()
 
 
 def run_paxos3(torch):
@@ -494,28 +536,9 @@ def run_paxos3(torch):
     return checker, elapsed
 
 
-def phase_paxos3(torch, gpu):
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    checker, elapsed = run_paxos3(torch)
-    launches = read_launches("paxos3")
-    unique, depth = checker.unique_state_count(), checker.max_depth()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  paxos check 3: unique={unique} states={checker.state_count()} "
-        f"depth={depth} waves={checker.waves()} growths={checker._grow_flags} "
-        f"elapsed_s={elapsed:.3f} unique_per_s={unique / elapsed:.1f} "
-        f"peak_bytes={peak} load={checker.table_load_factor():.4f} card={gpu!r}")
-    log(f"  paxos check 3 launches: {launches}")
-    checker.assert_properties()
-    paths = {k: len(p) - 1 for k, p in checker.discoveries().items()}
-    log(f"  paxos check 3 discoveries re-executed: {paths}")
-    return launches, checker
-
-
-def replay_wave(torch, checker):
-    """One real wave of the card's own ``paxos check 3`` run: the first
-    chunk of its widest level.  Returns its rows, start position,
+def replay_wave(torch, checker, geometry):
+    """One real wave of a card run at ``geometry``: the first chunk of its
+    widest level.  Returns its rows, start position,
     eventually-bits, discovered mask, the run's table as it stood when the
     wave ran (every state of the levels before, rebuilt from the log), and
     the positions the run appended from that wave."""
@@ -525,7 +548,7 @@ def replay_wave(torch, checker):
 
     carry = checker._carry
     w = checker._compiled.state_width
-    f = PAXOS3_GEOMETRY["max_frontier"]
+    f = geometry["max_frontier"]
     parent = carry.parent[: carry.tail].long()
     # BFS depth of every position: the log is in level order.
     depth = torch.zeros_like(parent)
@@ -540,7 +563,7 @@ def replay_wave(torch, checker):
     states = carry.rows[start * w : (start + n) * w].view(n, w)
     # When the level's first chunk ran, the table held exactly the states
     # of the levels before it and of this one: positions [0, level_end).
-    table = HashSet.empty(PAXOS3_GEOMETRY["capacity"], states.device)
+    table = HashSet.empty(geometry["capacity"], states.device)
     hi, lo = device_fp64(carry.rows[: level_end * w].view(level_end, w))
     insert_batch_claim(table, hi, lo,
                        torch.ones((level_end,), dtype=torch.bool,
@@ -556,15 +579,17 @@ def replay_wave(torch, checker):
     return states, start, carry.ebits[start : start + n], discovered, table, appended
 
 
-def phase_paxos_kernels(torch, checker, rows):
-    """The ``paxos check 3`` path's kernels against their twins on one real
-    wave of its run (:func:`replay_wave`), each called as the engine calls
-    it; the replayed wave must append what the run appended."""
+def phase_paxos_kernels(torch, checker, rows, path, geometry):
+    """A paxos path's kernels against their twins on one real wave of its
+    run (:func:`replay_wave`), each called as the engine calls it; the
+    replayed wave must append what the run appended."""
     from stateright_tpu_torch.models.paxos_compiled import (
-        paxos_conds, paxos_conds_plain, paxos_step_lane, paxos_step_lane_plain,
-        paxos_step_valid, paxos_step_valid_plain,
+        _codec, paxos_conds, paxos_conds_plain, paxos_step_lane,
+        paxos_step_lane_plain, paxos_step_valid, paxos_step_valid_plain,
     )
+    from stateright_tpu_torch.models.register_compiled_common import dp_work
     from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
+    from stateright_tpu_torch.ops.u32 import u32
     from stateright_tpu_torch.parallel.hashset import (
         compact_valid_indices, unique_buffer_size,
     )
@@ -572,11 +597,12 @@ def phase_paxos_kernels(torch, checker, rows):
         prop_kinds, wave_eval, wave_eval_plain,
     )
 
-    row = kernel_row(rows, "paxos3")
+    row = kernel_row(rows, path)
     cm = checker._compiled
     c, w, m = cm.c, cm.state_width, cm.m
     carry = checker._carry
-    states, start, eb, discovered, table, appended = replay_wave(torch, checker)
+    states, start, eb, discovered, table, appended = replay_wave(
+        torch, checker, geometry)
     f = states.shape[0]
 
     k5 = paxos_step_valid(states, c)
@@ -592,10 +618,13 @@ def phase_paxos_kernels(torch, checker, rows):
     p6 = paxos_conds_plain(states, c, cm.never_decided)
     torch.cuda.synchronize()
     n_props = k6.shape[1]
+    # The DP's word updates these states need (rounds to the fixpoint x
+    # operations present x NV x NW), one INT32 operation each.
+    dp_ops = int(dp_work(_codec(c), u32(states)).sum())
     row("paxos_conds", max_abs_err(torch, [(k6, p6)]),
         time_ms(torch, lambda: paxos_conds(states, c, cm.never_decided), 10),
         time_ms(torch, lambda: paxos_conds_plain(states, c, cm.never_decided), 2),
-        f * w * 4 + f * n_props)
+        f * w * 4 + f * n_props, ops=dp_ops)
 
     # K8 gates its valid input in place: each call gets a fresh copy.
     kinds = prop_kinds(checker._properties)
@@ -618,8 +647,8 @@ def phase_paxos_kernels(torch, checker, rows):
     # K3 runs twice a wave: on the F * M lane validity (through
     # compact_valid_indices), then on the U-lane "new" mask after K4.  Its
     # row is the mean of the two calls, as its launches count both.
-    size = unique_buffer_size(PAXOS3_GEOMETRY["max_frontier"] * m,
-                              PAXOS3_GEOMETRY["dedup_factor"])
+    size = unique_buffer_size(geometry["max_frontier"] * m,
+                              geometry["dedup_factor"])
     gated = k8[0].view(-1)
     v_orig, v_act, n_valid = compact_valid_indices(gated, size)
     n = int(n_valid)
@@ -665,18 +694,26 @@ def phase_paxos_kernels(torch, checker, rows):
     row("compact", e1 + e2, (t1 + t2) / 2, (q1 + q2) / 2, (b1 + b2) / 2,
         library_ms=(l1 + l2) / 2)
 
-    # The replayed wave appends exactly what the run appended.
     lanes = sel[:n_new].long()
-    idxs = v_orig[lanes].long()
+    check_appends(torch, carry, appended, k_rows[lanes], v_orig[lanes].long(),
+                  m, start, k8[1])
+
+
+def check_appends(torch, carry, appended, rows_new, idxs, m, start, eb):
+    """The replayed wave appends exactly what the run appended at the log
+    positions ``appended``: the new rows, in order, with parents ``start +
+    idxs // m`` and the parents' eventually-bits ``eb``."""
+    w = rows_new.shape[1]
     at = torch.arange(appended.numel(), device=appended.device)
-    if n_new != appended.numel() or not (
+    if rows_new.shape[0] != appended.numel() or not (
         (appended == appended[0] + at).all()
-        and (k_rows[lanes] == carry.rows.view(-1, w)[appended]).all()
+        and (rows_new == carry.rows.view(-1, w)[appended]).all()
         and (carry.parent[appended].long() == start + idxs // m).all()
-        and (carry.ebits[appended] == k8[1][idxs // m]).all()
+        and (carry.ebits[appended] == eb[idxs // m]).all()
     ):
         raise AssertionError("the replayed wave does not append what the run did")
-    log(f"  the replayed wave appends the run's {n_new} rows, parents and ebits")
+    log(f"  the replayed wave appends the run's {appended.numel()} rows, "
+        f"parents and ebits")
 
 
 def check_insert(torch, row, table, hi, lo, active):
@@ -762,6 +799,178 @@ def phase_never_decided(torch):
         f"depth={checker.max_depth()} waves={checker.waves()}")
 
 
+def phase_paxos6_prefix(torch):
+    """``paxos check 6`` to depth 6 on the card, bit-equal to the CPU run."""
+    from stateright_tpu_torch.models.paxos_compiled import state_width
+
+    card_and_cpu("paxos check 6 to depth 6",
+                 lambda: paxos_model(6).checker().target_max_depth(6),
+                 GOLDEN_PAXOS6_D6, state_width(6), capacity=1 << 14,
+                 max_frontier=1 << 7)
+
+
+def run_paxos6(torch):
+    """``paxos check 6`` through ``spawn_gpu()`` at ``PAXOS6_GEOMETRY``,
+    held to its golden; returns the joined checker and its wall seconds.
+    ``gpu_profile.py --model paxos6`` times and traces this same run."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = paxos_model(6).checker().spawn_gpu(**PAXOS6_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.max_depth())
+    if got != GOLDEN_PAXOS6:
+        raise AssertionError(f"paxos check 6 {got} != {GOLDEN_PAXOS6}")
+    return checker, elapsed
+
+
+def run_full(torch, gpu, path, run):
+    """One full check through ``run`` with the launch counts of ``path``
+    read around it; logs its counts, time and memory, re-executes the
+    discoveries on the host, and returns ``(launches, checker)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    checker, elapsed = run(torch)
+    launches = read_launches(path)
+    unique, depth = checker.unique_state_count(), checker.max_depth()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {path}: unique={unique} states={checker.state_count()} "
+        f"depth={depth} waves={checker.waves()} growths={checker._grow_flags} "
+        f"elapsed_s={elapsed:.3f} unique_per_s={unique / elapsed:.1f} "
+        f"peak_bytes={peak} load={checker.table_load_factor():.4f} card={gpu!r}")
+    log(f"  {path} launches: {launches}")
+    checker.assert_properties()
+    paths = {k: len(p) - 1 for k, p in checker.discoveries().items()}
+    log(f"  {path} discoveries re-executed: {paths}")
+    return launches, checker
+
+
+def single_copy_model(c, s):
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.models.single_copy_register import SingleCopyModelCfg
+
+    return SingleCopyModelCfg(c, s, Network.new_unordered_nonduplicating()).into_model()
+
+
+def phase_single_copy(torch):
+    """3 clients / 1 server bit-equal to the CPU run; 2 clients / 2
+    servers: the card finds the ``linearizable`` counterexample and the
+    host replays it to a history with no linearization."""
+    from stateright_tpu_torch.models.single_copy_compiled import state_width
+
+    kw = dict(capacity=1 << 14, max_frontier=1 << 8)
+    card_and_cpu("single-copy 3 clients", single_copy_model(3, 1).checker,
+                 GOLDEN_SC3, state_width(3), **kw).assert_properties()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    bad = single_copy_model(2, 2).checker().spawn_gpu(**kw).join()
+    elapsed = time.monotonic() - t0
+    path = bad.discoveries().get("linearizable")
+    if path is None:
+        raise AssertionError("single-copy 2 servers: no linearizable counterexample")
+    if path.last_state().history.serialized_history() is not None:
+        raise AssertionError("single-copy 2 servers: the replayed history linearizes")
+    log(f"  single-copy 2 servers: linearizable counterexample of "
+        f"{len(path) - 1} steps replayed, time_to_violation_s={elapsed:.3f} "
+        f"unique={bad.unique_state_count()} depth={bad.max_depth()}")
+
+
+def run_sc4(torch):
+    """``single-copy-register check 4`` through ``spawn_gpu()`` at
+    ``SC4_GEOMETRY``, held to its golden; returns the joined checker and its
+    wall seconds.  ``gpu_profile.py --model sc4`` times this same run."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = single_copy_model(4, 1).checker().spawn_gpu(**SC4_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.max_depth())
+    if got != GOLDEN_SC4:
+        raise AssertionError(f"single-copy check 4 {got} != {GOLDEN_SC4}")
+    return checker, elapsed
+
+
+def phase_sc4_kernels(torch, checker, rows):
+    """The ``single-copy-register check 4`` path's kernels against their
+    twins on one real wave of its run (:func:`replay_wave`), called as the
+    single-phase wave calls them; the wave must append what the run did."""
+    from stateright_tpu_torch.models.register_compiled_common import dp_work
+    from stateright_tpu_torch.models.single_copy_compiled import (
+        _codec, single_copy_step, single_copy_step_plain,
+    )
+    from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
+    from stateright_tpu_torch.ops.u32 import u32
+    from stateright_tpu_torch.parallel.hashset import (
+        compact_valid, unique_buffer_size,
+    )
+    from stateright_tpu_torch.parallel.wave_common import (
+        prop_kinds, wave_eval, wave_eval_plain,
+    )
+
+    row = kernel_row(rows, "sc4")
+    cm = checker._compiled
+    s, c, w, m = cm.s, cm.c, cm.state_width, cm.m
+    carry = checker._carry
+    states, start, eb, discovered, table, appended = replay_wave(
+        torch, checker, SC4_GEOMETRY)
+    f = states.shape[0]
+
+    k9 = single_copy_step(states, s, c)
+    p9 = single_copy_step_plain(states, s, c)
+    torch.cuda.synchronize()
+    dp_ops = int(dp_work(_codec(s, c), u32(states)).sum())
+    row("single_copy_step", max_abs_err(torch, zip(k9, p9)),
+        time_ms(torch, lambda: single_copy_step(states, s, c), 10),
+        time_ms(torch, lambda: single_copy_step_plain(states, s, c), 2),
+        f * w * 4 + f * m * (w * 4 + 1) + f * 2 + 4, ops=dp_ops)
+    nexts, valid, conds, _flag = k9
+    del p9
+    log(f"  single_copy_step: {int(valid.sum())} of {f * m} lanes valid")
+
+    kinds = prop_kinds(checker._properties)
+    gated = valid.clone()
+
+    def fresh():
+        gated.copy_(valid)
+
+    k8 = wave_eval(conds, gated, eb, start, kinds, discovered)
+    p8 = wave_eval_plain(conds, valid.clone(), eb, start, kinds, discovered)
+    torch.cuda.synchronize()
+    n_props = conds.shape[1]
+    row("wave_eval", max_abs_err(torch, zip(k8, p8)),
+        time_ms(torch, lambda: wave_eval(conds, gated, eb, start, kinds,
+                                         discovered), 10, setup=fresh),
+        time_ms(torch, lambda: wave_eval_plain(conds, valid, eb, start, kinds,
+                                               discovered), 2),
+        f * n_props + 2 * f * m + 2 * f * 4 + n_props * 8)
+
+    # K1 on every candidate row, as the single-phase wave hashes them.
+    cand_rows = nexts.view(f * m, w)
+    k1 = device_fp64(cand_rows)
+    p1 = device_fp64_plain(cand_rows)
+    torch.cuda.synchronize()
+    row("device_fp64", max_abs_err(torch, zip(k1, p1)),
+        time_ms(torch, lambda: device_fp64(cand_rows), 10),
+        time_ms(torch, lambda: device_fp64_plain(cand_rows), 2),
+        f * m * (w * 4 + 8))
+
+    size = unique_buffer_size(SC4_GEOMETRY["max_frontier"] * m,
+                              SC4_GEOMETRY["dedup_factor"])
+    lane_valid = k8[0].view(-1)
+    k3_valid = measure_compact(torch, lane_valid, size)
+    v_hi, v_lo, v_orig, v_act, _n_valid = compact_valid(*k1, lane_valid, size)
+    if k3_valid[0] or not (k3_valid[5] == v_orig).all():
+        raise AssertionError("compact_valid disagrees with its twin")
+    k_new = check_insert(torch, row, table, v_hi, v_lo, v_act)
+    n_new = int(k_new.sum())
+    k3_new = measure_compact(torch, k_new, size)
+    (e1, t1, q1, l1, b1, _), (e2, t2, q2, l2, b2, sel) = k3_valid, k3_new
+    row("compact", e1 + e2, (t1 + t2) / 2, (q1 + q2) / 2, (b1 + b2) / 2,
+        library_ms=(l1 + l2) / 2)
+
+    idxs = v_orig[sel[:n_new].long()].long()
+    check_appends(torch, carry, appended, cand_rows[idxs], idxs, m, start, k8[1])
+
+
 def main() -> int:
     use_one_card()
     try:
@@ -790,7 +999,8 @@ def main() -> int:
     log(f"  ptxas: {len(frames)} kernel entries, those with a stack frame or "
         f"spills (bytes of frame, spill stores, spill loads): {local}")
     gpu = gpu_line()
-    log(f"  card: {gpu}")
+    log(f"  card: {gpu}; derived INT32 rate {int32_rate():.4g} ops/s "
+        f"(132 SMs x 64 lanes x the maximum SM clock)")
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -803,23 +1013,47 @@ def main() -> int:
     phase_rm5(torch)
 
     log("phase 4: 2pc check 10 on the card")
-    launches = {"rm10": phase_rm10(torch, gpu)}
+    launches = {"rm10": run_full(torch, gpu, "rm10", run_rm10)[0]}
     torch.cuda.empty_cache()
 
     log("phase 5: paxos check 2 on the card")
     phase_paxos2(torch)
 
     log("phase 6: paxos check 3 on the card")
-    launches["paxos3"], checker = phase_paxos3(torch, gpu)
+    launches["paxos3"], checker = run_full(torch, gpu, "paxos3", run_paxos3)
 
     log("phase 7: the paxos check 3 path's kernels against their twins on "
         "one of its waves")
-    phase_paxos_kernels(torch, checker, rows)
+    phase_paxos_kernels(torch, checker, rows, "paxos3", PAXOS3_GEOMETRY)
     del checker
     torch.cuda.empty_cache()
 
     log("phase 8: paxos check 3, never decided, to the first violation")
     phase_never_decided(torch)
+
+    log("phase 9: paxos check 6 to depth 6 on the card and on the CPU")
+    phase_paxos6_prefix(torch)
+
+    log("phase 10: paxos check 6 on the card")
+    launches["paxos6"], checker = run_full(torch, gpu, "paxos6", run_paxos6)
+
+    log("phase 11: the paxos check 6 path's kernels against their twins on "
+        "one of its waves")
+    phase_paxos_kernels(torch, checker, rows, "paxos6", PAXOS6_GEOMETRY)
+    del checker
+    torch.cuda.empty_cache()
+
+    log("phase 12: the single-copy register, linearizable and not")
+    phase_single_copy(torch)
+
+    log("phase 13: single-copy-register check 4 on the card")
+    launches["sc4"], checker = run_full(torch, gpu, "sc4", run_sc4)
+
+    log("phase 14: the single-copy-register check 4 path's kernels against "
+        "their twins on one of its waves")
+    phase_sc4_kernels(torch, checker, rows)
+    del checker
+    torch.cuda.empty_cache()
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []

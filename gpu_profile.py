@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of a full check goes on one H100.
 
-    python3 gpu_profile.py [--model rm10|paxos3] [--runs N] [--trace-dir DIR]
+    python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4] [--runs N]
+                           [--trace-dir DIR]
 
 Builds the port's kernels, runs one of ``chip_smoke.py``'s full checks
 through ``spawn_gpu()`` at its geometry, held to its goldens --
-``run_rm10`` (``2pc check 10``, phase 4) or ``run_paxos3`` (``paxos check
-3``, phase 6) -- ``--runs`` times untraced (wall seconds of each, then
+``run_rm10`` (``2pc check 10``, phase 4), ``run_paxos3`` (``paxos check
+3``, phase 6), ``run_paxos6`` (``paxos check 6``, phase 10) or ``run_sc4``
+(``single-copy-register check 4``, phase 13) -- ``--runs`` times untraced (wall seconds of each, then
 median and spread), and once more under ``torch.profiler``: device time per
 kernel name, the card's busy share of the traced run's wall time, and, with
 ``--trace-dir``, a Chrome trace written there.  The traced run pays the
@@ -27,7 +29,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("rm10", "paxos3"), default="rm10")
+    ap.add_argument("--model", choices=("rm10", "paxos3", "paxos6", "sc4"),
+                    default="rm10")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -43,6 +46,8 @@ def main() -> int:
     run, golden = {
         "rm10": (chip_smoke.run_rm10, chip_smoke.GOLDEN_RM10),
         "paxos3": (chip_smoke.run_paxos3, chip_smoke.GOLDEN_PAXOS3),
+        "paxos6": (chip_smoke.run_paxos6, chip_smoke.GOLDEN_PAXOS6),
+        "sc4": (chip_smoke.run_sc4, chip_smoke.GOLDEN_SC4),
     }[args.model]
     unique = golden[0]
     cuda.build()

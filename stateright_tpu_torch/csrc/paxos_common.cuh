@@ -6,11 +6,13 @@
 // accepted 0, prop - 1 on the flagged branches) happens here as it does
 // there.
 //
-// Row layout (C clients, M = 16 slots for C <= 2, 32 for C = 3, W words):
+// Row layout (C clients, M = 16 slots for C <= 2, 32 for C = 3, 64 from
+// C = 4, W words):
 //   words 0..5   three server records, (lo, hi) each: ballot code (6 bits,
-//                round*3 + leader) | proposal (2) | 3 prepare entries
-//                (present bit + 9-bit accepted code) | 3 accept bits |
-//                accepted (9) | decided (1);
+//                round*3 + leader) | proposal (PB = max(2, bit_length(C))
+//                bits) | 3 prepare entries (present bit + 9-bit accepted
+//                code) | 3 accept bits | accepted (9) | decided (1), so the
+//                fields after the proposal move up a bit from C = 4;
 //   word 6       client nibbles: awaiting kind (2 bits) + op count (2);
 //   words 7..    M network slots: sorted nonzero envelope codes, then 0;
 //   last C       tester words.
@@ -29,25 +31,29 @@ constexpr uint32_t T_PUT = 0, T_GET = 1, T_PUTOK = 2, T_GETOK = 3,
                    T_PREPARE = 4, T_PREPARED = 5, T_ACCEPT = 6,
                    T_ACCEPTED = 7, T_DECIDED = 8;
 
-// Server-record fields (offset, width) over the (lo, hi) pair, for C <= 3
-// (a 2-bit proposal field); models/paxos_compiled.py mirrors these.
+// Accepted codes are 1 + ballot_code*C + proposal_idx <= 1 + 47*7 + 6 < 2**9.
 constexpr int ACC_BITS = 9;
 constexpr int F_BALLOT = 0, W_BALLOT = 6;
-constexpr int F_PROP = 6, W_PROP = 2;
-constexpr int PREP0 = 8, PW = 1 + ACC_BITS;
-constexpr int F_ACCEPTS = PREP0 + S * PW;
-constexpr int F_ACCEPTED = F_ACCEPTS + S;
-constexpr int F_DECIDED = F_ACCEPTED + ACC_BITS;
+constexpr int F_PROP = 6;
+constexpr int PW = 1 + ACC_BITS;  // one prepare entry
 constexpr int CLI = 2 * S;
 constexpr int NET0 = 2 * S + 1;
 
+// The layout at C clients; models/paxos_compiled.py's paxos_fields mirrors
+// the server-record offsets.
 template <int C>
 struct Geom {
-  static_assert(C >= 1 && C <= 3, "the port's paxos kernels take 1..3 clients");
-  static constexpr int M = C <= 2 ? 16 : 32;  // slots = Deliver lanes
-  static constexpr int TST0 = NET0 + M;       // first tester word
-  static constexpr int W = TST0 + C;          // words a row
-  static constexpr int LCB = 2 * (C - 1);     // last-completed snapshot bits
+  static_assert(C >= 1 && C <= 7, "packed paxos takes 1..7 clients");
+  static constexpr int M = C <= 2 ? 16 : C == 3 ? 32 : 64;  // slots = lanes
+  static constexpr int TST0 = NET0 + M;    // first tester word
+  static constexpr int W = TST0 + C;       // words a row
+  static constexpr int LCB = 2 * (C - 1);  // last-completed snapshot bits
+  // Server-record fields after the proposal, whose width follows C.
+  static constexpr int W_PROP = C >= 4 ? 3 : 2;  // max(2, bit_length(C))
+  static constexpr int PREP0 = F_PROP + W_PROP;
+  static constexpr int F_ACCEPTS = PREP0 + S * PW;
+  static constexpr int F_ACCEPTED = F_ACCEPTS + S;
+  static constexpr int F_DECIDED = F_ACCEPTED + ACC_BITS;
 };
 
 // A static bit field of a (lo, hi) pair (the JAX _ext).
@@ -115,9 +121,10 @@ __device__ __forceinline__ uint32_t client_kind(uint32_t cli, uint32_t ci) {
 // The 9-way guard per tag, before occupancy (the JAX step_valid).
 template <int C>
 __device__ __forceinline__ bool guard(const Lane& l, uint32_t cli) {
+  using G = Geom<C>;
   const uint32_t ballot = ext(l.lo, l.hi, F_BALLOT, W_BALLOT);
-  const uint32_t prop = ext(l.lo, l.hi, F_PROP, W_PROP);
-  const bool decided = ext(l.lo, l.hi, F_DECIDED, 1) == 1u;
+  const uint32_t prop = ext(l.lo, l.hi, F_PROP, G::W_PROP);
+  const bool decided = ext(l.lo, l.hi, G::F_DECIDED, 1) == 1u;
   const uint32_t p = l.payload;
   switch (l.tag) {
     case T_PUT: return !decided && prop == 0u;
@@ -146,6 +153,10 @@ __device__ __forceinline__ bool occupied(uint32_t code, uint32_t prev, int k) {
     case 1: { CALL(1); break; } \
     case 2: { CALL(2); break; } \
     case 3: { CALL(3); break; } \
+    case 4: { CALL(4); break; } \
+    case 5: { CALL(5); break; } \
+    case 6: { CALL(6); break; } \
+    case 7: { CALL(7); break; } \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 

@@ -16,14 +16,17 @@
 // Bound: bytes.  Each of the n lanes reads its index (4 bytes) and its
 // parent row (4W) and writes its successor (4W) and a flag byte; the
 // handler and the slot merge are a few hundred integer operations a lane.
-// Design: one thread per compacted lane.  Every field the handler touches
-// is loaded into registers with static indices; the slot re-sort is a
-// merge, because a row's slots are already sorted (nonzero codes ascending,
+// Design: one thread per compacted lane, for C = 1..7 (M = 16, 32 or 64
+// slots; the server-record fields after the proposal move with its width,
+// paxos_common.cuh).  Every field the handler touches is loaded into
+// registers with static indices; the slot re-sort is a merge, because a row's slots are already sorted (nonzero codes ascending,
 // then zeros): the remaining slots (slot k skipped, read from the parent
 // row in L1 by a moving index) merge with the three sends, sorted by a
 // three-element network, in unsigned order with empty slots as 0xFFFFFFFF
-// -- compared unsigned, so the sentinel sorts last.  Rows past n are not
-// written and their flags are 0.
+// -- compared unsigned, so the sentinel sorts last.  The merge holds no
+// slot in registers (each output slot is written as it is chosen), so 64
+// slots cost no more registers than 32.  Rows past n are not written and
+// their flags are 0.
 #include "paxos_common.cuh"
 
 namespace {
@@ -79,9 +82,9 @@ __global__ void paxos_lane_kernel(const uint32_t* __restrict__ states,
     const uint32_t lo = l.lo, hi = l.hi, dsrv = l.dsrv, addr = l.addr;
     const uint32_t payload = l.payload, i_src = l.i_src, i_dst = l.i_dst;
     const uint32_t ballot = ext(lo, hi, F_BALLOT, W_BALLOT);
-    const uint32_t prop = ext(lo, hi, F_PROP, W_PROP);
-    const uint32_t accepted = ext(lo, hi, F_ACCEPTED, ACC_BITS);
-    const bool decided = ext(lo, hi, F_DECIDED, 1) == 1u;
+    const uint32_t prop = ext(lo, hi, F_PROP, G::W_PROP);
+    const uint32_t accepted = ext(lo, hi, G::F_ACCEPTED, ACC_BITS);
+    const bool decided = ext(lo, hi, G::F_DECIDED, 1) == 1u;
     const uint32_t p1 = (dsrv + 1u) % 3u, p2 = (dsrv + 2u) % 3u;
 
     uint32_t nlo = lo, nhi = hi;  // the destination server's new record
@@ -98,13 +101,13 @@ __global__ void paxos_lane_kernel(const uint32_t* __restrict__ states,
         const uint32_t r_new = ballot / 3u + 1u;
         branch_flag = !decided && prop == 0u && r_new > MAX_ROUND;
         ins(nlo, nhi, F_BALLOT, W_BALLOT, r_new * 3u + dsrv);
-        ins(nlo, nhi, F_PROP, W_PROP, addr + 1u);
+        ins(nlo, nhi, F_PROP, G::W_PROP, addr + 1u);
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           const bool self = dsrv == static_cast<uint32_t>(s);
-          ins(nlo, nhi, PREP0 + PW * s, 1, self ? 1u : 0u);
-          ins(nlo, nhi, PREP0 + 1 + PW * s, ACC_BITS, self ? accepted : 0u);
-          ins(nlo, nhi, F_ACCEPTS + s, 1, 0u);
+          ins(nlo, nhi, G::PREP0 + PW * s, 1, self ? 1u : 0u);
+          ins(nlo, nhi, G::PREP0 + 1 + PW * s, ACC_BITS, self ? accepted : 0u);
+          ins(nlo, nhi, G::F_ACCEPTS + s, 1, 0u);
         }
         s0 = mk(T_PREPARE, dsrv * 8u + p1, r_new);
         s1 = mk(T_PREPARE, dsrv * 8u + p2, r_new);
@@ -127,11 +130,11 @@ __global__ void paxos_lane_kernel(const uint32_t* __restrict__ states,
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           const bool from = i_src == static_cast<uint32_t>(s);
-          const uint32_t pp = ext(lo, hi, PREP0 + PW * s, 1) | (from ? 1u : 0u);
+          const uint32_t pp = ext(lo, hi, G::PREP0 + PW * s, 1) | (from ? 1u : 0u);
           const uint32_t pa =
-              from ? pd_acc : ext(lo, hi, PREP0 + 1 + PW * s, ACC_BITS);
-          ins(nlo, nhi, PREP0 + PW * s, 1, pp);
-          ins(nlo, nhi, PREP0 + 1 + PW * s, ACC_BITS, pa);
+              from ? pd_acc : ext(lo, hi, G::PREP0 + 1 + PW * s, ACC_BITS);
+          ins(nlo, nhi, G::PREP0 + PW * s, 1, pp);
+          ins(nlo, nhi, G::PREP0 + 1 + PW * s, ACC_BITS, pa);
           count_p += pp;
           const uint32_t cand = pp == 1u ? pa : 0u;
           best = cand > best ? cand : best;
@@ -140,11 +143,11 @@ __global__ void paxos_lane_kernel(const uint32_t* __restrict__ states,
         const uint32_t pd_prop = best > 0u ? 1u + (best - 1u) % C : prop;
         branch_flag = guard_ok && trigger && pd_prop == 0u;
         if (trigger) {  // adopt the proposal, self-accept, broadcast Accept
-          ins(nlo, nhi, F_PROP, W_PROP, pd_prop);
-          ins(nlo, nhi, F_ACCEPTED, ACC_BITS, 1u + ballot * C + (pd_prop - 1u));
+          ins(nlo, nhi, F_PROP, G::W_PROP, pd_prop);
+          ins(nlo, nhi, G::F_ACCEPTED, ACC_BITS, 1u + ballot * C + (pd_prop - 1u));
 #pragma unroll
           for (int s = 0; s < S; ++s)
-            ins(nlo, nhi, F_ACCEPTS + s, 1, i_dst == static_cast<uint32_t>(s));
+            ins(nlo, nhi, G::F_ACCEPTS + s, 1, i_dst == static_cast<uint32_t>(s));
           const uint32_t pay = (ballot / 3u) * 8u + (pd_prop - 1u);
           s0 = mk(T_ACCEPT, i_dst * 8u + p1, pay);
           s1 = mk(T_ACCEPT, i_dst * 8u + p2, pay);
@@ -154,7 +157,7 @@ __global__ void paxos_lane_kernel(const uint32_t* __restrict__ states,
       case T_ACCEPT: {
         const uint32_t mb = (payload / 8u) * 3u + i_src;
         ins(nlo, nhi, F_BALLOT, W_BALLOT, mb);
-        ins(nlo, nhi, F_ACCEPTED, ACC_BITS, 1u + mb * C + payload % 8u);
+        ins(nlo, nhi, G::F_ACCEPTED, ACC_BITS, 1u + mb * C + payload % 8u);
         s0 = mk(T_ACCEPTED, i_dst * 8u + i_src, payload / 8u);
         break;
       }
@@ -163,14 +166,14 @@ __global__ void paxos_lane_kernel(const uint32_t* __restrict__ states,
         uint32_t count_a = 0;
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-          const uint32_t bit = ext(lo, hi, F_ACCEPTS + s, 1) |
+          const uint32_t bit = ext(lo, hi, G::F_ACCEPTS + s, 1) |
                                (i_src == static_cast<uint32_t>(s) ? 1u : 0u);
-          ins(nlo, nhi, F_ACCEPTS + s, 1, bit);
+          ins(nlo, nhi, G::F_ACCEPTS + s, 1, bit);
           count_a += bit;
         }
         const bool trigger = count_a == 2u;
         branch_flag = guard_ok && trigger && prop == 0u;
-        ins(nlo, nhi, F_DECIDED, 1, trigger ? 1u : 0u);
+        ins(nlo, nhi, G::F_DECIDED, 1, trigger ? 1u : 0u);
         if (trigger) {  // broadcast Decided, answer the requester
           const uint32_t pay = ballot * 8u + (prop - 1u);
           s0 = mk(T_DECIDED, i_dst * 8u + p1, pay);
@@ -181,9 +184,9 @@ __global__ void paxos_lane_kernel(const uint32_t* __restrict__ states,
       }
       case T_DECIDED: {
         ins(nlo, nhi, F_BALLOT, W_BALLOT, payload / 8u);
-        ins(nlo, nhi, F_ACCEPTED, ACC_BITS,
+        ins(nlo, nhi, G::F_ACCEPTED, ACC_BITS,
             1u + (payload / 8u) * C + payload % 8u);
-        ins(nlo, nhi, F_DECIDED, 1, 1u);
+        ins(nlo, nhi, G::F_DECIDED, 1, 1u);
         break;
       }
       case T_PUTOK: {  // client ci: (put, 1) -> (get, 2); tester 1 -> 3

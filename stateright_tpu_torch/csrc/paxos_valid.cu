@@ -11,7 +11,8 @@
 // server records and the client word: 4 * (7 + M) bytes) and one validity
 // byte a lane written; the guard is a few dozen integer operations.
 // Design: one thread per (state, slot) lane, so a warp covers one state's
-// 32 slots at C = 3 (two states' 16 at C <= 2): slot reads are coalesced,
+// 32 slots at C = 3 (two states' 16 at C <= 2, half a state's 64 from
+// C = 4): slot reads are coalesced,
 // the server and client words are the same address across the warp and
 // served from L1, and the validity bytes are written contiguously.  The
 // destination's record is chosen by a select over the three loaded

@@ -5,12 +5,15 @@ injective packed encoding of the whole ``ActorModelState`` -- three
 PaxosState server records, C scripted register clients, the
 nonduplicating network as sorted envelope-code slots, and the
 LinearizabilityTester history -- and the device functions of two-phase
-expansion over it.  Word layout (C clients, S=3 servers, M = 16 slots for
-C <= 2 and 32 for C = 3), identical to the JAX codec's:
+expansion over it.  Word layout (C = 1..7 clients, S=3 servers, M = 16
+slots for C <= 2, 32 for C = 3 and 64 from C = 4), identical to the JAX
+codec's:
 
-- words 0..5: three 51-bit server records, 2 words each: ballot code (6
-  bits, round*3 + leader) | proposal (2) | 3 prepare entries (1 + 9 each)
-  | 3 accept bits | accepted (9) | decided (1);
+- words 0..5: three server records of 49 + PB bits, 2 words each: ballot
+  code (6 bits, round*3 + leader) | proposal (PB = max(2, bit_length(C))
+  bits) | 3 prepare entries (1 + 9 each) | 3 accept bits | accepted (9) |
+  decided (1) -- the fields after the proposal sit a bit higher from
+  C = 4 (:func:`paxos_fields`);
 - word 6: client records, 4 bits each (awaiting kind 2b + op_count 2b);
 - words 7..7+M: network slots -- sorted nonzero envelope codes, then
   zeros; a duplicate envelope is a repeated code;
@@ -36,13 +39,13 @@ reproduce the JAX code's u32 wrap-around: ``code - 1`` on an empty slot,
 branches, and the unsigned order of the slot re-sort, whose empty-slot
 sentinel is ``0xFFFFFFFF``.
 
-Out of this slice: the ``max_round`` device boundary and the single-phase
-``step`` it needs, and C > 3 (64 slots; the DP then outgrows registers).
+Not ported yet: the ``max_round`` device boundary and the single-phase
+``step`` it needs.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +54,7 @@ from ..actor import Envelope, Id, Network
 from ..actor.model import ActorModelState
 from ..actor.register import Get, GetOk, Internal, Put, PutOk
 from ..ops import cuda
-from ..ops.u32 import M32, i32, u32
+from ..ops.u32 import M32, i32, shl32, u32
 from ..parallel.compiled import CompiledModel
 from ..semantics import LinearizabilityTester, Register
 from .paxos import (
@@ -68,38 +71,57 @@ from .register_compiled_common import (
     client_record,
     decode_slot_counts,
     device_linearizable_plain,
+    envelope_code,
+    envelope_fields,
     getok_transition,
     putok_transition,
+    resort_slots,
     tester_word,
 )
 
 S = 3  # servers (the golden configurations fix three)
 MAX_ROUND = 15  # 4 bits of ballot round
-MAX_CLIENTS = 3  # 32 slots; C > 3 needs 64 and is not ported yet
+MAX_CLIENTS = 7  # the register harness's cap (tester word, client nibbles)
 
 # Message tags of envelope codes.
 _T_PUT, _T_GET, _T_PUTOK, _T_GETOK = 0, 1, 2, 3
 _T_PREPARE, _T_PREPARED, _T_ACCEPT, _T_ACCEPTED, _T_DECIDED = 4, 5, 6, 7, 8
 
-# Server-record fields, (offset, width) over its (lo, hi) word pair; the
-# proposal field is 2 bits for C <= 3 (csrc/paxos_common.cuh mirrors
-# these).  Accepted codes are 1 + ballot_code*C + proposal_idx <= 1 + 47*3
-# + 2 < 512.
-_PB = 2
+# Accepted codes are 1 + ballot_code*C + proposal_idx <= 1 + 47*7 + 6 < 512.
 _ACC_BITS = 9
 _F_BALLOT = (0, 6)
-_F_PROP = (6, _PB)
-_PREP0 = 6 + _PB
 _PW = 1 + _ACC_BITS  # one prepare entry: present bit + accepted code
-_F_ACCEPTS = _PREP0 + S * _PW
-_F_ACCEPTED = (_F_ACCEPTS + S, _ACC_BITS)
-_F_DECIDED = (_F_ACCEPTED[0] + _ACC_BITS, 1)
 _NET0 = 2 * S + 1
 _CLI = 2 * S
 
 
+class PaxosFields(NamedTuple):
+    """Server-record fields after the ballot, (offset, width) over a
+    record's (lo, hi) word pair, or the offset alone."""
+
+    prop: Tuple[int, int]
+    prep0: int  # first prepare entry
+    accepts: int  # first accept bit
+    accepted: Tuple[int, int]
+    decided: Tuple[int, int]
+
+
+def paxos_fields(c: int) -> PaxosFields:
+    """The record fields at ``c`` clients: the proposal code (0..C) takes
+    ``max(2, bit_length(C))`` bits, and every field after it moves with it
+    (the JAX codec's ``pb``; ``csrc/paxos_common.cuh`` mirrors these)."""
+    pb = max(2, c.bit_length())
+    prep0 = 6 + pb
+    accepts = prep0 + S * _PW
+    accepted = (accepts + S, _ACC_BITS)
+    return PaxosFields((6, pb), prep0, accepts, accepted,
+                       (accepted[0] + _ACC_BITS, 1))
+
+
 def slot_count(c: int) -> int:
-    return 16 if c <= 2 else 32
+    """In-flight envelope slots: 16 for C <= 2, 32 for C = 3, 64 above
+    (the JAX codec's budget; an overflow is flagged, never silent)."""
+    return 16 if c <= 2 else (32 if c == 3 else 64)
 
 
 def state_width(c: int) -> int:
@@ -117,8 +139,9 @@ class PaxosCompiled(CompiledModel):
             raise ValueError("packed paxos fixes server_count=3")
         if not 1 <= cfg.client_count <= MAX_CLIENTS:
             raise ValueError(
-                f"the port's packed paxos supports 1 to {MAX_CLIENTS} clients "
-                f"(got {cfg.client_count}); C >= 4 needs 64 slots"
+                f"packed paxos supports 1 to {MAX_CLIENTS} clients "
+                f"(got {cfg.client_count}): the register harness's tester "
+                f"word holds no more"
             )
         if cfg.max_round is not None and cfg.max_round != MAX_ROUND:
             raise ValueError(
@@ -128,6 +151,7 @@ class PaxosCompiled(CompiledModel):
         self.c = cfg.client_count
         self.never_decided = bool(cfg.never_decided)
         self.m = slot_count(self.c)
+        self.pb = paxos_fields(self.c).prop[1]  # proposal-code bits
         self.state_width = state_width(self.c)
         self.max_actions = self.m  # one Deliver lane per slot
         self.rc = _codec(self.c)
@@ -181,14 +205,14 @@ class PaxosCompiled(CompiledModel):
             self.proposals[code % self.c],
         )
 
-    # --- server record (47 bits in a u64 chunk) ------------------------------
+    # --- server record (49 + pb bits in a u64 chunk) -------------------------
 
     def _encode_server(self, s: PaxosState) -> int:
         bits = self._ballot_code(s.ballot)  # 6 bits (rounds 0..15 * 3)
         assert bits < 64
         off = 6
         bits |= self._proposal_code(s.proposal) << off
-        off += _PB
+        off += self.pb
         prepares = dict(s.prepares)
         for sid in range(S):
             if Id(sid) in prepares:
@@ -209,8 +233,8 @@ class PaxosCompiled(CompiledModel):
     def _decode_server(self, bits: int) -> PaxosState:
         ballot = self._ballot_of(bits & 0x3F)
         off = 6
-        proposal = self._proposal_of((bits >> off) & ((1 << _PB) - 1))
-        off += _PB
+        proposal = self._proposal_of((bits >> off) & ((1 << self.pb) - 1))
+        off += self.pb
         prepares = []
         for sid in range(S):
             if (bits >> off) & 1:
@@ -453,40 +477,22 @@ def _ext(lo, hi, off: int, width: int):
     return ((lo >> off) | (hi << (32 - off))) & mask
 
 
-def _shl(val, off: int):
-    """``val << off`` in u32 (the bits shifted past 31 are lost)."""
-    return (val & (M32 >> off)) << off
-
-
 def _ins(lo, hi, off: int, width: int, val):
     """Insert ``val`` into a (lo, hi) u32 pair exactly as the JAX ``_ins``
     does -- unmasked, so an over-wide value spills as it does there."""
     m = (1 << width) - 1
     if off + width <= 32:
-        lo = (lo & (~(m << off) & M32)) | _shl(val, off)
+        lo = (lo & (~(m << off) & M32)) | shl32(val, off)
     elif off >= 32:
         o = off - 32
-        hi = (hi & (~(m << o) & M32)) | _shl(val, o)
+        hi = (hi & (~(m << o) & M32)) | shl32(val, o)
     else:
         nlo = 32 - off
-        lo = (lo & (~((m & ((1 << nlo) - 1)) << off) & M32)) | _shl(
+        lo = (lo & (~((m & ((1 << nlo) - 1)) << off) & M32)) | shl32(
             val & ((1 << nlo) - 1), off
         )
         hi = (hi & (~(m >> nlo) & M32)) | (val >> nlo)
     return lo, hi
-
-
-def _envelope(code):
-    """The fields of envelope codes (0 = empty wraps to all-ones)."""
-    e = (code - 1) & M32
-    tag = e >> 19
-    addr = (e >> 14) & 0x1F
-    payload = e & 0x3FFF
-    return tag, addr, payload, addr >> 3, addr & 7
-
-
-def _mk(tag: int, addr, payload):
-    return (1 + ((tag << 19) | _shl(addr & M32, 14) | (payload & M32))) & M32
 
 
 def _server_of(st, dsrv):
@@ -506,7 +512,7 @@ def _lane_header(st, code, prev, k):
     # Only the first slot of a run of equal codes is a lane; later copies
     # of a duplicated send stay in flight.
     occupied = (code != 0) & ((k == 0) | (prev != code))
-    tag, addr, payload, i_src, i_dst = _envelope(code)
+    tag, addr, payload, i_src, i_dst = envelope_fields(code)
     dsrv = torch.where(
         tag == _T_PUT, addr % 3, torch.where(tag == _T_GET, (addr + 1) % 3, i_dst)
     )
@@ -517,9 +523,10 @@ def _lane_header(st, code, prev, k):
 def _guards(rc, st, tag, payload, i_src, i_dst, lo, hi):
     """Per-tag validity of a Deliver, before occupancy."""
     c = rc.c
+    fd = paxos_fields(c)
     ballot = _ext(lo, hi, *_F_BALLOT)
-    prop = _ext(lo, hi, *_F_PROP)
-    decided = _ext(lo, hi, *_F_DECIDED)
+    prop = _ext(lo, hi, *fd.prop)
+    decided = _ext(lo, hi, *fd.decided)
     not_dec = decided == 0
     _ci, _cli, kind, _opc = client_record(rc, st, i_dst)
     to_client = i_dst < c
@@ -574,14 +581,15 @@ def _deliver_lanes(rc, st, k):
     )
     valid = occupied & _guards(rc, st, tag, payload, i_src, i_dst, lo, hi)
 
-    p0, pw = _PREP0, _PW
+    fd = paxos_fields(c)
+    p0, pw = fd.prep0, _PW
     ballot = _ext(lo, hi, *_F_BALLOT)
-    prop = _ext(lo, hi, *_F_PROP)
+    prop = _ext(lo, hi, *fd.prop)
     prep_p = [_ext(lo, hi, p0 + pw * s, 1) for s in range(S)]
     prep_a = [_ext(lo, hi, p0 + 1 + pw * s, _ACC_BITS) for s in range(S)]
-    acc_bit = [_ext(lo, hi, _F_ACCEPTS + s, 1) for s in range(S)]
-    accepted = _ext(lo, hi, *_F_ACCEPTED)
-    decided = _ext(lo, hi, *_F_DECIDED)
+    acc_bit = [_ext(lo, hi, fd.accepts + s, 1) for s in range(S)]
+    accepted = _ext(lo, hi, *fd.accepted)
+    decided = _ext(lo, hi, *fd.decided)
     not_dec = decided == 0
     p1 = (dsrv + 1) % 3
     p2 = (dsrv + 2) % 3
@@ -591,7 +599,7 @@ def _deliver_lanes(rc, st, k):
     r_new = ballot // 3 + 1
     put_flag = not_dec & (prop == 0) & (r_new > MAX_ROUND)
     plo, phi = _ins(lo, hi, *_F_BALLOT, r_new * 3 + dsrv)
-    plo, phi = _ins(plo, phi, *_F_PROP, addr + 1)
+    plo, phi = _ins(plo, phi, *fd.prop, addr + 1)
     for s in range(S):
         self_entry = (dsrv == s).long()
         plo, phi = _ins(plo, phi, p0 + pw * s, 1, self_entry)
@@ -599,19 +607,19 @@ def _deliver_lanes(rc, st, k):
             plo, phi, p0 + 1 + pw * s, _ACC_BITS,
             torch.where(self_entry == 1, accepted, 0),
         )
-        plo, phi = _ins(plo, phi, _F_ACCEPTS + s, 1, zero)
-    put_s0 = _mk(_T_PREPARE, dsrv * 8 + p1, r_new)
-    put_s1 = _mk(_T_PREPARE, dsrv * 8 + p2, r_new)
+        plo, phi = _ins(plo, phi, fd.accepts + s, 1, zero)
+    put_s0 = envelope_code(_T_PREPARE, dsrv * 8 + p1, r_new)
+    put_s1 = envelope_code(_T_PREPARE, dsrv * 8 + p2, r_new)
 
     # Get on a decided server: accepted 0 wraps (0xFFFFFFFF % c).
     get_flag = (decided == 1) & (accepted == 0)
     get_v = 1 + ((accepted - 1) & M32) % c
-    get_s0 = _mk(_T_GETOK, dsrv * 8 + addr, get_v)
+    get_s0 = envelope_code(_T_GETOK, dsrv * 8 + addr, get_v)
 
     # Prepare.
     prep_mb = payload * 3 + i_src
     qlo, qhi = _ins(lo, hi, *_F_BALLOT, prep_mb)
-    prepare_s0 = _mk(_T_PREPARED, i_dst * 8 + i_src, payload * 512 + accepted)
+    prepare_s0 = envelope_code(_T_PREPARED, i_dst * 8 + i_src, payload * 512 + accepted)
 
     # Prepared.
     pd_mb = (payload // 512) * 3 + i_dst
@@ -630,21 +638,21 @@ def _deliver_lanes(rc, st, k):
         rlo, rhi = _ins(rlo, rhi, p0 + pw * s, 1, pd_p[s])
         rlo, rhi = _ins(rlo, rhi, p0 + 1 + pw * s, _ACC_BITS, pd_a[s])
     # Majority: adopt the proposal, self-accept, broadcast Accept.
-    tlo, thi = _ins(rlo, rhi, *_F_PROP, pd_prop)
-    tlo, thi = _ins(tlo, thi, *_F_ACCEPTED, (1 + ballot * c + pd_prop - 1) & M32)
+    tlo, thi = _ins(rlo, rhi, *fd.prop, pd_prop)
+    tlo, thi = _ins(tlo, thi, *fd.accepted, (1 + ballot * c + pd_prop - 1) & M32)
     for s in range(S):
-        tlo, thi = _ins(tlo, thi, _F_ACCEPTS + s, 1, (i_dst == s).long())
+        tlo, thi = _ins(tlo, thi, fd.accepts + s, 1, (i_dst == s).long())
     rlo = torch.where(pd_trigger, tlo, rlo)
     rhi = torch.where(pd_trigger, thi, rhi)
     pd_payload = ((ballot // 3) * 8 + pd_prop - 1) & M32
-    pd_s0 = torch.where(pd_trigger, _mk(_T_ACCEPT, i_dst * 8 + p1, pd_payload), 0)
-    pd_s1 = torch.where(pd_trigger, _mk(_T_ACCEPT, i_dst * 8 + p2, pd_payload), 0)
+    pd_s0 = torch.where(pd_trigger, envelope_code(_T_ACCEPT, i_dst * 8 + p1, pd_payload), 0)
+    pd_s1 = torch.where(pd_trigger, envelope_code(_T_ACCEPT, i_dst * 8 + p2, pd_payload), 0)
 
     # Accept.
     ac_mb = (payload // 8) * 3 + i_src
     alo, ahi = _ins(lo, hi, *_F_BALLOT, ac_mb)
-    alo, ahi = _ins(alo, ahi, *_F_ACCEPTED, 1 + ac_mb * c + payload % 8)
-    accept_s0 = _mk(_T_ACCEPTED, i_dst * 8 + i_src, payload // 8)
+    alo, ahi = _ins(alo, ahi, *fd.accepted, 1 + ac_mb * c + payload % 8)
+    accept_s0 = envelope_code(_T_ACCEPTED, i_dst * 8 + i_src, payload // 8)
 
     # Accepted.
     accepted_guard = not_dec & (payload * 3 + i_dst == ballot)
@@ -653,25 +661,25 @@ def _deliver_lanes(rc, st, k):
     ad_flag = accepted_guard & ad_trigger & (prop == 0)
     blo, bhi = lo, hi
     for s in range(S):
-        blo, bhi = _ins(blo, bhi, _F_ACCEPTS + s, 1, ad_bits[s])
-    blo, bhi = _ins(blo, bhi, *_F_DECIDED, ad_trigger.long())
+        blo, bhi = _ins(blo, bhi, fd.accepts + s, 1, ad_bits[s])
+    blo, bhi = _ins(blo, bhi, *fd.decided, ad_trigger.long())
     ad_payload = (ballot * 8 + prop - 1) & M32
-    ad_s0 = torch.where(ad_trigger, _mk(_T_DECIDED, i_dst * 8 + p1, ad_payload), 0)
-    ad_s1 = torch.where(ad_trigger, _mk(_T_DECIDED, i_dst * 8 + p2, ad_payload), 0)
+    ad_s0 = torch.where(ad_trigger, envelope_code(_T_DECIDED, i_dst * 8 + p1, ad_payload), 0)
+    ad_s1 = torch.where(ad_trigger, envelope_code(_T_DECIDED, i_dst * 8 + p2, ad_payload), 0)
     ad_s2 = torch.where(
-        ad_trigger, _mk(_T_PUTOK, (i_dst * 8 + prop - 1) & M32, zero), 0
+        ad_trigger, envelope_code(_T_PUTOK, (i_dst * 8 + prop - 1) & M32, zero), 0
     )
 
     # Decided.
     dlo, dhi = _ins(lo, hi, *_F_BALLOT, payload // 8)
-    dlo, dhi = _ins(dlo, dhi, *_F_ACCEPTED, 1 + (payload // 8) * c + payload % 8)
-    dlo, dhi = _ins(dlo, dhi, *_F_DECIDED, torch.ones_like(code))
+    dlo, dhi = _ins(dlo, dhi, *fd.accepted, 1 + (payload // 8) * c + payload % 8)
+    dlo, dhi = _ins(dlo, dhi, *fd.decided, torch.ones_like(code))
 
     # PutOk / GetOk to a client (the shared register-harness transitions).
     ci, cli, _kind, _opc = client_record(rc, st, i_dst)
     tw = tester_word(rc, st, ci)
     cli_putok, tw_putok = putok_transition(rc, st, ci, cli, tw)
-    putok_s0 = _mk(_T_GET, ci, zero)
+    putok_s0 = envelope_code(_T_GET, ci, zero)
     cli_getok, tw_getok = getok_transition(rc, ci, cli, tw, payload)
 
     srv_lo = _select(tag, {_T_PUT: plo, _T_PREPARE: qlo, _T_PREPARED: rlo,
@@ -691,15 +699,7 @@ def _deliver_lanes(rc, st, k):
     # Invalid lanes contribute no phantom sends to the slot math.
     sends = torch.stack([s0, s1, s2], dim=1) * valid.long()[:, None]
 
-    # Re-canonicalize the slots: remove slot k, insert the sends, sort
-    # unsigned with empty slots as 0xFFFFFFFF (the masked int64 domain
-    # orders them last; an int32 sort would put them first).
-    lane_sel = torch.arange(m, device=st.device)[None, :] == k[:, None]
-    cand = torch.cat([torch.where(lane_sel, 0, slots), sends], dim=1)
-    cand = torch.where(cand == 0, M32, cand)
-    cand = torch.sort(cand, dim=1).values
-    slot_overflow = valid & (cand[:, m:] != M32).any(dim=1)
-    new_slots = torch.where(cand[:, :m] == M32, 0, cand[:, :m])
+    new_slots, slot_overflow = resort_slots(slots, k, sends, valid)
     flag = (branch_flag & valid) | slot_overflow
 
     head = []
@@ -740,17 +740,18 @@ def paxos_conds_plain(states: torch.Tensor, c: int, never_decided: bool):
     property order -- linearizable, value chosen, never decided (when the
     model has it)."""
     m = slot_count(c)
+    fd = paxos_fields(c)
     st = u32(states)
     lin = device_linearizable_plain(_codec(c), st)
     # "value chosen": a GetOk with a non-null value in flight.
     slots = st[:, _NET0 : _NET0 + m]
-    tag, _a, payload, _s, _d = _envelope(slots)
+    tag, _a, payload, _s, _d = envelope_fields(slots)
     chosen = ((slots != 0) & (tag == _T_GETOK) & (payload != 0)).any(dim=1)
     conds = [lin, chosen]
     if never_decided:
         decided_any = torch.zeros_like(lin)
         for s in range(S):
-            decided_any |= _ext(st[:, 2 * s], st[:, 2 * s + 1], *_F_DECIDED) == 1
+            decided_any |= _ext(st[:, 2 * s], st[:, 2 * s + 1], *fd.decided) == 1
         conds.append(~decided_any)
     return torch.stack(conds, dim=1)
 

@@ -3,7 +3,7 @@ linearizability DP's plain-torch twin).
 
 The counterpart of ``stateright_tpu/models/register_compiled_common.py``.
 Every model built on the register test harness (``actor/register.py``:
-paxos, and later ABD and single-copy) shares the same client side:
+paxos, single-copy, and later ABD) shares the same client side:
 scripted clients that Put once then Get (``RegisterClient(put_count=1)``),
 a ``LinearizabilityTester`` history recorded through the Get/Put <->
 GetOk/PutOk hooks, and therefore the same packed client/tester layout and
@@ -18,11 +18,12 @@ Layout owned here (C clients, S servers):
   encoding of the ``LinearizabilityTester`` state for this client.
 
 The device half is batched plain torch over masked-int64 words
-(``ops/u32.py``): :func:`client_record`, :func:`tester_word`,
-:func:`putok_transition` and :func:`getok_transition` feed the paxos
-step twin, and :func:`device_linearizable_plain` is the twin of the
-Wing&Gong-style subset-reachability DP that ``csrc/register_lin.cuh``
-runs on the card.
+(``ops/u32.py``): the envelope-code helpers, the slot re-sort,
+:func:`client_record`, :func:`tester_word`, :func:`putok_transition` and
+:func:`getok_transition` feed the paxos and single-copy step twins, and
+:func:`device_linearizable_plain` is the twin of the Wing&Gong-style
+subset-reachability DP that ``csrc/register_lin.cuh`` runs on the card
+(K6, K9) at 1..7 clients.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch
 
 from ..actor.ids import Id
 from ..actor.register import ClientState
-from ..ops.u32 import M32
+from ..ops.u32 import M32, shl32
 from ..semantics.register import READ, ReadOk, WRITE_OK, WriteOp
 
 
@@ -199,6 +200,40 @@ class RegisterClientCodec:
 # word, including its u32 wrap-around.
 
 
+def envelope_fields(code):
+    """``(tag, addr, payload, addr >> 3, addr & 7)`` of envelope codes
+    ``1 + (tag << 19 | addr << 14 | payload)``; an empty slot (0) wraps
+    to all-ones, as in u32."""
+    e = (code - 1) & M32
+    tag = e >> 19
+    addr = (e >> 14) & 0x1F
+    payload = e & 0x3FFF
+    return tag, addr, payload, addr >> 3, addr & 7
+
+
+def envelope_code(tag: int, addr, payload):
+    """The envelope code of (tag, addr, payload) in u32, unmasked fields
+    spilling as they do there."""
+    return (1 + ((tag << 19) | shl32(addr & M32, 14) | (payload & M32))) & M32
+
+
+def resort_slots(slots, k, sends, valid):
+    """The slot section after delivering slot ``k`` of each row: ``slots``
+    int64[N, M], ``k`` int64[N], ``sends`` int64[N, S] (0 = none),
+    ``valid`` bool[N] -> (int64[N, M] new slots, bool[N] overflow).  Slot
+    k is removed, the sends inserted, and the row re-sorted unsigned with
+    empty slots as 0xFFFFFFFF (the masked int64 domain orders them last;
+    an int32 sort would put them first); a valid lane whose sends do not
+    fit overflows."""
+    m = slots.shape[1]
+    lane_sel = torch.arange(m, device=slots.device)[None, :] == k[:, None]
+    cand = torch.cat([torch.where(lane_sel, 0, slots), sends], dim=1)
+    cand = torch.where(cand == 0, M32, cand)
+    cand = torch.sort(cand, dim=1).values
+    overflow = valid & (cand[:, m:] != M32).any(dim=1)
+    return torch.where(cand[:, :m] == M32, 0, cand[:, :m]), overflow
+
+
 def client_record(rc: RegisterClientCodec, st: torch.Tensor, ci: torch.Tensor):
     """``(ci, cli, kind, op_count)`` of (clamped) client ``ci``; the clamped
     index is safe for the tester-word select."""
@@ -262,8 +297,24 @@ def _has_masks(n_ops: int, nwords: int) -> np.ndarray:
 
 
 def device_linearizable_plain(rc: RegisterClientCodec, st: torch.Tensor) -> torch.Tensor:
+    """``int64[F, W] -> bool[F]``: the DP's verdict (see :func:`_dp`)."""
+    return _dp(rc, st)[0]
+
+
+def dp_work(rc: RegisterClientCodec, st: torch.Tensor) -> torch.Tensor:
+    """The DP word updates the rows ``st`` need, ``int64[F]``: per state,
+    the rounds that add a configuration (the kernel stops after the first
+    that adds none) times its present operations times the NV x NW words
+    -- what an operation bound of the kernel counts."""
+    _lin, rounds, present = _dp(rc, st)
+    nwords = max(1, (1 << (2 * rc.c)) // 32)
+    return rounds * present * (rc.c + 1) * nwords
+
+
+def _dp(rc: RegisterClientCodec, st: torch.Tensor):
     """Plain-torch twin of the linearizability DP (``csrc/register_lin.cuh``):
-    ``st`` int64[F, W] -> bool[F].
+    ``st`` int64[F, W] -> (bool[F] verdicts, int64[F] rounds that added a
+    configuration, int64[F] operations present in the history).
 
     The JAX ``RegisterClientCodec.device_linearizable`` word for word: a
     reachability DP over Wing&Gong-style configurations -- subsets of the
@@ -361,12 +412,16 @@ def device_linearizable_plain(rc: RegisterClientCodec, st: torch.Tensor) -> torc
     dp = torch.zeros((f, nv, nwords), dtype=torch.int64, device=dev)
     dp[:, 0, 0] = 1
     # n_ops rounds of relaxation reach any appendable-op order.
+    rounds = torch.zeros((f,), dtype=torch.int64, device=dev)
     for _ in range(n_ops):
-        dp = sweep(dp)
+        grown = sweep(dp)
+        rounds += (grown != dp).flatten(1).any(dim=1).long()
+        dp = grown
 
     req = zero
     for i in range(c):
         req = req | torch.where(w_completed[i], 1 << i, 0)
         req = req | torch.where(r_present[i], 1 << (c + i), 0)
     covers = superset_indicator(req)
-    return ((dp & covers[:, None, :]) != 0).flatten(1).any(dim=1)
+    lin = ((dp & covers[:, None, :]) != 0).flatten(1).any(dim=1)
+    return lin, rounds, sum(p.long() for p in present)

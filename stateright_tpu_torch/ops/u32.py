@@ -27,6 +27,11 @@ def i32(t: torch.Tensor) -> torch.Tensor:
     return (((t & M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
+def shl32(val: torch.Tensor, off: int) -> torch.Tensor:
+    """``val << off`` in u32: the bits shifted past 31 are lost."""
+    return (val & (M32 >> off)) << off
+
+
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """(x * c) mod 2**32 for int64 x in [0, 2**32) and a u32 constant c,
     without an intermediate past 2**49."""

@@ -23,7 +23,9 @@ from stateright_tpu_torch.actor import Envelope, Id, Network
 from stateright_tpu_torch.actor.register import Get, Internal, Put
 from stateright_tpu_torch.models import paxos as port_paxos
 from stateright_tpu_torch.models import paxos_compiled as pc
+from stateright_tpu_torch.models import single_copy_compiled as scc
 from stateright_tpu_torch.models.paxos import PaxosModelCfg
+from stateright_tpu_torch.models.single_copy_register import SingleCopyModelCfg
 from stateright_tpu_torch.models.twophase import TwoPhaseSys
 from stateright_tpu_torch.models.twophase_compiled import (
     twophase_step, twophase_step_plain,
@@ -67,6 +69,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "c = m.checker().spawn_gpu(device='cpu', capacity=1 << 12,"
         " max_frontier=1 << 8).join()\n"
         "assert c.unique_state_count() == 265, c.unique_state_count()\n"
+        "m = PaxosModelCfg(4, 3, Network.new_unordered_nonduplicating()).into_model()\n"
+        "c = m.checker().target_max_depth(5).spawn_gpu(device='cpu',"
+        " capacity=1 << 12, max_frontier=1 << 8).join()\n"
+        "assert c.max_depth() == 5, c.max_depth()\n"
+        "from stateright_tpu_torch.models.single_copy_register import"
+        " SingleCopyModelCfg\n"
+        "m = SingleCopyModelCfg(2, 1, Network.new_unordered_nonduplicating())"
+        ".into_model()\n"
+        "c = m.checker().spawn_gpu(device='cpu', capacity=1 << 10,"
+        " max_frontier=1 << 6).join()\n"
+        "assert c.unique_state_count() == 93, c.unique_state_count()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -235,7 +248,7 @@ def _paxos_rows(c, depth):
     b0, b1 = (1, Id(0)), (1, Id(1))
     prepares = [
         Envelope(Id(s), Id(d), Internal(port_paxos.Prepare((r, Id(s)))))
-        for r in range(2, 10) for s in range(3) for d in range(3) if s != d
+        for r in range(2, 16) for s in range(3) for d in range(3) if s != d
     ]
     hand = np.stack([
         row([idle, server((0, Id(0)), decided=True), idle],
@@ -250,7 +263,9 @@ def _paxos_rows(c, depth):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,depth", [(1, 30), (2, 30), (3, 9)])
+@pytest.mark.parametrize(
+    "c,depth", [(1, 30), (2, 30), (3, 9), (4, 5), (5, 4), (6, 4), (7, 3)]
+)
 def test_cuda_paxos_kernels_match_twins(c, depth):
     """K5, K7 (every lane, then a compacted buffer with a short count) and
     K6 against their twins, bit for bit, on reachable and hand-made rows."""
@@ -317,3 +332,112 @@ def test_cuda_paxos_engine_matches_cpu_run(tmp_path):
         assert np.array_equal(a, b)
     assert sorted(gpu.discoveries()) == ["value chosen"]
     gpu.assert_properties()
+
+
+def _fuzz_rows(rng, n, width, net0, m, tags):
+    """Random rows with a sorted slot section, as every encoded or stepped
+    row has (nonzero codes ascending, then zeros): random words elsewhere,
+    slots of random envelopes of the given tags, some empty, some
+    repeated."""
+    rows = rng.integers(0, 2**32, size=(n, width), dtype=np.uint64)
+    tag = rng.integers(0, tags, size=(n, m), dtype=np.uint64)
+    addr = rng.integers(0, 32, size=(n, m), dtype=np.uint64)
+    payload = rng.integers(0, 1 << 14, size=(n, m), dtype=np.uint64)
+    codes = 1 + ((tag << np.uint64(19)) | (addr << np.uint64(14)) | payload)
+    codes[rng.random((n, m)) < 0.4] = 0
+    dup = rng.random((n, m)) < 0.1
+    codes[:, 1:][dup[:, 1:]] = codes[:, :-1][dup[:, 1:]]
+    codes = np.where(codes == 0, np.uint64(2**32), codes)
+    codes = np.sort(codes, axis=1)
+    rows[:, net0 : net0 + m] = np.where(codes == 2**32, 0, codes)
+    return rows.astype(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", range(1, 8))
+def test_cuda_paxos_kernels_match_twins_on_fuzzed_rows(c):
+    """K5, K6 (the DP at every client count) and K7 on random rows with
+    sorted slots: every branch, guard and wrap-around the words reach.
+    The twins run on the card too (plain torch)."""
+    dev = _card()
+    m, w = pc.slot_count(c), pc.state_width(c)
+    card = from_numpy_u32(_fuzz_rows(np.random.default_rng(40 + c), 20_000, w, 7, m, 9), dev)
+    assert torch.equal(pc.paxos_step_valid(card, c), pc.paxos_step_valid_plain(card, c))
+    for never_decided in (False, True):
+        assert torch.equal(
+            pc.paxos_conds(card, c, never_decided),
+            pc.paxos_conds_plain(card, c, never_decided),
+        )
+    f = card.shape[0]
+    lanes = torch.arange(f * m, dtype=torch.int32, device=dev)
+    k_next, k_flag = pc.paxos_step_lane(card, lanes, torch.tensor(f * m, device=dev), c)
+    p_next, p_flag = pc.paxos_step_lane_plain(card, lanes, f * m, c)
+    assert torch.equal(k_next, p_next)
+    assert torch.equal(k_flag, p_flag)
+
+
+def _single_copy(c, s):
+    return SingleCopyModelCfg(c, s, Network.new_unordered_nonduplicating()).into_model()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,s", [(1, 1), (2, 1), (2, 2), (3, 1), (4, 1), (5, 1), (7, 2)])
+def test_cuda_single_copy_step_matches_twin(c, s):
+    """K9 against its twin (both on the card) on the rows of the port's
+    CPU run to depth 6 and on fuzzed rows with sorted slots: successors,
+    validity, conds and the overflow flag, bit for bit."""
+    dev = _card()
+    run = _single_copy(c, s).checker().target_max_depth(6).spawn_gpu(
+        device="cpu", capacity=1 << 16, max_frontier=1 << 12
+    ).join()
+    w, m = scc.state_width(c), scc.slot_count(c)
+    reached = run._carry.rows[: run._carry.tail * w].view(-1, w).to(dev)
+    fuzz = from_numpy_u32(_fuzz_rows(np.random.default_rng(60 + c), 20_000, w, 2, m, 4), dev)
+    for rows in (reached, fuzz):
+        got = scc.single_copy_step(rows, s, c)
+        want = scc.single_copy_step_plain(rows, s, c)
+        for g, p in zip(got, want):
+            assert torch.equal(g, p)
+
+
+@pytest.mark.cuda
+def test_cuda_single_copy_engine_matches_cpu_run(tmp_path):
+    """2 clients / 2 servers (the counterexample) and 3 clients / 1 server
+    on the card, bit-equal to the CPU runs."""
+    _card()
+    geometry = dict(capacity=1 << 14, max_frontier=1 << 8)
+    for c, s in ((2, 2), (3, 1)):
+        gpu = _single_copy(c, s).checker().spawn_gpu(device="cuda", **geometry).join()
+        cpu = _single_copy(c, s).checker().spawn_gpu(device="cpu", **geometry).join()
+        w = scc.state_width(c)
+        for a, b in zip(_logs(gpu, tmp_path / "gpu.npz", w), _logs(cpu, tmp_path / "cpu.npz", w)):
+            assert np.array_equal(a, b)
+        assert sorted(gpu.discoveries()) == sorted(cpu.discoveries())
+    assert "linearizable" in _single_copy(2, 2).checker().spawn_gpu(
+        device="cuda", **geometry
+    ).join().discoveries()
+
+
+@pytest.mark.cuda
+def test_cuda_paxos_check_6_golden():
+    """``paxos check 6`` (bench.sh:28) on one card: 9,357,525 unique
+    states at depth 28."""
+    _card()
+    checker = _paxos(6).checker().spawn_gpu(
+        capacity=1 << 25, log_capacity=1 << 24, max_frontier=1 << 17,
+        dedup_factor=4,
+    ).join()
+    assert (checker.unique_state_count(), checker.max_depth()) == (9_357_525, 28)
+    assert sorted(checker.discoveries()) == ["value chosen"]
+
+
+@pytest.mark.cuda
+def test_cuda_single_copy_check_4_golden():
+    """``single-copy-register check 4`` (bench.sh:29) on one card: 400,233
+    unique states at depth 17."""
+    _card()
+    checker = _single_copy(4, 1).checker().spawn_gpu(
+        capacity=1 << 21, max_frontier=1 << 14, dedup_factor=1,
+    ).join()
+    assert (checker.unique_state_count(), checker.max_depth()) == (400_233, 17)
+    assert sorted(checker.discoveries()) == ["value chosen"]

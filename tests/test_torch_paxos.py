@@ -4,10 +4,12 @@ Bit-equal throughout: the codec's words and host fingerprints, the twins
 of K5 (lane validity), K7 (successor build), K6 (conds, with the
 linearizability DP) and K8 (wave verdicts) against the JAX functions on
 the same inputs, and the port's CPU engine against the JAX CPU engine on
-``paxos check 2`` (16,668), ``check 3`` to depth 11 (21,838) and the
-``never decided`` variant (row log, parents, ebits, counts, discoveries,
-paths), plus a JAX snapshot resumed by the port.  The JAX programs are
-compiled once per module; the whole file stays well under a minute.
+``paxos check 2`` (16,668), ``check 3`` to depth 11 (21,838), ``check 4``
+to depth 7 (1,308), ``check 6`` to depth 6 (1,227) and the ``never
+decided`` variant (row log, parents, ebits, counts, discoveries, paths),
+plus JAX snapshots resumed by the port.  From C = 4 the layout has 64
+slots and a 3-bit proposal field, which moves every server-record field
+after it.  The JAX programs are compiled once per module.
 """
 
 import random
@@ -129,8 +131,8 @@ def test_codec_matches_jax_over_c1_reachable():
 
 
 def test_codec_refuses_what_the_slice_does_not_port():
-    with pytest.raises(ValueError, match="1 to 3 clients"):
-        _port_model(4).compiled()
+    with pytest.raises(ValueError, match="1 to 7 clients"):
+        _port_model(8).compiled()
     model = PaxosModelCfg(
         2, 3, Network.new_unordered_nonduplicating(), max_round=3
     ).into_model()
@@ -168,7 +170,7 @@ def _overflow_row(jcm):
     whose two Prepares cannot fit in the full slot section."""
     state = np.zeros(jcm.state_width, np.uint32)
     codes = [jcm._env_code(JEnvelope(JId(3), JId(0), JPut(3, "A")))]
-    for r in range(2, 10):
+    for r in range(2, 16):
         for src in range(3):
             for dst in range(3):
                 if src != dst and len(codes) < jcm.m:
@@ -184,7 +186,7 @@ def _hazard_rows(c):
     """Hand-made rows for the u32 hazards, each on a flagged branch:
 
     - a Get to a decided server whose accepted code is 0: ``(0 - 1) % c``
-      wraps (0xFFFFFFFF % 2 = 1, % 3 = 0);
+      wraps (0xFFFFFFFF % c = 1, 0, 3, 0, 3, 3 for c = 2..7);
     - a Prepared that completes a majority with no proposal anywhere:
       ``pd_prop - 1`` wraps in the accepted code and the Accept payload;
     - an Accepted that completes a majority with no proposal: ``prop - 1``
@@ -224,7 +226,7 @@ def _hazard_rows(c):
     return np.stack(rows).astype(np.uint32)
 
 
-@pytest.mark.parametrize("c", [2, 3])
+@pytest.mark.parametrize("c", [2, 3, 4, 5, 6, 7])
 def test_step_twins_match_jax_on_overflow_and_wraparound_rows(c):
     jcm = JPaxosCompiled(paxos_model(c))
     rows = np.concatenate([_overflow_row(jcm)[None], _hazard_rows(c)])
@@ -348,9 +350,9 @@ def _logs(checker, path, w):
         }
 
 
-def _jax_run(tmp_path_factory, name, model, builder=lambda b: b):
+def _jax_run(tmp_path_factory, name, model, builder=lambda b: b, geometry=GEOMETRY):
     def run():
-        checker = builder(model.checker()).spawn_tpu(**GEOMETRY).join()
+        checker = builder(model.checker()).spawn_tpu(**geometry).join()
         path = tmp_path_factory.mktemp("jax") / f"{name}.npz"
         w = JPaxosCompiled(model).state_width
         return checker, _logs(checker, path, w), path
@@ -441,3 +443,115 @@ def test_never_decided_counterexample_and_jax_snapshot_resume(tmp_path, tmp_path
     for k in ("rows", "parent", "ebits"):
         assert np.array_equal(logs[k], plain_logs[k]), k
     assert sorted(resumed.discoveries()) == ["never decided", "value chosen"]
+
+
+# --- C = 4..7: 64 slots, a 3-bit proposal field ---------------------------------
+
+
+# Small chunks: the JAX engine evaluates a whole chunk each wave, padding
+# included, and the DP at C = 6 is 896 words a state.
+GEOMETRY_WIDE = dict(capacity=1 << 14, max_frontier=1 << 7)
+# Depth, unique states and states of each prefix run.
+_PREFIX = {4: (7, 1_308, 2_125), 6: (6, 1_227, 2_003)}
+
+
+def _jax_prefix(tmp_path_factory, c):
+    """The JAX engine's run of ``paxos check c`` to its prefix depth."""
+    depth = _PREFIX[c][0]
+    return _jax_run(
+        tmp_path_factory, f"c{c}d{depth}", paxos_model(c),
+        lambda b: b.target_max_depth(depth), GEOMETRY_WIDE,
+    )
+
+
+def _host_prefix(c, depth):
+    """The JAX host model's states to ``depth`` (BFS, first discovery)."""
+    model = paxos_model(c)
+    seen = {model.fingerprint(s): s for s in model.init_states()}
+    frontier = list(seen.values())
+    for _ in range(depth):
+        nxt = []
+        for st in frontier:
+            actions = []
+            model.actions(st, actions)
+            for a in actions:
+                ns = model.next_state(st, a)
+                if ns is not None and model.fingerprint(ns) not in seen:
+                    seen[model.fingerprint(ns)] = ns
+                    nxt.append(ns)
+        frontier = nxt
+    return seen
+
+
+@pytest.mark.parametrize("c", [4, 5, 6, 7])
+def test_codec_round_trip_c4_to_c7(c):
+    """Init states and a host BFS prefix: the port encodes each state to
+    the JAX words, and decoding them gives back a state with the JAX
+    state's fingerprint, which encodes to the same words."""
+    jcm = JPaxosCompiled(paxos_model(c))
+    model = _port_model(c)
+    pcm = model.compiled()
+    assert (pcm.m, pcm.state_width, pcm.pb) == (jcm.m, jcm.state_width, jcm.pb) == (
+        64, 7 + 64 + c, 3
+    )
+    assert np.array_equal(pcm.init_packed(), jcm.init_packed())
+    for fp, js in _host_prefix(c, 3).items():
+        words = jcm.encode(js)
+        st = pcm.decode(words)
+        assert model.fingerprint(st) == fp
+        assert np.array_equal(pcm.encode(st), words)
+
+
+@pytest.mark.parametrize("c", [4, 6])
+def test_engine_matches_jax_past_three_clients(c, tmp_path, tmp_path_factory):
+    """``paxos check 4`` to depth 7 and ``check 6`` to depth 6: the port's
+    CPU engine against the JAX engine, bit for bit; every logged row
+    decodes and re-encodes to itself."""
+    depth, unique, states = _PREFIX[c]
+    jax_run = _jax_prefix(tmp_path_factory, c)
+    port = (
+        _port_model(c).checker().target_max_depth(depth)
+        .spawn_gpu(device="cpu", **GEOMETRY_WIDE).join()
+    )
+    assert (port.unique_state_count(), port.state_count()) == (unique, states)
+    _assert_same_run(jax_run, port, tmp_path, pc.state_width(c))
+    pcm = port.model().compiled()
+    for row in jax_run[1]["rows2d"]:
+        assert np.array_equal(pcm.encode(pcm.decode(row)), row)
+
+
+@pytest.mark.parametrize("c", [4, 6])
+def test_twins_match_jax_past_three_clients(c, tmp_path_factory):
+    """K5, K7 and K6's twins on every lane of the BFS prefix of the JAX
+    run: against ``_deliver_lane``, and K5's against ``step_valid`` and
+    K6's against ``property_conds`` of the ``never decided`` model (one
+    JAX program for both)."""
+    rows = _jax_prefix(tmp_path_factory, c)[1]["rows2d"]
+    valid, flags = _assert_lanes_equal(c, rows)
+    assert valid.sum() > 0 and not flags.any()
+    jcm = JPaxosCompiled(_jax_model(c, never_decided=True))
+    t = from_numpy_u32(rows, "cpu")
+    j_valid, want = (np.asarray(x) for x in jax.jit(lambda r: (
+        jax.vmap(jcm.step_valid)(r), jax.vmap(jcm.property_conds)(r)
+    ))(jnp.asarray(rows)))
+    assert np.array_equal(pc.paxos_step_valid_plain(t, c).numpy(), j_valid)
+    assert np.array_equal(pc.paxos_conds_plain(t, c, True).numpy(), want)
+    assert want[:, 0].all() and not want[:, 2].all()
+
+
+def test_jax_snapshot_of_paxos_check_4_resumes_in_the_port(tmp_path, tmp_path_factory):
+    """The JAX snapshot of ``paxos check 4`` stopped at depth 7, resumed
+    by the port one level deeper, ends where the port's straight run to
+    depth 8 ends: the same logs, counts and fingerprints."""
+    depth = _PREFIX[4][0] + 1
+    snap = _jax_prefix(tmp_path_factory, 4)[2]
+    resumed = _port_model(4).checker().target_max_depth(depth).spawn_gpu(
+        device="cpu", resume_from=str(snap), **GEOMETRY_WIDE
+    ).join()
+    straight = _port_model(4).checker().target_max_depth(depth).spawn_gpu(
+        device="cpu", **GEOMETRY_WIDE
+    ).join()
+    assert resumed.unique_state_count() > _PREFIX[4][1]
+    w = pc.state_width(4)
+    _assert_same_run((straight, _logs(straight, tmp_path / "s.npz", w), None),
+                     resumed, tmp_path, w)
