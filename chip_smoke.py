@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the nine CUDA kernels of ``stateright_tpu_torch/csrc``
+1. build: compile the ten CUDA kernels of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -50,7 +50,20 @@ Phases, in order; any failure exits non-zero:
 14. the ``single-copy-register check 4`` path's kernels (K1, K3, K4, K8,
     K9) against their twins on one real wave of that run, replayed as in
     phase 7; the wave must append what the run appended;
-15. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+15. the ABD quorum register on both fabrics (K10): ``linearizable-register
+    check 2`` (544 / 875 / depth 25) and its ordered twin (620 / 883 /
+    depth 25) bit-equal to the port's CPU runs, and the ``skip_ack``
+    cluster's ``linearizable`` counterexample on both fabrics, replayed
+    on the host, with the time to it;
+16. ``linearizable-register check 3`` on the unordered fabric through
+    ``spawn_gpu()``: the golden 35,009 unique at depth 37;
+17. ``linearizable-register check 3 ordered`` (bench.sh:33) through
+    ``spawn_gpu()`` (single-phase waves through K10): the golden 46,516
+    unique at depth 37, K1, K3, K4, K8 and K10 launched;
+18. the ``check 3 ordered`` path's kernels (K1, K3, K4, K8, K10) against
+    their twins on one real wave of that run, replayed as in phase 7; the
+    wave must append what the run appended;
+19. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -85,6 +98,10 @@ GOLDEN_PAXOS6 = (9_357_525, 28)
 GOLDEN_PAXOS6_D6 = (1_227, 2_003, 6)
 GOLDEN_SC3 = (4_243, 6_778, 13)
 GOLDEN_SC4 = (400_233, 17)
+GOLDEN_ABD2 = (544, 875, 25)
+GOLDEN_ABD2O = (620, 883, 25)
+GOLDEN_ABD3 = (35_009, 37)
+GOLDEN_ABD3O = (46_516, 37)
 # paxos check 3: 1,194,428 states fill a 2**22-slot table to 0.28 and a
 # 2**21-position log to 0.57; a wave expands 2**16 states (2**21 lanes) into
 # a compaction buffer of 2**21 / 4 lanes, about five times the valid lanes
@@ -104,6 +121,10 @@ PAXOS6_GEOMETRY = dict(
 # 0.19); a wave expands 2**16 states (2**19 lanes, 8 a state) into a
 # buffer as wide as the candidates.
 SC4_GEOMETRY = dict(capacity=1 << 21, max_frontier=1 << 16, dedup_factor=1)
+# linearizable-register check 3 (both fabrics): under 47K states in a
+# 2**17-slot table (load 0.35); a wave expands up to 2**13 states, the
+# widest level in one wave, into a buffer as wide as the candidates.
+ABD3_GEOMETRY = dict(capacity=1 << 17, max_frontier=1 << 13, dedup_factor=1)
 SEED = 20261017
 
 KERNELS = {
@@ -126,6 +147,8 @@ KERNELS = {
                   "stateright_tpu/parallel/wave_common.py:282"),
     "single_copy_step": ("stateright_tpu_torch/csrc/single_copy_step.cu",
                          "stateright_tpu/models/single_copy_compiled.py:202"),
+    "abd_step": ("stateright_tpu_torch/csrc/abd_step.cu",
+                 "stateright_tpu/models/abd_compiled.py:465"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -139,6 +162,8 @@ PATH_KERNELS = {
                "wave_eval"),
     "sc4": ("device_fp64", "single_copy_step", "compact",
             "insert_batch_claim", "wave_eval"),
+    "abd3o": ("device_fp64", "abd_step", "compact", "insert_batch_claim",
+              "wave_eval"),
 }
 
 
@@ -399,6 +424,7 @@ def kernel_row(rows, path):
 
 
 def launch_counted():
+    from stateright_tpu_torch.models.abd_compiled import abd_step
     from stateright_tpu_torch.models.paxos_compiled import (
         paxos_conds, paxos_step_lane, paxos_step_valid,
     )
@@ -410,7 +436,7 @@ def launch_counted():
 
     return (device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
-            single_copy_step)
+            single_copy_step, abd_step)
 
 
 def reset_launches():
@@ -891,12 +917,44 @@ def run_sc4(torch):
 
 def phase_sc4_kernels(torch, checker, rows):
     """The ``single-copy-register check 4`` path's kernels against their
-    twins on one real wave of its run (:func:`replay_wave`), called as the
-    single-phase wave calls them; the wave must append what the run did."""
-    from stateright_tpu_torch.models.register_compiled_common import dp_work
+    twins on one real wave of its run (:func:`phase_single_phase_kernels`)."""
     from stateright_tpu_torch.models.single_copy_compiled import (
         _codec, single_copy_step, single_copy_step_plain,
     )
+
+    cm = checker._compiled
+    phase_single_phase_kernels(
+        torch, checker, rows, "sc4", SC4_GEOMETRY, "single_copy_step",
+        lambda states: single_copy_step(states, cm.s, cm.c),
+        lambda states: single_copy_step_plain(states, cm.s, cm.c),
+        _codec(cm.s, cm.c))
+
+
+def phase_abd3o_kernels(torch, checker, rows):
+    """The ``linearizable-register check 3 ordered`` path's kernels against
+    their twins on one real wave of its run
+    (:func:`phase_single_phase_kernels`)."""
+    from stateright_tpu_torch.models.abd_compiled import (
+        _codec, abd_step, abd_step_plain,
+    )
+
+    cm = checker._compiled
+    args = (cm.c, cm.ordered, cm.skip_ack)
+    phase_single_phase_kernels(
+        torch, checker, rows, "abd3o", ABD3_GEOMETRY, "abd_step",
+        lambda states: abd_step(states, *args),
+        lambda states: abd_step_plain(states, *args),
+        _codec(cm.c, cm.ordered))
+
+
+def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
+                               step, step_plain, codec):
+    """A single-phase path's kernels -- its model's fused step ``name``
+    (``step``, twin ``step_plain``), K8, K1, K3 and K4 -- against their
+    twins on one real wave of its run (:func:`replay_wave`), called as the
+    single-phase wave calls them; the wave must append what the run did.
+    The step's operation count is the DP's (``codec``'s tester words)."""
+    from stateright_tpu_torch.models.register_compiled_common import dp_work
     from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
     from stateright_tpu_torch.ops.u32 import u32
     from stateright_tpu_torch.parallel.hashset import (
@@ -906,25 +964,25 @@ def phase_sc4_kernels(torch, checker, rows):
         prop_kinds, wave_eval, wave_eval_plain,
     )
 
-    row = kernel_row(rows, "sc4")
+    row = kernel_row(rows, path)
     cm = checker._compiled
-    s, c, w, m = cm.s, cm.c, cm.state_width, cm.m
+    w, m = cm.state_width, cm.max_actions
     carry = checker._carry
     states, start, eb, discovered, table, appended = replay_wave(
-        torch, checker, SC4_GEOMETRY)
+        torch, checker, geometry)
     f = states.shape[0]
 
-    k9 = single_copy_step(states, s, c)
-    p9 = single_copy_step_plain(states, s, c)
+    k_step = step(states)
+    p_step = step_plain(states)
     torch.cuda.synchronize()
-    dp_ops = int(dp_work(_codec(s, c), u32(states)).sum())
-    row("single_copy_step", max_abs_err(torch, zip(k9, p9)),
-        time_ms(torch, lambda: single_copy_step(states, s, c), 10),
-        time_ms(torch, lambda: single_copy_step_plain(states, s, c), 2),
+    dp_ops = int(dp_work(codec, u32(states)).sum())
+    row(name, max_abs_err(torch, zip(k_step, p_step)),
+        time_ms(torch, lambda: step(states), 10),
+        time_ms(torch, lambda: step_plain(states), 2),
         f * w * 4 + f * m * (w * 4 + 1) + f * 2 + 4, ops=dp_ops)
-    nexts, valid, conds, _flag = k9
-    del p9
-    log(f"  single_copy_step: {int(valid.sum())} of {f * m} lanes valid")
+    nexts, valid, conds, _flag = k_step
+    del p_step
+    log(f"  {name}: {int(valid.sum())} of {f * m} lanes valid")
 
     kinds = prop_kinds(checker._properties)
     gated = valid.clone()
@@ -953,8 +1011,8 @@ def phase_sc4_kernels(torch, checker, rows):
         time_ms(torch, lambda: device_fp64_plain(cand_rows), 2),
         f * m * (w * 4 + 8))
 
-    size = unique_buffer_size(SC4_GEOMETRY["max_frontier"] * m,
-                              SC4_GEOMETRY["dedup_factor"])
+    size = unique_buffer_size(geometry["max_frontier"] * m,
+                              geometry["dedup_factor"])
     lane_valid = k8[0].view(-1)
     k3_valid = measure_compact(torch, lane_valid, size)
     v_hi, v_lo, v_orig, v_act, _n_valid = compact_valid(*k1, lane_valid, size)
@@ -969,6 +1027,75 @@ def phase_sc4_kernels(torch, checker, rows):
 
     idxs = v_orig[sel[:n_new].long()].long()
     check_appends(torch, carry, appended, cand_rows[idxs], idxs, m, start, k8[1])
+
+
+def abd_model(c, ordered, fault=None):
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.models.abd import AbdModelCfg
+
+    net = Network.new_ordered() if ordered else Network.new_unordered_nonduplicating()
+    return AbdModelCfg(c, 2, net, fault=fault).into_model()
+
+
+def phase_abd2(torch):
+    """``linearizable-register check 2`` and its ordered twin bit-equal to
+    the CPU runs; the skip_ack cluster's ``linearizable`` counterexample
+    on both fabrics, replayed on the host to a history with no
+    linearization."""
+    from stateright_tpu_torch.models.abd_compiled import state_width
+
+    kw = dict(capacity=1 << 13, max_frontier=1 << 8)
+    for ordered, golden in ((False, GOLDEN_ABD2), (True, GOLDEN_ABD2O)):
+        what = f"abd check 2{' ordered' if ordered else ''}"
+        card_and_cpu(what, abd_model(2, ordered).checker, golden,
+                     state_width(2, ordered), **kw).assert_properties()
+    for ordered in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        bad = abd_model(2, ordered, "skip_ack").checker().spawn_gpu(**kw).join()
+        elapsed = time.monotonic() - t0
+        path = bad.discoveries().get("linearizable")
+        if path is None:
+            raise AssertionError("abd skip_ack: no linearizable counterexample")
+        if path.last_state().history.serialized_history() is not None:
+            raise AssertionError("abd skip_ack: the replayed history linearizes")
+        log(f"  abd skip_ack (ordered={ordered}): linearizable counterexample "
+            f"of {len(path) - 1} steps replayed, time_to_violation_s="
+            f"{elapsed:.3f} unique={bad.unique_state_count()} "
+            f"states={bad.state_count()} depth={bad.max_depth()}")
+
+
+def run_abd(torch, ordered, golden):
+    """``linearizable-register check 3`` (``ordered``: ``check 3 ordered``)
+    through ``spawn_gpu()`` at ``ABD3_GEOMETRY``, held to ``golden``;
+    returns the joined checker and its wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = abd_model(3, ordered).checker().spawn_gpu(**ABD3_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.max_depth())
+    if got != golden:
+        raise AssertionError(f"abd check 3 ordered={ordered} {got} != {golden}")
+    return checker, elapsed
+
+
+def run_abd2(torch):
+    """``linearizable-register check 2`` through ``spawn_gpu()``, held to
+    its golden; ``gpu_profile.py --model abd2`` times this run."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = abd_model(2, False).checker().spawn_gpu(
+        capacity=1 << 13, max_frontier=1 << 8).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != GOLDEN_ABD2:
+        raise AssertionError(f"abd check 2 {got} != {GOLDEN_ABD2}")
+    return checker, elapsed
+
+
+def run_abd3o(torch):
+    """``gpu_profile.py --model abd3o`` times this run."""
+    return run_abd(torch, True, GOLDEN_ABD3O)
 
 
 def main() -> int:
@@ -1055,6 +1182,27 @@ def main() -> int:
     del checker
     torch.cuda.empty_cache()
 
+    log("phase 15: the ABD register, check 2 on both fabrics and the "
+        "skip_ack counterexample")
+    phase_abd2(torch)
+
+    log("phase 16: linearizable-register check 3 on the card")
+    checker, elapsed = run_abd(torch, False, GOLDEN_ABD3)
+    log(f"  abd check 3: unique={checker.unique_state_count()} "
+        f"states={checker.state_count()} depth={checker.max_depth()} "
+        f"waves={checker.waves()} elapsed_s={elapsed:.3f}")
+    checker.assert_properties()
+    del checker
+
+    log("phase 17: linearizable-register check 3 ordered on the card")
+    launches["abd3o"], checker = run_full(torch, gpu, "abd3o", run_abd3o)
+
+    log("phase 18: the linearizable-register check 3 ordered path's kernels "
+        "against their twins on one of its waves")
+    phase_abd3o_kernels(torch, checker, rows)
+    del checker
+    torch.cuda.empty_cache()
+
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []
     for path, names in PATH_KERNELS.items():
@@ -1073,7 +1221,7 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": 1,
+        "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
 

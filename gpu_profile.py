@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of a full check goes on one H100.
 
-    python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4] [--runs N]
-                           [--trace-dir DIR]
+    python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o]
+                           [--runs N] [--trace-dir DIR]
 
 Builds the port's kernels, runs one of ``chip_smoke.py``'s full checks
 through ``spawn_gpu()`` at its geometry, held to its goldens --
 ``run_rm10`` (``2pc check 10``, phase 4), ``run_paxos3`` (``paxos check
 3``, phase 6), ``run_paxos6`` (``paxos check 6``, phase 10) or ``run_sc4``
-(``single-copy-register check 4``, phase 13) -- ``--runs`` times untraced (wall seconds of each, then
-median and spread), and once more under ``torch.profiler``: device time per
-kernel name, the card's busy share of the traced run's wall time, and, with
-``--trace-dir``, a Chrome trace written there.  The traced run pays the
+(``single-copy-register check 4``, phase 13), ``run_abd2``
+(``linearizable-register check 2``, phase 15) or ``run_abd3o``
+(``linearizable-register check 3 ordered``, phase 17) -- ``--runs`` times
+untraced (wall seconds of each, then median and spread), and once more
+under ``torch.profiler``: device time per kernel name, the card's busy
+share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
+trace written there.  The traced run pays the
 profiler's overhead; the untraced runs are the measurement.  Prints one
 JSON line last.
 """
@@ -29,8 +32,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("rm10", "paxos3", "paxos6", "sc4"),
-                    default="rm10")
+    ap.add_argument("--model", default="rm10",
+                    choices=("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o"))
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -48,6 +51,8 @@ def main() -> int:
         "paxos3": (chip_smoke.run_paxos3, chip_smoke.GOLDEN_PAXOS3),
         "paxos6": (chip_smoke.run_paxos6, chip_smoke.GOLDEN_PAXOS6),
         "sc4": (chip_smoke.run_sc4, chip_smoke.GOLDEN_SC4),
+        "abd2": (chip_smoke.run_abd2, chip_smoke.GOLDEN_ABD2),
+        "abd3o": (chip_smoke.run_abd3o, chip_smoke.GOLDEN_ABD3O),
     }[args.model]
     unique = golden[0]
     cuda.build()

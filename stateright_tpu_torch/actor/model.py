@@ -3,11 +3,14 @@
 The counterpart of ``stateright_tpu/actor/model.py`` (reference:
 src/actor/model.rs, src/actor/model_state.rs) for the configurations the
 port compiles: a lossless, crash-free, timer-free system on the unordered
-nonduplicating network, whose only action family is ``Deliver`` of each
-distinct in-flight envelope (src/actor/model.rs:269-333).  A handler
-no-op is no successor.  ``ActorModelState`` keeps the JAX class's name
-and fields (timers, random choices, crash flags and storages stay at
-their empty values), so states fingerprint the same in both packages.
+nonduplicating or the ordered network, whose only action family is
+``Deliver`` of each distinct deliverable envelope -- each channel head on
+the ordered fabric (src/actor/model.rs:269-333).  A handler no-op is no
+successor, except on the ordered fabric, where consuming the channel head
+changes the state (src/actor/model.rs:364).  ``ActorModelState`` keeps
+the JAX class's name and fields (timers, random choices, crash flags and
+storages stay at their empty values), so states fingerprint the same in
+both packages.
 """
 
 from __future__ import annotations
@@ -132,7 +135,7 @@ class ActorModel(Model):
         next_actor_state = self.actors[index].on_msg(
             action.dst, last.actor_states[index], action.src, action.msg, out
         )
-        if is_no_op(next_actor_state, out):
+        if is_no_op(next_actor_state, out) and not self.init_network.is_ordered:
             return None
         env = Envelope(action.src, action.dst, action.msg)
         history = last.history

@@ -1,12 +1,19 @@
-"""The unordered nonduplicating network: a multiset of envelopes.
+"""The two fabrics the port's models use.
 
 The counterpart of ``stateright_tpu/actor/network.py`` (reference:
-src/actor/network.rs) for the one fabric the port's models use:
-``unordered_nonduplicating``, where delivery decrements an envelope's
-count.  ``Network`` keeps the JAX class's name and fields, so a network
-fingerprints the same in both packages; the other kinds' fields stay at
-their empty defaults.  Iteration is sorted by (src, dst, message
-fingerprint), so model re-execution is reproducible across processes.
+src/actor/network.rs) for two of its three kinds:
+
+- ``unordered_nonduplicating``: a *multiset* of envelopes; delivery
+  decrements an envelope's count (src/actor/network.rs:55, 229-242);
+- ``ordered``: a FIFO queue per directed (src, dst) pair; only channel
+  heads are deliverable (src/actor/network.rs:67, 243-265).
+
+``Network`` keeps the JAX class's name and fields, so a network
+fingerprints the same in both packages; the fields of the kind not in use
+stay at their empty defaults, and ``unordered_duplicating`` raises.
+Iteration is sorted by (src, dst, message fingerprint), or by flow key on
+the ordered fabric, so model re-execution is reproducible across
+processes.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from ..ops.fingerprint import fingerprint
 from .ids import Id
 
 UNORDERED_NONDUPLICATING = "unordered_nonduplicating"
+ORDERED = "ordered"
 
 
 @dataclass(frozen=True)
@@ -35,16 +43,19 @@ class Envelope:
 @dataclass(frozen=True)
 class Network:
     kind: str
-    envelopes: FrozenSet[Envelope] = frozenset()  # other kinds only
-    last_msg: Optional[Envelope] = None  # other kinds only
+    # unordered_nonduplicating: counts = frozenset[(Envelope, int)]
+    # ordered: flows = tuple[((src, dst), tuple[msg, ...]), ...] sorted by
+    # key, with no empty flow
+    envelopes: FrozenSet[Envelope] = frozenset()  # unordered_duplicating only
+    last_msg: Optional[Envelope] = None  # unordered_duplicating only
     counts: FrozenSet[Tuple[Envelope, int]] = frozenset()
-    flows: Tuple = ()  # other kinds only
+    flows: Tuple[Tuple[Tuple[Id, Id], Tuple[Any, ...]], ...] = ()
 
     def __post_init__(self):
-        if self.kind != UNORDERED_NONDUPLICATING:
+        if self.kind not in (UNORDERED_NONDUPLICATING, ORDERED):
             raise ValueError(
-                f"the port models only the {UNORDERED_NONDUPLICATING} "
-                f"network, not {self.kind!r}"
+                f"the port models the {UNORDERED_NONDUPLICATING} and "
+                f"{ORDERED} networks, not {self.kind!r}"
             )
 
     @staticmethod
@@ -54,22 +65,59 @@ class Network:
             n = n.send(e)
         return n
 
+    @staticmethod
+    def new_ordered(envelopes=()) -> "Network":
+        n = Network(kind=ORDERED)
+        for e in envelopes:
+            n = n.send(e)
+        return n
+
+    @property
+    def is_ordered(self) -> bool:
+        return self.kind == ORDERED
+
     def __len__(self) -> int:
-        return sum(c for (_e, c) in self.counts)
+        if self.kind == UNORDERED_NONDUPLICATING:
+            return sum(c for (_e, c) in self.counts)
+        return sum(len(msgs) for (_k, msgs) in self.flows)
+
+    def iter_all(self) -> List[Envelope]:
+        """Every envelope: multiset entries repeated, every queued ordered
+        message.  Reference: src/actor/network.rs:169-177."""
+        if self.kind == UNORDERED_NONDUPLICATING:
+            out = []
+            for e, c in sorted(self.counts, key=lambda ec: ec[0]._sort_key()):
+                out.extend([e] * c)
+            return out
+        return [
+            Envelope(src, dst, m) for (src, dst), msgs in self.flows for m in msgs
+        ]
 
     def iter_deliverable(self) -> List[Envelope]:
-        """Distinct deliverable envelopes.
-        Reference: src/actor/network.rs:180-190."""
-        return sorted((e for (e, _c) in self.counts), key=Envelope._sort_key)
+        """Distinct deliverable envelopes; on the ordered fabric, only the
+        channel heads.  Reference: src/actor/network.rs:180-190."""
+        if self.kind == UNORDERED_NONDUPLICATING:
+            return sorted((e for (e, _c) in self.counts), key=Envelope._sort_key)
+        return [Envelope(src, dst, msgs[0]) for (src, dst), msgs in self.flows]
 
     def send(self, env: Envelope) -> "Network":
         """Reference: src/actor/network.rs:203-217."""
-        counts = dict(self.counts)
-        counts[env] = counts.get(env, 0) + 1
-        return Network(kind=self.kind, counts=frozenset(counts.items()))
+        if self.kind == UNORDERED_NONDUPLICATING:
+            counts = dict(self.counts)
+            counts[env] = counts.get(env, 0) + 1
+            return Network(kind=self.kind, counts=frozenset(counts.items()))
+        flows = dict(self.flows)
+        key = (env.src, env.dst)
+        flows[key] = flows.get(key, ()) + (env.msg,)
+        return Network(kind=self.kind, flows=tuple(sorted(flows.items())))
 
     def on_deliver(self, env: Envelope) -> "Network":
-        """Remove one copy.  Reference: src/actor/network.rs:229-242."""
+        """Reference: src/actor/network.rs:219-267."""
+        if self.kind == UNORDERED_NONDUPLICATING:
+            return self._remove_one(env)
+        return self._remove_ordered(env)
+
+    def _remove_one(self, env: Envelope) -> "Network":
         counts = dict(self.counts)
         if env not in counts:
             raise KeyError(f"envelope not found: {env!r}")
@@ -78,3 +126,20 @@ class Network:
         else:
             counts[env] -= 1
         return Network(kind=self.kind, counts=frozenset(counts.items()))
+
+    def _remove_ordered(self, env: Envelope) -> "Network":
+        flows = dict(self.flows)
+        key = (env.src, env.dst)
+        if key not in flows:
+            raise KeyError(f"flow not found: src={env.src!r} dst={env.dst!r}")
+        msgs = flows[key]
+        try:
+            i = msgs.index(env.msg)
+        except ValueError:
+            raise KeyError(f"message not found: {env.msg!r}") from None
+        remaining = msgs[:i] + msgs[i + 1 :]
+        if remaining:
+            flows[key] = remaining
+        else:
+            del flows[key]  # canonical: no empty flows
+        return Network(kind=self.kind, flows=tuple(sorted(flows.items())))

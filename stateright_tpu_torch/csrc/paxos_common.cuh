@@ -47,7 +47,6 @@ struct Geom {
   static constexpr int M = C <= 2 ? 16 : C == 3 ? 32 : 64;  // slots = lanes
   static constexpr int TST0 = NET0 + M;    // first tester word
   static constexpr int W = TST0 + C;       // words a row
-  static constexpr int LCB = 2 * (C - 1);  // last-completed snapshot bits
   // Server-record fields after the proposal, whose width follows C.
   static constexpr int W_PROP = C >= 4 ? 3 : 2;  // max(2, bit_length(C))
   static constexpr int PREP0 = F_PROP + W_PROP;

@@ -28,6 +28,7 @@
 // slots cost no more registers than 32.  Rows past n are not written and
 // their flags are 0.
 #include "paxos_common.cuh"
+#include "register_client.cuh"
 
 namespace {
 
@@ -189,28 +190,13 @@ __global__ void paxos_lane_kernel(const uint32_t* __restrict__ states,
         ins(nlo, nhi, G::F_DECIDED, 1, 1u);
         break;
       }
-      case T_PUTOK: {  // client ci: (put, 1) -> (get, 2); tester 1 -> 3
-        ncli = (cli & ~(0xFu << (4u * ci))) | (10u << (4u * ci));
-        uint32_t lc_r = 0;
-        int slot = 0;
-#pragma unroll
-        for (int jj = 0; jj < C; ++jj) {
-          if (static_cast<uint32_t>(jj) == ci) continue;
-          const uint32_t ph = tst[jj] & 7u;
-          const uint32_t cnt = (ph >= 2u ? 1u : 0u) + (ph == 4u ? 1u : 0u);
-          lc_r |= cnt << (2 * slot);
-          ++slot;
-        }
-        const uint32_t lc_w = (ntw >> 3) & ((1u << G::LCB) - 1u);
-        ntw = 3u | (lc_w << 3) | (lc_r << (3 + G::LCB));
+      case T_PUTOK:  // client ci: (put, 1) -> (get, 2); tester 1 -> 3
+        regcli::putok<C, 0>(tst, cli, ntw, ci, ncli, ntw);
         s0 = mk(T_GET, ci, 0u);
         break;
-      }
-      case T_GETOK: {  // client ci: (get, 2) -> (done, 3); tester 3 -> 4
-        ncli = (cli & ~(0xFu << (4u * ci))) | (12u << (4u * ci));
-        ntw = (ntw & ~7u) | 4u | (payload << (3 + 2 * G::LCB));
+      case T_GETOK:  // client ci: (get, 2) -> (done, 3); tester 3 -> 4
+        regcli::getok<C>(cli, ntw, ci, payload, ncli, ntw);
         break;
-      }
       default:
         break;
     }

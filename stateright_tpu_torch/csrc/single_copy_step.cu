@@ -28,6 +28,7 @@
 // threads build the state's lanes in turn (the slot merge writes each
 // output slot as it is chosen, from the row in registers) and then run the
 // DP together; thread 0 of the group writes the conds.
+#include "register_client.cuh"
 #include "register_lin.cuh"
 #include "sr_common.cuh"
 
@@ -42,7 +43,6 @@ struct Geom {
   static constexpr int M = C <= 2 ? 4 : 8;
   static constexpr int TST0 = NET0 + M;
   static constexpr int W = TST0 + C;
-  static constexpr int LCB = reglin::Dims<C>::LCB;
   static constexpr int VB = reglin::Dims<C>::VB;
 };
 
@@ -102,28 +102,14 @@ __device__ __forceinline__ void deliver_lane(const uint32_t (&w)[Geom<C>::W],
       guard = true;
       s0 = mk(T_GETOK, dsrv * 8u + addr, sval);
       break;
-    case T_PUTOK: {  // client ci: (put, 1) -> (get, 2); tester 1 -> 3
+    case T_PUTOK:  // client ci: (put, 1) -> (get, 2); tester 1 -> 3
       guard = kind == 1u && i_dst < C;
-      ncli = (cli & ~(0xFu << (4u * ci))) | (10u << (4u * ci));
-      uint32_t lc_r = 0u;
-      int slot = 0;
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        if (static_cast<uint32_t>(j) == ci) continue;
-        const uint32_t ph = w[G::TST0 + j] & 7u;
-        const uint32_t cnt = (ph >= 2u ? 1u : 0u) + (ph == 4u ? 1u : 0u);
-        lc_r |= cnt << (2 * slot);
-        ++slot;
-      }
-      const uint32_t lc_w = (tw >> 3) & ((1u << G::LCB) - 1u);
-      ntw = 3u | (lc_w << 3) | (lc_r << (3 + G::LCB));
+      regcli::putok<C, G::TST0>(w, cli, tw, ci, ncli, ntw);
       s0 = mk(T_GET, ci, 0u);
       break;
-    }
     case T_GETOK:  // client ci: (get, 2) -> (done, 3); tester 3 -> 4
       guard = kind == 2u && i_dst < C;
-      ncli = (cli & ~(0xFu << (4u * ci))) | (12u << (4u * ci));
-      ntw = (tw & ~7u) | 4u | (payload << (3 + 2 * G::LCB));
+      regcli::getok<C>(cli, tw, ci, payload, ncli, ntw);
       break;
     default:
       break;

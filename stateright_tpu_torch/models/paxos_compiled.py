@@ -148,6 +148,8 @@ class PaxosCompiled(CompiledModel):
                 f"max_round={cfg.max_round}: the port has no device ballot "
                 f"boundary yet; only the encoding cap ({MAX_ROUND}) or None"
             )
+        if model.init_network.kind != "unordered_nonduplicating":
+            raise ValueError("packed paxos needs the unordered_nonduplicating network")
         self.c = cfg.client_count
         self.never_decided = bool(cfg.never_decided)
         self.m = slot_count(self.c)

@@ -84,6 +84,10 @@ class SingleCopyCompiled(CompiledModel):
     def __init__(self, model):
         self.model = model
         cfg = model.cfg
+        if model.init_network.kind != "unordered_nonduplicating":
+            raise ValueError(
+                "packed single-copy needs the unordered_nonduplicating network"
+            )
         self.s = cfg.server_count
         self.c = cfg.client_count
         self.rc = _codec(self.s, self.c)

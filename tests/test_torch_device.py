@@ -21,9 +21,11 @@ import torch
 
 from stateright_tpu_torch.actor import Envelope, Id, Network
 from stateright_tpu_torch.actor.register import Get, Internal, Put
+from stateright_tpu_torch.models import abd_compiled as ac
 from stateright_tpu_torch.models import paxos as port_paxos
 from stateright_tpu_torch.models import paxos_compiled as pc
 from stateright_tpu_torch.models import single_copy_compiled as scc
+from stateright_tpu_torch.models.abd import AbdModelCfg
 from stateright_tpu_torch.models.paxos import PaxosModelCfg
 from stateright_tpu_torch.models.single_copy_register import SingleCopyModelCfg
 from stateright_tpu_torch.models.twophase import TwoPhaseSys
@@ -80,6 +82,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "c = m.checker().spawn_gpu(device='cpu', capacity=1 << 10,"
         " max_frontier=1 << 6).join()\n"
         "assert c.unique_state_count() == 93, c.unique_state_count()\n"
+        "from stateright_tpu_torch.models.abd import AbdModelCfg\n"
+        "m = AbdModelCfg(2, 2, Network.new_ordered()).into_model()\n"
+        "c = m.checker().spawn_gpu(device='cpu', capacity=1 << 12,"
+        " max_frontier=1 << 8).join()\n"
+        "assert c.unique_state_count() == 620, c.unique_state_count()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -440,4 +447,93 @@ def test_cuda_single_copy_check_4_golden():
         capacity=1 << 21, max_frontier=1 << 14, dedup_factor=1,
     ).join()
     assert (checker.unique_state_count(), checker.max_depth()) == (400_233, 17)
+    assert sorted(checker.discoveries()) == ["value chosen"]
+
+
+def abd_fuzz_rows(rng, n, c, ordered):
+    """Random packed ABD rows: random words, network words of random
+    envelopes of the eight tags and one past them, some empty; the
+    unordered slots sorted as every encoded row has them (nonzero codes
+    ascending, then zeros), with some repeated."""
+    w, m = ac.state_width(c, ordered), ac.net_words(c, ordered)
+    rows = rng.integers(0, 2**32, size=(n, w), dtype=np.uint64)
+    tag = rng.integers(0, 9, size=(n, m), dtype=np.uint64)
+    addr = rng.integers(0, 16, size=(n, m), dtype=np.uint64)
+    payload = rng.integers(0, 1 << 14, size=(n, m), dtype=np.uint64)
+    codes = 1 + ((tag << np.uint64(18)) | (addr << np.uint64(14)) | payload)
+    codes[rng.random((n, m)) < 0.4] = 0
+    if not ordered:
+        dup = rng.random((n, m)) < 0.1
+        codes[:, 1:][dup[:, 1:]] = codes[:, :-1][dup[:, 1:]]
+        codes = np.where(codes == 0, np.uint64(2**32), codes)
+        codes = np.sort(codes, axis=1)
+        codes = np.where(codes == 2**32, 0, codes)
+    rows[:, 3 : 3 + m] = codes
+    return rows.astype(np.uint32)
+
+
+def _abd(c, ordered, fault=None):
+    net = Network.new_ordered() if ordered else Network.new_unordered_nonduplicating()
+    return AbdModelCfg(c, 2, net, fault=fault).into_model()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 3])
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("fault", [None, "skip_ack"])
+def test_cuda_abd_step_matches_twin(c, ordered, fault):
+    """K10 against its twin (both on the card) on the rows of the port's
+    CPU run to depth 10 and on fuzzed rows: successors, validity, conds
+    and the overflow flag, bit for bit; the flag also a state at a time,
+    on fuzzed rows that flag and rows that do not."""
+    dev = _card()
+    skip = fault == "skip_ack"
+    run = _abd(c, ordered, fault).checker().target_max_depth(10).spawn_gpu(
+        device="cpu", capacity=1 << 14, max_frontier=1 << 10
+    ).join()
+    w = ac.state_width(c, ordered)
+    reached = run._carry.rows[: run._carry.tail * w].view(-1, w).to(dev)
+    fuzz = from_numpy_u32(abd_fuzz_rows(np.random.default_rng(80 + c), 20_000, c, ordered), dev)
+    for rows in (reached, fuzz):
+        got = ac.abd_step(rows, c, ordered, skip)
+        want = ac.abd_step_plain(rows, c, ordered, skip)
+        for g, p in zip(got, want):
+            assert torch.equal(g, p)
+    flags = ac.abd_lanes_plain(fuzz, c, ordered, skip)[2].any(dim=1)
+    flagged = torch.nonzero(flags).flatten()
+    assert flagged.numel()
+    picked = torch.cat([flagged[:32], torch.nonzero(~flags).flatten()[:32]])
+    for i in picked.tolist():
+        assert bool(ac.abd_step(fuzz[i : i + 1], c, ordered, skip)[3]) == bool(flags[i])
+
+
+@pytest.mark.cuda
+def test_cuda_abd_engine_matches_cpu_run(tmp_path):
+    """2 clients on both fabrics on the card, bit-equal to the CPU runs
+    (544 and 620 unique states), and the skip_ack counterexample."""
+    _card()
+    for ordered, golden in ((False, 544), (True, 620)):
+        gpu = _abd(2, ordered).checker().spawn_gpu(device="cuda", **GEOMETRY).join()
+        cpu = _abd(2, ordered).checker().spawn_gpu(device="cpu", **GEOMETRY).join()
+        assert gpu.unique_state_count() == golden
+        w = ac.state_width(2, ordered)
+        for a, b in zip(_logs(gpu, tmp_path / "gpu.npz", w), _logs(cpu, tmp_path / "cpu.npz", w)):
+            assert np.array_equal(a, b)
+        assert sorted(gpu.discoveries()) == sorted(cpu.discoveries())
+    bad = _abd(2, True, "skip_ack").checker().spawn_gpu(device="cuda", **GEOMETRY).join()
+    path = bad.discoveries()["linearizable"]
+    assert path.last_state().history.serialized_history() is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ordered,golden", [(False, 35_009), (True, 46_516)])
+def test_cuda_abd_check_3_golden(ordered, golden):
+    """``linearizable-register check 3`` on one card, on both fabrics
+    (``check 3 ordered`` is bench.sh:33): the golden unique states at
+    depth 37."""
+    _card()
+    checker = _abd(3, ordered).checker().spawn_gpu(
+        capacity=1 << 17, max_frontier=1 << 13, dedup_factor=1,
+    ).join()
+    assert (checker.unique_state_count(), checker.max_depth()) == (golden, 37)
     assert sorted(checker.discoveries()) == ["value chosen"]
