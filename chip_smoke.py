@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the ten CUDA kernels of ``stateright_tpu_torch/csrc``
+1. build: compile the eleven CUDA kernels of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -63,7 +63,22 @@ Phases, in order; any failure exits non-zero:
 18. the ``check 3 ordered`` path's kernels (K1, K3, K4, K8, K10) against
     their twins on one real wave of that run, replayed as in phase 7; the
     wave must append what the run appended;
-19. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+19. raft (K11: Deliver, Timeout, Crash and Recover lanes; the state's
+    identity its row's first 55 of 58 words): ``raft check`` to depth 6
+    (4,933 / 13,840) bit-equal to the port's CPU run, and to depth 10
+    (844,999 / 2,525,995, the JAX engine's count on its claim path at
+    this geometry) at two chunk sizes, bit-equal to each other;
+20. the reference's default ``raft check`` (``target_max_depth(12)``)
+    through ``spawn_gpu()``: unique states within the JAX package's band
+    12,550,000-12,650,000 at depth 12, discoveries ``Election Liveness``,
+    ``Log Liveness`` and ``Election Safety`` (its path re-executed on the
+    host ends in two leaders of one term) and not ``State Machine
+    Safety``, K1, K3, K4, K8 and K11 launched; the same run at a quarter
+    of the chunk size gives the same counts and logs;
+21. the ``raft check`` path's kernels (K1 on the 55-word identity prefix,
+    K3, K4, K8, K11) against their twins on one real wave of that run,
+    replayed as in phase 7; the wave must append what the run appended;
+22. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -102,6 +117,11 @@ GOLDEN_ABD2 = (544, 875, 25)
 GOLDEN_ABD2O = (620, 883, 25)
 GOLDEN_ABD3 = (35_009, 37)
 GOLDEN_ABD3O = (46_516, 37)
+GOLDEN_RAFT_D6 = (4_933, 13_840, 6)
+GOLDEN_RAFT_D10 = (844_999, 2_525_995, 10)
+# tests/test_raft_tpu.py:182-190: the JAX package's band for raft check.
+RAFT_BAND = (12_550_000, 12_650_000)
+RAFT_FOUND = ["Election Liveness", "Election Safety", "Log Liveness"]
 # paxos check 3: 1,194,428 states fill a 2**22-slot table to 0.28 and a
 # 2**21-position log to 0.57; a wave expands 2**16 states (2**21 lanes) into
 # a compaction buffer of 2**21 / 4 lanes, about five times the valid lanes
@@ -125,6 +145,16 @@ SC4_GEOMETRY = dict(capacity=1 << 21, max_frontier=1 << 16, dedup_factor=1)
 # 2**17-slot table (load 0.35); a wave expands up to 2**13 states, the
 # widest level in one wave, into a buffer as wide as the candidates.
 ABD3_GEOMETRY = dict(capacity=1 << 17, max_frontier=1 << 13, dedup_factor=1)
+# raft to depth 10: the geometry of the JAX CPU run it is held to.
+RAFT_D10_GEOMETRY = dict(capacity=1 << 21, max_frontier=1 << 12, dedup_factor=1)
+# raft check: about 12.6M states in a 2**25-slot table (load about 0.38)
+# and a 14M-position log (240 bytes a position with parent and ebits:
+# 3.4 GB); a wave expands 2**16 states into 2**16 * 36 candidate rows of
+# 232 bytes (547 MB), a buffer as wide as the candidates.
+RAFT_GEOMETRY = dict(
+    capacity=1 << 25, log_capacity=14_000_000, max_frontier=1 << 16,
+    dedup_factor=1,
+)
 SEED = 20261017
 
 KERNELS = {
@@ -149,6 +179,8 @@ KERNELS = {
                          "stateright_tpu/models/single_copy_compiled.py:202"),
     "abd_step": ("stateright_tpu_torch/csrc/abd_step.cu",
                  "stateright_tpu/models/abd_compiled.py:465"),
+    "raft_step": ("stateright_tpu_torch/csrc/raft_step.cu",
+                  "stateright_tpu/models/raft_compiled.py:418"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -164,6 +196,8 @@ PATH_KERNELS = {
             "insert_batch_claim", "wave_eval"),
     "abd3o": ("device_fp64", "abd_step", "compact", "insert_batch_claim",
               "wave_eval"),
+    "raft": ("device_fp64", "raft_step", "compact", "insert_batch_claim",
+             "wave_eval"),
 }
 
 
@@ -428,6 +462,7 @@ def launch_counted():
     from stateright_tpu_torch.models.paxos_compiled import (
         paxos_conds, paxos_step_lane, paxos_step_valid,
     )
+    from stateright_tpu_torch.models.raft_compiled import raft_step
     from stateright_tpu_torch.models.single_copy_compiled import single_copy_step
     from stateright_tpu_torch.models.twophase_compiled import twophase_step
     from stateright_tpu_torch.ops.device_fp import device_fp64
@@ -436,7 +471,7 @@ def launch_counted():
 
     return (device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
-            single_copy_step, abd_step)
+            single_copy_step, abd_step, raft_step)
 
 
 def reset_launches():
@@ -564,7 +599,7 @@ def run_paxos3(torch):
 
 def replay_wave(torch, checker, geometry):
     """One real wave of a card run at ``geometry``: the first chunk of its
-    widest level.  Returns its rows, start position,
+    widest expanded level.  Returns its rows, start position,
     eventually-bits, discovered mask, the run's table as it stood when the
     wave ran (every state of the levels before, rebuilt from the log), and
     the positions the run appended from that wave."""
@@ -574,6 +609,7 @@ def replay_wave(torch, checker, geometry):
 
     carry = checker._carry
     w = checker._compiled.state_width
+    fpw = checker._fp_words
     f = geometry["max_frontier"]
     parent = carry.parent[: carry.tail].long()
     # BFS depth of every position: the log is in level order.
@@ -582,7 +618,9 @@ def replay_wave(torch, checker, geometry):
     for _ in range(checker.max_depth() + 1):
         depth = torch.where(has_parent, depth[parent.clamp(min=0)] + 1, 0)
     sizes = torch.bincount(depth)
-    widest = int(sizes.argmax())
+    # The widest level the run expanded (one cut by target_max_depth
+    # leaves its last level unexpanded).
+    widest = int(sizes[: carry.depth].argmax())
     start = int(sizes[:widest].sum())
     level_end = start + int(sizes[widest])
     n = min(f, level_end - start)
@@ -590,7 +628,7 @@ def replay_wave(torch, checker, geometry):
     # When the level's first chunk ran, the table held exactly the states
     # of the levels before it and of this one: positions [0, level_end).
     table = HashSet.empty(geometry["capacity"], states.device)
-    hi, lo = device_fp64(carry.rows[: level_end * w].view(level_end, w))
+    hi, lo = device_fp64(carry.rows[: level_end * w].view(level_end, w)[:, :fpw])
     insert_batch_claim(table, hi, lo,
                        torch.ones((level_end,), dtype=torch.bool,
                                   device=states.device))
@@ -849,10 +887,12 @@ def run_paxos6(torch):
     return checker, elapsed
 
 
-def run_full(torch, gpu, path, run):
+def run_full(torch, gpu, path, run, properties_hold=True):
     """One full check through ``run`` with the launch counts of ``path``
-    read around it; logs its counts, time and memory, re-executes the
-    discoveries on the host, and returns ``(launches, checker)``."""
+    read around it; logs its counts, time and memory, holds the model's
+    properties (unless ``properties_hold`` is False: ``run`` checks the
+    discoveries itself), re-executes the discoveries on the host, and
+    returns ``(launches, checker)``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -865,7 +905,8 @@ def run_full(torch, gpu, path, run):
         f"elapsed_s={elapsed:.3f} unique_per_s={unique / elapsed:.1f} "
         f"peak_bytes={peak} load={checker.table_load_factor():.4f} card={gpu!r}")
     log(f"  {path} launches: {launches}")
-    checker.assert_properties()
+    if properties_hold:
+        checker.assert_properties()
     paths = {k: len(p) - 1 for k, p in checker.discoveries().items()}
     log(f"  {path} discoveries re-executed: {paths}")
     return launches, checker
@@ -952,8 +993,9 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     """A single-phase path's kernels -- its model's fused step ``name``
     (``step``, twin ``step_plain``), K8, K1, K3 and K4 -- against their
     twins on one real wave of its run (:func:`replay_wave`), called as the
-    single-phase wave calls them; the wave must append what the run did.
-    The step's operation count is the DP's (``codec``'s tester words)."""
+    single-phase wave calls them (K1 on each row's identity prefix); the
+    wave must append what the run did.  The step's operation count is the
+    DP's (``codec``'s tester words; no codec, no DP: bound by bytes)."""
     from stateright_tpu_torch.models.register_compiled_common import dp_work
     from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
     from stateright_tpu_torch.ops.u32 import u32
@@ -967,6 +1009,7 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     row = kernel_row(rows, path)
     cm = checker._compiled
     w, m = cm.state_width, cm.max_actions
+    fpw = checker._fp_words
     carry = checker._carry
     states, start, eb, discovered, table, appended = replay_wave(
         torch, checker, geometry)
@@ -975,11 +1018,12 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     k_step = step(states)
     p_step = step_plain(states)
     torch.cuda.synchronize()
-    dp_ops = int(dp_work(codec, u32(states)).sum())
+    dp_ops = 0 if codec is None else int(dp_work(codec, u32(states)).sum())
+    n_props = k_step[2].shape[1]
     row(name, max_abs_err(torch, zip(k_step, p_step)),
         time_ms(torch, lambda: step(states), 10),
         time_ms(torch, lambda: step_plain(states), 2),
-        f * w * 4 + f * m * (w * 4 + 1) + f * 2 + 4, ops=dp_ops)
+        f * w * 4 + f * m * (w * 4 + 1) + f * n_props + 4, ops=dp_ops)
     nexts, valid, conds, _flag = k_step
     del p_step
     log(f"  {name}: {int(valid.sum())} of {f * m} lanes valid")
@@ -993,7 +1037,6 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     k8 = wave_eval(conds, gated, eb, start, kinds, discovered)
     p8 = wave_eval_plain(conds, valid.clone(), eb, start, kinds, discovered)
     torch.cuda.synchronize()
-    n_props = conds.shape[1]
     row("wave_eval", max_abs_err(torch, zip(k8, p8)),
         time_ms(torch, lambda: wave_eval(conds, gated, eb, start, kinds,
                                          discovered), 10, setup=fresh),
@@ -1001,15 +1044,17 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
                                                discovered), 2),
         f * n_props + 2 * f * m + 2 * f * 4 + n_props * 8)
 
-    # K1 on every candidate row, as the single-phase wave hashes them.
+    # K1 on every candidate row's identity prefix, as the single-phase
+    # wave hashes them (in place: the prefix is a strided view).
     cand_rows = nexts.view(f * m, w)
-    k1 = device_fp64(cand_rows)
-    p1 = device_fp64_plain(cand_rows)
+    ident = cand_rows[:, :fpw]
+    k1 = device_fp64(ident)
+    p1 = device_fp64_plain(ident)
     torch.cuda.synchronize()
     row("device_fp64", max_abs_err(torch, zip(k1, p1)),
-        time_ms(torch, lambda: device_fp64(cand_rows), 10),
-        time_ms(torch, lambda: device_fp64_plain(cand_rows), 2),
-        f * m * (w * 4 + 8))
+        time_ms(torch, lambda: device_fp64(ident), 10),
+        time_ms(torch, lambda: device_fp64_plain(ident), 2),
+        f * m * (fpw * 4 + 8))
 
     size = unique_buffer_size(geometry["max_frontier"] * m,
                               geometry["dedup_factor"])
@@ -1096,6 +1141,113 @@ def run_abd2(torch):
 def run_abd3o(torch):
     """``gpu_profile.py --model abd3o`` times this run."""
     return run_abd(torch, True, GOLDEN_ABD3O)
+
+
+def raft_model():
+    from stateright_tpu_torch.models.raft import RaftModelCfg
+
+    return RaftModelCfg(server_count=3).into_model()
+
+
+def phase_raft_prefix(torch):
+    """``raft check`` to depth 6 bit-equal to the port's CPU run; to depth
+    10 at the JAX run's geometry and at a quarter of its chunk size, both
+    at the golden and bit-equal to each other (the representative of a
+    state is its first generator in BFS order, whatever the chunking)."""
+    from stateright_tpu_torch.models.raft_compiled import W
+
+    card_and_cpu("raft to depth 6", lambda: raft_model().checker().target_max_depth(6),
+                 GOLDEN_RAFT_D6, W, capacity=1 << 15, max_frontier=1 << 8)
+    runs = []
+    for f in (RAFT_D10_GEOMETRY["max_frontier"], RAFT_D10_GEOMETRY["max_frontier"] // 4):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        checker = raft_model().checker().target_max_depth(10).spawn_gpu(
+            **dict(RAFT_D10_GEOMETRY, max_frontier=f)).join()
+        elapsed = time.monotonic() - t0
+        got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+        log(f"  raft to depth 10 (max_frontier={f}): unique={got[0]} "
+            f"states={got[1]} depth={got[2]} waves={checker.waves()} "
+            f"elapsed_s={elapsed:.3f} discoveries={sorted(checker.discoveries())}")
+        if got != GOLDEN_RAFT_D10:
+            raise AssertionError(f"raft to depth 10 {got} != {GOLDEN_RAFT_D10}")
+        if sorted(checker.discoveries()) != RAFT_FOUND:
+            raise AssertionError(f"raft to depth 10 found {sorted(checker.discoveries())}")
+        runs.append(checker)
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = (snapshot_logs(c, tmp, f"d10_{i}", W) for i, c in enumerate(runs))
+    for k in a:
+        if not (a[k] == b[k]).all():
+            raise AssertionError(f"raft to depth 10: {k} differs between chunk sizes")
+    log("  raft to depth 10: row log, parents and ebits equal at both chunk sizes")
+
+
+def run_raft(torch):
+    """The reference's default ``raft check`` (``target_max_depth(12)``)
+    through ``spawn_gpu()`` at ``RAFT_GEOMETRY``, held to the JAX band and
+    discovery set; returns the joined checker and its wall seconds.
+    ``gpu_profile.py --model raft`` times and traces this same run."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = raft_model().checker().target_max_depth(12).spawn_gpu(
+        **RAFT_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    unique, depth = checker.unique_state_count(), checker.max_depth()
+    if not (RAFT_BAND[0] < unique < RAFT_BAND[1] and depth == 12):
+        raise AssertionError(f"raft check ({unique}, {depth}) outside the band")
+    if sorted(checker.discoveries()) != RAFT_FOUND:
+        raise AssertionError(f"raft check found {sorted(checker.discoveries())}")
+    return checker, elapsed
+
+
+def phase_raft_other_chunking(torch, checker):
+    """``raft check`` again at a quarter of the chunk size: the same
+    counts, and the same row log, parents and eventually-bits (compared
+    on the card)."""
+    other = raft_model().checker().target_max_depth(12).spawn_gpu(**dict(
+        RAFT_GEOMETRY, max_frontier=RAFT_GEOMETRY["max_frontier"] // 4)).join()
+    a, b = checker._carry, other._carry
+    w = checker._compiled.state_width
+    got = (other.unique_state_count(), other.state_count(), other.max_depth())
+    want = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != want or a.tail != b.tail or not (
+        torch.equal(a.rows[: a.tail * w], b.rows[: b.tail * w])
+        and torch.equal(a.parent[: a.tail], b.parent[: b.tail])
+        and torch.equal(a.ebits[: a.tail], b.ebits[: b.tail])
+    ):
+        raise AssertionError(f"raft check at max_frontier/4: {got} != {want} "
+                             "or its logs differ")
+    log(f"  raft check at max_frontier={RAFT_GEOMETRY['max_frontier'] // 4}: "
+        f"unique={got[0]} states={got[1]} depth={got[2]} waves={other.waves()}, "
+        f"row log, parents and ebits equal")
+
+
+def phase_raft_election_safety(checker):
+    """The ``Election Safety`` counterexample, re-executed on the host,
+    ends in two leaders of one term (a crash and recover let a node vote
+    twice: the reference's actor persists nothing)."""
+    from stateright_tpu_torch.models.raft import LEADER
+
+    path = checker.discoveries()["Election Safety"]
+    leaders = [a.current_term for a in path.last_state().actor_states
+               if a.current_role == LEADER]
+    if len(leaders) == len(set(leaders)):
+        raise AssertionError("Election Safety: the replayed path ends safe")
+    log(f"  Election Safety: counterexample of {len(path) - 1} steps replayed, "
+        f"leaders' terms {leaders}, actions "
+        f"{[type(a).__name__ for a in path.into_actions()]}")
+
+
+def phase_raft_kernels(torch, checker, rows):
+    """The ``raft check`` path's kernels against their twins on one real
+    wave of its run (:func:`phase_single_phase_kernels`)."""
+    from stateright_tpu_torch.models.raft_compiled import raft_step, raft_step_plain
+
+    crashes = checker._compiled.max_crashes
+    phase_single_phase_kernels(
+        torch, checker, rows, "raft", RAFT_GEOMETRY, "raft_step",
+        lambda states: raft_step(states, crashes),
+        lambda states: raft_step_plain(states, crashes), None)
 
 
 def main() -> int:
@@ -1200,6 +1352,22 @@ def main() -> int:
     log("phase 18: the linearizable-register check 3 ordered path's kernels "
         "against their twins on one of its waves")
     phase_abd3o_kernels(torch, checker, rows)
+    del checker
+    torch.cuda.empty_cache()
+
+    log("phase 19: raft to depth 6 and 10 on the card")
+    phase_raft_prefix(torch)
+    torch.cuda.empty_cache()
+
+    log("phase 20: raft check (depth 12) on the card")
+    launches["raft"], checker = run_full(torch, gpu, "raft", run_raft,
+                                         properties_hold=False)
+    phase_raft_election_safety(checker)
+    phase_raft_other_chunking(torch, checker)
+
+    log("phase 21: the raft check path's kernels against their twins on one "
+        "of its waves")
+    phase_raft_kernels(torch, checker, rows)
     del checker
     torch.cuda.empty_cache()
 

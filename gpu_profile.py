@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a full check goes on one H100.
 
-    python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o]
+    python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o|raft]
                            [--runs N] [--trace-dir DIR]
 
 Builds the port's kernels, runs one of ``chip_smoke.py``'s full checks
@@ -9,8 +9,9 @@ through ``spawn_gpu()`` at its geometry, held to its goldens --
 ``run_rm10`` (``2pc check 10``, phase 4), ``run_paxos3`` (``paxos check
 3``, phase 6), ``run_paxos6`` (``paxos check 6``, phase 10) or ``run_sc4``
 (``single-copy-register check 4``, phase 13), ``run_abd2``
-(``linearizable-register check 2``, phase 15) or ``run_abd3o``
-(``linearizable-register check 3 ordered``, phase 17) -- ``--runs`` times
+(``linearizable-register check 2``, phase 15), ``run_abd3o``
+(``linearizable-register check 3 ordered``, phase 17) or ``run_raft``
+(``raft check``, depth 12, phase 20) -- ``--runs`` times
 untraced (wall seconds of each, then median and spread), and once more
 under ``torch.profiler``: device time per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
@@ -33,7 +34,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="rm10",
-                    choices=("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o"))
+                    choices=("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o",
+                             "raft"))
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -46,20 +48,20 @@ def main() -> int:
     import chip_smoke
     from stateright_tpu_torch.ops import cuda
 
-    run, golden = {
-        "rm10": (chip_smoke.run_rm10, chip_smoke.GOLDEN_RM10),
-        "paxos3": (chip_smoke.run_paxos3, chip_smoke.GOLDEN_PAXOS3),
-        "paxos6": (chip_smoke.run_paxos6, chip_smoke.GOLDEN_PAXOS6),
-        "sc4": (chip_smoke.run_sc4, chip_smoke.GOLDEN_SC4),
-        "abd2": (chip_smoke.run_abd2, chip_smoke.GOLDEN_ABD2),
-        "abd3o": (chip_smoke.run_abd3o, chip_smoke.GOLDEN_ABD3O),
+    run = {
+        "rm10": chip_smoke.run_rm10,
+        "paxos3": chip_smoke.run_paxos3,
+        "paxos6": chip_smoke.run_paxos6,
+        "sc4": chip_smoke.run_sc4,
+        "abd2": chip_smoke.run_abd2,
+        "abd3o": chip_smoke.run_abd3o,
+        "raft": chip_smoke.run_raft,
     }[args.model]
-    unique = golden[0]
     cuda.build()
     card = chip_smoke.gpu_line()
     print(f"card: {card}; model {args.model}", flush=True)
 
-    run(torch)  # warm-up: library loads, allocator pools
+    unique = run(torch)[0].unique_state_count()  # warm-up: library loads, pools
     times = []
     for i in range(args.runs):
         checker, elapsed = run(torch)

@@ -1,16 +1,18 @@
 """The ``Actor`` abstraction and its command output.
 
 The counterpart of ``stateright_tpu/actor/base.py`` (reference:
-src/actor.rs) with the one command the port's actor models emit: a send.
-Handlers *return* the next state, or ``None`` for "unchanged" (the
-reference's ``Cow::Borrowed``); a no-op is a ``None`` return with no
-commands.
+src/actor.rs) with the commands the port's actor models emit: a send, and
+setting or cancelling a timer.  Handlers *return* the next state, or
+``None`` for "unchanged" (the reference's ``Cow::Borrowed``); a no-op is a
+``None`` return with no commands, and a timeout whose handler only renews
+its own timer is one too (:func:`is_no_op_with_timer`).  Random choices
+and storage saves are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Iterable, List, Optional
+from typing import Any, Iterable, List, Optional, Tuple
 
 from .ids import Id
 
@@ -19,6 +21,23 @@ from .ids import Id
 class SendCmd:
     dst: Id
     msg: Any
+
+
+@dataclass(frozen=True)
+class SetTimerCmd:
+    timer: Any
+    duration: Tuple[float, float]  # seconds (lo, hi); irrelevant when checking
+
+
+@dataclass(frozen=True)
+class CancelTimerCmd:
+    timer: Any
+
+
+def model_timeout() -> Tuple[float, float]:
+    """Timeout durations are irrelevant for model checking
+    (reference: src/actor/model.rs:79-81)."""
+    return (0.0, 0.0)
 
 
 def model_peers(self_ix: int, count: int) -> List[Id]:
@@ -39,7 +58,7 @@ class Out:
     __slots__ = ("commands",)
 
     def __init__(self):
-        self.commands: List[SendCmd] = []
+        self.commands: List[Any] = []
 
     def send(self, recipient: Id, msg: Any) -> None:
         self.commands.append(SendCmd(Id(recipient), msg))
@@ -47,6 +66,12 @@ class Out:
     def broadcast(self, recipients: Iterable[Id], msg: Any) -> None:
         for r in recipients:
             self.send(r, msg)
+
+    def set_timer(self, timer: Any, duration: Tuple[float, float] = (0.0, 0.0)) -> None:
+        self.commands.append(SetTimerCmd(timer, duration))
+
+    def cancel_timer(self, timer: Any) -> None:
+        self.commands.append(CancelTimerCmd(timer))
 
     def __repr__(self) -> str:
         return f"Out({self.commands!r})"
@@ -58,15 +83,27 @@ def is_no_op(returned_state: Optional[Any], out: Out) -> bool:
     return returned_state is None and not out.commands
 
 
+def is_no_op_with_timer(returned_state: Optional[Any], out: Out, timer: Any) -> bool:
+    """True iff the handler only renewed the same timer.
+    Reference: src/actor.rs:289-299."""
+    keep_timer = any(
+        isinstance(c, SetTimerCmd) and c.timer == timer for c in out.commands
+    )
+    return returned_state is None and len(out.commands) == 1 and keep_timer
+
+
 class Actor:
     """Event-driven actor.  Reference: the ``Actor`` trait,
-    src/actor.rs:305-411.  ``on_msg`` returns the next actor state, or
-    ``None`` for no change."""
+    src/actor.rs:305-411.  ``on_msg`` and ``on_timeout`` return the next
+    actor state, or ``None`` for no change."""
 
     def on_start(self, id: Id, storage: Optional[Any], o: Out) -> Any:
         raise NotImplementedError
 
     def on_msg(self, id: Id, state: Any, src: Id, msg: Any, o: Out) -> Optional[Any]:
+        return None
+
+    def on_timeout(self, id: Id, state: Any, timer: Any, o: Out) -> Optional[Any]:
         return None
 
     def name(self) -> str:

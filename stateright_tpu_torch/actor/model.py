@@ -2,24 +2,33 @@
 
 The counterpart of ``stateright_tpu/actor/model.py`` (reference:
 src/actor/model.rs, src/actor/model_state.rs) for the configurations the
-port compiles: a lossless, crash-free, timer-free system on the unordered
-nonduplicating or the ordered network, whose only action family is
-``Deliver`` of each distinct deliverable envelope -- each channel head on
-the ordered fabric (src/actor/model.rs:269-333).  A handler no-op is no
-successor, except on the ordered fabric, where consuming the channel head
-changes the state (src/actor/model.rs:364).  ``ActorModelState`` keeps
-the JAX class's name and fields (timers, random choices, crash flags and
-storages stay at their empty values), so states fingerprint the same in
-both packages.
+port compiles: a lossless system on the unordered nonduplicating or the
+ordered network.  Its action families, in the reference's enumeration
+order (src/actor/model.rs:269-333): ``Deliver`` of each distinct
+deliverable envelope (each channel head on the ordered fabric), one
+``Timeout`` per pending timer, ``Crash`` of each live actor while fewer
+than ``max_crashes`` are down, and ``Recover`` of each crashed one.  A
+handler no-op is no successor, except on the ordered fabric, where
+consuming the channel head changes the state (src/actor/model.rs:364); a
+timeout whose handler only renews its timer is none either, and any other
+fired timer is consumed.  ``ActorModelState`` keeps the JAX class's name
+and fields (random choices and storages stay at their empty values), so
+states fingerprint the same in both packages.  Lossy networks (``Drop``),
+the duplicating network and ``SelectRandom`` are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Tuple
 
 from ..core.model import Model, Property
-from .base import Actor, Out, SendCmd, is_no_op
+from ..ops.fingerprint import fingerprint
+from .base import (
+    Actor, CancelTimerCmd, Out, SendCmd, SetTimerCmd, is_no_op,
+    is_no_op_with_timer,
+)
 from .ids import Id
 from .network import Envelope, Network
 
@@ -32,12 +41,28 @@ class Deliver:
 
 
 @dataclass(frozen=True)
+class Timeout:
+    id: Id
+    timer: Any
+
+
+@dataclass(frozen=True)
+class Crash:
+    id: Id
+
+
+@dataclass(frozen=True)
+class Recover:
+    id: Id
+
+
+@dataclass(frozen=True)
 class ActorModelState:
     actor_states: Tuple[Any, ...]
     network: Network
-    timers_set: Tuple[Any, ...]  # per actor: frozenset() (no timers)
+    timers_set: Tuple[Any, ...]  # per actor: frozenset of pending timers
     random_choices: Tuple[Any, ...]  # per actor: () (no random choices)
-    crashed: Tuple[bool, ...]  # per actor: False (no crashes)
+    crashed: Tuple[bool, ...]
     history: Any
     actor_storages: Tuple[Any, ...]  # per actor: None (no storage)
 
@@ -50,6 +75,7 @@ class ActorModel(Model):
         self.cfg = cfg
         self.init_history = init_history
         self.init_network = Network.new_unordered_nonduplicating()
+        self.max_crashes: int = 0
         self._properties: List[Property] = []
         self._record_msg_in: Callable = lambda cfg, h, env: None
         self._record_msg_out: Callable = lambda cfg, h, env: None
@@ -63,6 +89,10 @@ class ActorModel(Model):
 
     def init_network_(self, network: Network) -> "ActorModel":
         self.init_network = network
+        return self
+
+    def max_crashes_(self, n: int) -> "ActorModel":
+        self.max_crashes = n
         return self
 
     def property(self, expectation, name: str, condition) -> "ActorModel":
@@ -90,31 +120,43 @@ class ActorModel(Model):
     def within_boundary(self, state) -> bool:
         return self._within_boundary(self.cfg, state)
 
-    def _sends(self, id: Id, out: Out, network: Network, history):
-        """Apply a handler's sends (src/actor/model.rs:191-235): each is
-        recorded into the history, then added to the network."""
+    def _process_commands(self, id: Id, out: Out, network: Network, history,
+                          timers: List[Any]):
+        """Apply a handler's commands (src/actor/model.rs:191-235): a send
+        is recorded into the history, then added to the network; a timer
+        command updates the actor's entry of ``timers`` in place.  Returns
+        the new network and history."""
+        index = int(id)
         for c in out.commands:
-            if not isinstance(c, SendCmd):
+            if isinstance(c, SendCmd):
+                env = Envelope(id, c.dst, c.msg)
+                recorded = self._record_msg_out(self.cfg, history, env)
+                if recorded is not None:
+                    history = recorded
+                network = network.send(env)
+            elif isinstance(c, SetTimerCmd):
+                timers[index] = timers[index] | {c.timer}
+            elif isinstance(c, CancelTimerCmd):
+                timers[index] = timers[index] - {c.timer}
+            else:
                 raise TypeError(f"unsupported actor command {c!r}")
-            env = Envelope(id, c.dst, c.msg)
-            recorded = self._record_msg_out(self.cfg, history, env)
-            if recorded is not None:
-                history = recorded
-            network = network.send(env)
         return network, history
 
     def init_states(self) -> List[ActorModelState]:
         n = len(self.actors)
         network, history = self.init_network, self.init_history
+        timers = [frozenset()] * n
         actor_states = []
         for index, actor in enumerate(self.actors):
             out = Out()
             actor_states.append(actor.on_start(Id(index), None, out))
-            network, history = self._sends(Id(index), out, network, history)
+            network, history = self._process_commands(
+                Id(index), out, network, history, timers
+            )
         return [ActorModelState(
             actor_states=tuple(actor_states),
             network=network,
-            timers_set=(frozenset(),) * n,
+            timers_set=tuple(timers),
             random_choices=((),) * n,
             crashed=(False,) * n,
             history=history,
@@ -122,36 +164,98 @@ class ActorModel(Model):
         )]
 
     def actions(self, state: ActorModelState, actions: List[Any]) -> None:
+        # Reference: src/actor/model.rs:269-333 (same enumeration order).
         for env in state.network.iter_deliverable():
             if int(env.dst) < len(self.actors):
                 actions.append(Deliver(env.src, env.dst, env.msg))
+        for index, timers in enumerate(state.timers_set):
+            for timer in sorted(timers, key=fingerprint):
+                actions.append(Timeout(Id(index), timer))
+        if sum(state.crashed) < self.max_crashes:
+            for index, crashed in enumerate(state.crashed):
+                if not crashed:
+                    actions.append(Crash(Id(index)))
+        for index, crashed in enumerate(state.crashed):
+            if crashed:
+                actions.append(Recover(Id(index)))
 
     def next_state(
-        self, last: ActorModelState, action: Deliver
+        self, last: ActorModelState, action: Any
     ) -> Optional[ActorModelState]:
-        # Reference: src/actor/model.rs:335-380.
-        index = int(action.dst)
-        out = Out()
-        next_actor_state = self.actors[index].on_msg(
-            action.dst, last.actor_states[index], action.src, action.msg, out
-        )
-        if is_no_op(next_actor_state, out) and not self.init_network.is_ordered:
-            return None
-        env = Envelope(action.src, action.dst, action.msg)
-        history = last.history
-        recorded = self._record_msg_in(self.cfg, history, env)
-        if recorded is not None:
-            history = recorded
+        # Reference: src/actor/model.rs:335-457.
+        if isinstance(action, Deliver):
+            index = int(action.dst)
+            if index >= len(last.actor_states) or last.crashed[index]:
+                return None
+            out = Out()
+            next_actor_state = self.actors[index].on_msg(
+                action.dst, last.actor_states[index], action.src, action.msg, out
+            )
+            if is_no_op(next_actor_state, out) and not self.init_network.is_ordered:
+                return None
+            env = Envelope(action.src, action.dst, action.msg)
+            history = last.history
+            recorded = self._record_msg_in(self.cfg, history, env)
+            if recorded is not None:
+                history = recorded
+            return self._successor(
+                last, index, next_actor_state, out,
+                last.network.on_deliver(env), history,
+            )
+        if isinstance(action, Timeout):
+            index = int(action.id)
+            out = Out()
+            next_actor_state = self.actors[index].on_timeout(
+                action.id, last.actor_states[index], action.timer, out
+            )
+            if is_no_op_with_timer(next_actor_state, out, action.timer):
+                return None
+            # The fired timer is consumed unless the handler sets it again.
+            timers = list(last.timers_set)
+            timers[index] = timers[index] - {action.timer}
+            return self._successor(
+                last, index, next_actor_state, out, last.network,
+                last.history, timers,
+            )
+        if isinstance(action, Crash):
+            index = int(action.id)
+            timers = list(last.timers_set)
+            timers[index] = frozenset()
+            crashed = list(last.crashed)
+            crashed[index] = True
+            return dataclasses.replace(
+                last, timers_set=tuple(timers), crashed=tuple(crashed)
+            )
+        if isinstance(action, Recover):
+            index = int(action.id)
+            assert last.crashed[index]
+            out = Out()
+            state = self.actors[index].on_start(
+                action.id, last.actor_storages[index], out
+            )
+            crashed = list(last.crashed)
+            crashed[index] = False
+            return dataclasses.replace(
+                self._successor(last, index, state, out, last.network, last.history),
+                crashed=tuple(crashed),
+            )
+        raise TypeError(f"unknown action {action!r}")
+
+    def _successor(self, last, index, next_actor_state, out, network, history,
+                   timers=None) -> ActorModelState:
+        """``last`` with actor ``index``'s state replaced (unless None) and
+        the handler's commands applied."""
         actor_states = list(last.actor_states)
         if next_actor_state is not None:
             actor_states[index] = next_actor_state
-        network, history = self._sends(
-            action.dst, out, last.network.on_deliver(env), history
+        timers = list(last.timers_set if timers is None else timers)
+        network, history = self._process_commands(
+            Id(index), out, network, history, timers
         )
         return ActorModelState(
             actor_states=tuple(actor_states),
             network=network,
-            timers_set=last.timers_set,
+            timers_set=tuple(timers),
             random_choices=last.random_choices,
             crashed=last.crashed,
             history=history,
@@ -159,4 +263,6 @@ class ActorModel(Model):
         )
 
     def format_action(self, action) -> str:
-        return f"{action.src!r} → {action.msg!r} → {action.dst!r}"
+        if isinstance(action, Deliver):
+            return f"{action.src!r} → {action.msg!r} → {action.dst!r}"
+        return repr(action)

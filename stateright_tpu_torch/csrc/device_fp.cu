@@ -5,23 +5,29 @@
 // fp64_words: two murmur3-style u32 lanes seeded SEED_HI/SEED_LO, finalised
 // with the word count, then (0,0) -> (0,1) and all-ones -> ...FFFE.
 //
+// A row is the first w words at words + i * row_stride: a model whose state
+// identity is a row's leading fp_words words (raft: 55 of 58) has that
+// prefix hashed in place, as the JAX engine hashes rows[:, :fp_words].
+//
 // Bound: bytes.  A row of W words is read once and two words are written;
 // the ~20 integer operations per word are far below the card's integer rate,
 // so the kernel is limited by device-memory traffic (4W + 8 bytes a row).
 // Design: one thread per row in a grid-stride loop, so neighbouring threads
-// read neighbouring rows (a warp covers 32*4W contiguous bytes) and write
-// neighbouring words of the two output planes; no shared memory needed.
+// read neighbouring rows (a warp covers 32*4*row_stride contiguous bytes) and
+// write neighbouring words of the two output planes; no shared memory
+// needed.
 #include "sr_common.cuh"
 
 namespace {
 
 __global__ void fp64_kernel(const uint32_t* __restrict__ words, int64_t n,
-                            int w, uint32_t* __restrict__ hi,
+                            int w, int64_t row_stride,
+                            uint32_t* __restrict__ hi,
                             uint32_t* __restrict__ lo) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    const uint32_t* row = words + i * w;
+    const uint32_t* row = words + i * row_stride;
     uint32_t h1 = sr::SEED_HI;
     uint32_t h2 = sr::SEED_LO;
     for (int k = 0; k < w; ++k) {
@@ -40,12 +46,13 @@ __global__ void fp64_kernel(const uint32_t* __restrict__ words, int64_t n,
 
 }  // namespace
 
+// Row i is the w words at words + i * row_stride (row_stride >= w).
 extern "C" int sr_device_fp64(const uint32_t* words, int64_t n, int w,
-                              uint32_t* hi, uint32_t* lo,
+                              int64_t row_stride, uint32_t* hi, uint32_t* lo,
                               cudaStream_t stream) {
   if (n <= 0) return 0;
   constexpr int kThreads = 256;
   fp64_kernel<<<sr::grid_for(n, kThreads), kThreads, 0, stream>>>(
-      words, n, w, hi, lo);
+      words, n, w, row_stride, hi, lo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
     "device_fp", "twophase_step", "compact", "hashset",
     "paxos_valid", "paxos_lane", "paxos_conds", "wave_eval",
-    "single_copy_step", "abd_step",
+    "single_copy_step", "abd_step", "raft_step",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

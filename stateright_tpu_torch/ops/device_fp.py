@@ -5,6 +5,9 @@ u32 lanes over the row's words, bit-identical to the host ``fp64_words``
 (``ops/fingerprint.py``) including the remap of the two reserved values.
 Rows are ``int32`` bit-views of the packed ``uint32`` words; the 64-bit
 fingerprint comes back as an ``(hi, lo)`` pair of int32 bit-view planes.
+A model whose identity is a row's leading ``fp_words`` words passes the
+view ``rows[:, :fp_words]``: the kernel steps from row to row by the view's
+row stride, so the prefix is hashed without a copy.
 
 On a CUDA tensor :func:`device_fp64` launches ``csrc/device_fp.cu``; on a
 CPU tensor it runs :func:`device_fp64_plain`, the plain-torch twin the CPU
@@ -25,19 +28,28 @@ from .u32 import M32, fmix32, i32, mix32, u32
 def device_fp64(words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fingerprint packed rows ``int32[N, W]`` -> ``(hi, lo)`` int32[N],
     never both zero, never both all-ones.  Bit-identical to
-    ``fp64_words(row)`` for every row."""
+    ``fp64_words(row)`` for every row.  Each row's words must be
+    contiguous; rows may lie further apart (a column prefix of a wider
+    row log)."""
     if words.device.type == "cpu":
         return device_fp64_plain(words)
-    cuda.require(words, "words", torch.int32, 2, words.device)
+    if words.dim() != 2 or words.dtype != torch.int32:
+        raise ValueError(
+            f"words must be int32[N, W], got {words.dtype} {tuple(words.shape)}"
+        )
     n, w = words.shape
+    stride = words.stride(0) if n > 1 else w
+    if (w > 1 and words.stride(1) != 1) or stride < w:
+        raise ValueError("each row's words must be contiguous, rows not overlapping")
     hi = torch.empty((n,), dtype=torch.int32, device=words.device)
     lo = torch.empty((n,), dtype=torch.int32, device=words.device)
     fn = cuda.function(
         "device_fp", "sr_device_fp64",
-        [cuda.P, cuda.I64, cuda.I32, cuda.P, cuda.P, cuda.P],
+        [cuda.P, cuda.I64, cuda.I32, cuda.I64, cuda.P, cuda.P, cuda.P],
     )
     device_fp64.launches += 1
-    code = fn(cuda.ptr(words), n, w, cuda.ptr(hi), cuda.ptr(lo), cuda.stream())
+    code = fn(cuda.ptr(words), n, w, stride, cuda.ptr(hi), cuda.ptr(lo),
+              cuda.stream())
     cuda.check(code, "device_fp", "device_fp64")
     return hi, lo
 

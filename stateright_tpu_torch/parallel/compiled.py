@@ -47,11 +47,19 @@ class CompiledModel:
     model: the host oracle model.
     state_width: W, uint32 words per packed state.
     max_actions: A, action arity of :meth:`step`.
+    fp_words: the identity prefix of a row (None = all W words).
     """
 
     model: Model
     state_width: int
     max_actions: int
+    # How many leading words of a row are the state's identity: the
+    # engine fingerprints ``row[:fp_words]`` (None = the whole row), so
+    # trailing words carry data the host model leaves out of its hash
+    # (raft's delivered messages and buffer, examples/raft.rs:39-56).
+    # Rows equal on the prefix are one state, represented by the row
+    # inserted first.
+    fp_words: Optional[int] = None
 
     # --- host side -----------------------------------------------------------
 

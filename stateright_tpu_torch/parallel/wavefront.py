@@ -6,9 +6,10 @@ fingerprints every candidate successor, deduplicates them by a batched
 insert-if-absent into a device-resident fingerprint table, and evaluates
 property conditions as fused predicates over the wave.  The device work of
 a wave runs in hand-written kernels -- the model's step and conds (K2 for
-2pc; K5, K6 and K7 for paxos), the wave verdicts (K8), the fingerprint
-(K1), stable compaction (K3) and the claim insert (K4) -- glued by a few
-torch tensor operations.
+2pc; K5, K6 and K7 for paxos; K9, K10 and K11 for the single-copy
+register, ABD and raft), the wave verdicts (K8), the fingerprint (K1),
+stable compaction (K3) and the claim insert (K4) -- glued by a few torch
+tensor operations.
 
 A model with the two-phase contract (``compiled.py``; paxos) is expanded
 in two phases, as in the JAX engine: lane validity first (K5), the valid
@@ -34,6 +35,10 @@ bit (row log, parents, ebits, counts, discoveries):
   positions in the order of (parent position, action) of first generation;
 - eventually-bits travel with each state (the first inserter's bits win,
   the reference's documented join behaviour);
+- a state's identity is its row's leading ``fp_words`` words (the whole
+  row unless the compiled model says less): K1 hashes that prefix in
+  place, while the row log, parents, conds and paths keep the whole row,
+  whose trailing words ride along with the representative;
 - discoveries are first-writer-wins in wave order; paths are rebuilt by
   walking the parent chain, decoding rows and re-executing the host model.
 
@@ -242,6 +247,8 @@ class GpuChecker(Checker):
         ]
         self._kinds = prop_kinds(self._properties)
         self._two_phase = two_phase_capable(self._compiled)
+        # State identity: the leading fp_words of a row (compiled.py).
+        self._fp_words = self._compiled.fp_words or self._compiled.state_width
         self._fw_matched = make_finish_when_device(
             options._finish_when, self._properties
         )
@@ -291,7 +298,7 @@ class GpuChecker(Checker):
                 f"({self._max_frontier}); raise spawn_gpu(max_frontier=...)"
             )
         init_t = from_numpy_u32(init, dev)
-        hi, lo = device_fp64(init_t)
+        hi, lo = device_fp64(init_t[:, : self._fp_words])
         active = torch.ones((n_init,), dtype=torch.bool, device=dev)
         while True:
             table = HashSet.empty(self._capacity, dev)
@@ -398,7 +405,7 @@ class GpuChecker(Checker):
             )
             v_orig, v_act, n_valid = compact_valid_indices(valid.view(-1), size)
             cand_rows, lane_flags = cm.step_lane(states, v_orig, n_valid)
-            hi, lo = device_fp64(cand_rows)
+            hi, lo = device_fp64(cand_rows[:, : self._fp_words])
             step_flag = lane_flags.any()
         else:
             nexts, valid, conds, step_flag = cm.expand(states)
@@ -406,7 +413,7 @@ class GpuChecker(Checker):
                 conds, valid, eb_in, lo_pos, self._kinds, discovered,
             )
             cand_rows = nexts.view(count * a, w)
-            hi, lo = device_fp64(cand_rows)
+            hi, lo = device_fp64(cand_rows[:, : self._fp_words])
             hi, lo, v_orig, v_act, n_valid = compact_valid(
                 hi, lo, valid.view(-1), size
             )
@@ -546,7 +553,8 @@ class GpuChecker(Checker):
         oks = []
         for start in range(0, tail, _REHASH_ROWS):
             n = min(_REHASH_ROWS, tail - start)
-            hi, lo = device_fp64(rows[start * w : (start + n) * w].view(n, w))
+            block = rows[start * w : (start + n) * w].view(n, w)
+            hi, lo = device_fp64(block[:, : self._fp_words])
             active = torch.ones((n,), dtype=torch.bool, device=self._device)
             oks.append(insert_batch_claim(table, hi, lo, active)[1])
         if oks and not bool(torch.stack(oks).all()):
@@ -577,7 +585,9 @@ class GpuChecker(Checker):
         self.join()
         c = self._carry
         w = self._compiled.state_width
-        return fingerprints_of_rows(c.rows[: c.tail * w].view(c.tail, w))
+        return fingerprints_of_rows(
+            c.rows[: c.tail * w].view(c.tail, w)[:, : self._fp_words]
+        )
 
     def state_count(self) -> int:
         return self._state_count

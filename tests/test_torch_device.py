@@ -24,9 +24,11 @@ from stateright_tpu_torch.actor.register import Get, Internal, Put
 from stateright_tpu_torch.models import abd_compiled as ac
 from stateright_tpu_torch.models import paxos as port_paxos
 from stateright_tpu_torch.models import paxos_compiled as pc
+from stateright_tpu_torch.models import raft_compiled as rc
 from stateright_tpu_torch.models import single_copy_compiled as scc
 from stateright_tpu_torch.models.abd import AbdModelCfg
 from stateright_tpu_torch.models.paxos import PaxosModelCfg
+from stateright_tpu_torch.models.raft import RaftModelCfg
 from stateright_tpu_torch.models.single_copy_register import SingleCopyModelCfg
 from stateright_tpu_torch.models.twophase import TwoPhaseSys
 from stateright_tpu_torch.models.twophase_compiled import (
@@ -87,6 +89,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "c = m.checker().spawn_gpu(device='cpu', capacity=1 << 12,"
         " max_frontier=1 << 8).join()\n"
         "assert c.unique_state_count() == 620, c.unique_state_count()\n"
+        "from stateright_tpu_torch.models.raft import RaftModelCfg\n"
+        "m = RaftModelCfg(server_count=3).into_model()\n"
+        "c = m.checker().target_max_depth(4).spawn_gpu(device='cpu',"
+        " capacity=1 << 12, max_frontier=1 << 8).join()\n"
+        "assert c.unique_state_count() == 367, c.unique_state_count()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -537,3 +544,178 @@ def test_cuda_abd_check_3_golden(ordered, golden):
     ).join()
     assert (checker.unique_state_count(), checker.max_depth()) == (golden, 37)
     assert sorted(checker.discoveries()) == ["value chosen"]
+
+
+# --- raft (K11) ------------------------------------------------------------------
+
+
+def _sorted_slots(rows):
+    """``rows`` with each row's 24 envelope slots in the codec's order:
+    nonzero codes ascending by (w0, w1), then zero pairs."""
+    u = np.uint64
+    rows = rows.astype(u)
+    w0 = rows[:, rc.NET0 : rc.NONFP0 : 2]
+    w1 = rows[:, rc.NET0 + 1 : rc.NONFP0 : 2]
+    key = np.sort(np.where(w0 == 0, u(2**64 - 1), (w0 << u(32)) | w1), axis=1)
+    empty = key == u(2**64 - 1)
+    rows[:, rc.NET0 : rc.NONFP0 : 2] = np.where(empty, 0, key >> u(32))
+    rows[:, rc.NET0 + 1 : rc.NONFP0 : 2] = np.where(empty, 0, key & u(0xFFFFFFFF))
+    return rows.astype(np.uint32)
+
+
+def raft_fuzz_rows(rng, n):
+    """Random packed raft rows: random node records and delivered/buffer
+    words, timer bits with a node crashed now and then, and up to 24
+    envelopes of random fields and suffixes (tags 0..7, a few codes with
+    stray high bits), some repeated, in the codec's slot order."""
+    u = np.uint64
+    m = rc.NET_SLOTS
+    rows = rng.integers(0, 2**32, size=(n, rc.W), dtype=u)
+    rows[:, 1 : 2 * rc.N : 2] &= u((1 << 24) - 1)
+    crashed = (rng.random((n, rc.N)) < 0.15).astype(u) << (u(6) + np.arange(rc.N, dtype=u))
+    rows[:, 2 * rc.N] = rng.integers(0, 64, size=n, dtype=u) | crashed.sum(1)
+    tag = np.where(rng.random((n, m)) < 0.9, rng.integers(1, 6, size=(n, m)),
+                   rng.integers(0, 8, size=(n, m))).astype(u)
+    w0 = tag | (rng.integers(0, 1 << 20, size=(n, m), dtype=u) << u(3))
+    stray = rng.random((n, m)) < 0.05
+    w0[stray] |= rng.integers(1, 1 << 9, size=int(stray.sum()), dtype=u) << u(23)
+    w1 = np.where(rng.random((n, m)) < 0.9, rng.integers(0, 1 << 20, size=(n, m), dtype=u),
+                  rng.integers(0, 2**32, size=(n, m), dtype=u))
+    count = rng.integers(0, m + 1, size=(n, 1))
+    count[rng.random((n, 1)) < 0.2] = m
+    dup = rng.random((n, m)) < 0.15
+    w0[:, 1:][dup[:, 1:]] = w0[:, :-1][dup[:, 1:]]
+    w1[:, 1:][dup[:, 1:]] = w1[:, :-1][dup[:, 1:]]
+    keep = np.arange(m)[None, :] < count
+    rows[:, rc.NET0 : rc.NONFP0 : 2] = np.where(keep, w0, 0)
+    rows[:, rc.NET0 + 1 : rc.NONFP0 : 2] = np.where(keep, w1, 0)
+    rows[:, rc.NONFP0 :] &= u((1 << 21) - 1)
+    return _sorted_slots(rows)
+
+
+def raft_hazard_rows(rows):
+    """Rows on the branches a short run never takes, made from ``rows``
+    (uint32[N, W]): every LogRequest's prefix_len at 0 against full logs;
+    delivered messages at DELIV_CAP and full buffers; terms at TERM_CAP
+    (an election's next term overflows); every node crashed; the network
+    filled to 24 slots with runs of equal codes."""
+    u = np.uint32
+    out = []
+    full = rows.copy()
+    for i in range(rc.N):
+        full[:, 2 * i] &= ~u(7 << rc._F_LOGLEN[0])
+        full[:, 2 * i] |= u(rc.LOG_CAP << rc._F_LOGLEN[0]) | u(0b01011 << rc._LOG0)
+    net = full[:, rc.NET0 : rc.NONFP0 : 2]
+    net[(net & u(7)) == u(rc._T_LOG_REQ)] &= ~u(7 << 10)
+    full[:, rc.NET0 : rc.NONFP0 : 2] = net
+    out.append(full)
+    deliv = rows.copy()
+    nonfp = deliv[:, rc.NONFP0 :]
+    deliv[:, rc.NONFP0 :] = (nonfp & ~u(7 | (3 << 13))) | u(rc.DELIV_CAP | (rc.BUF_CAP << 13))
+    out.append(deliv)
+    terms = rows.copy()
+    terms[:, 0 : 2 * rc.N : 2] |= u(rc.TERM_CAP)
+    out.append(terms)
+    down = rows.copy()
+    down[:, 2 * rc.N] |= u(7 << (2 * rc.N))
+    out.append(down)
+    packed = rows.copy()
+    w0 = packed[:, rc.NET0 : rc.NONFP0 : 2]
+    w1 = packed[:, rc.NET0 + 1 : rc.NONFP0 : 2]
+    for j in range(1, rc.NET_SLOTS):
+        empty = w0[:, j] == 0
+        w0[empty, j] = w0[empty, j - 1]
+        w1[empty, j] = w1[empty, j - 1]
+    packed[:, rc.NET0 : rc.NONFP0 : 2] = w0
+    packed[:, rc.NET0 + 1 : rc.NONFP0 : 2] = w1
+    out.append(packed)
+    return _sorted_slots(np.concatenate(out))
+
+
+RAFT_GEOMETRY = dict(capacity=1 << 15, max_frontier=1 << 8)
+
+
+def _raft(depth):
+    return RaftModelCfg(server_count=3).into_model().checker().target_max_depth(depth)
+
+
+def test_device_fp64_hashes_a_row_prefix_in_place():
+    """A column prefix of wider rows (the identity prefix of a row log)
+    fingerprints as the same words copied out: the twin on the CPU, the
+    strided K1 where a card is present (test_cuda_device_fp64_prefix)."""
+    rows = _t(raft_fuzz_rows(np.random.default_rng(31), 500), "cpu")
+    for k, p in zip(device_fp64(rows[:, : rc.NONFP0]),
+                    device_fp64_plain(rows[:, : rc.NONFP0].contiguous())):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_cuda_device_fp64_prefix_matches_twin():
+    """The strided K1 on the identity prefix ``rows[:, :55]`` of 58-word
+    rows (and on every other prefix width) against the twin on a copy."""
+    dev = _card()
+    rows = _t(raft_fuzz_rows(np.random.default_rng(32), 70_000), dev)
+    for width in (1, 7, rc.NONFP0, rc.W):
+        view = rows[:, :width]
+        for k, p in zip(device_fp64(view), device_fp64_plain(view.contiguous())):
+            assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_cuda_raft_step_matches_twin():
+    """K11 against its twin (both on the card) on the rows of the port's
+    CPU run to depth 6, on hazard rows made from them and on fuzzed rows:
+    successors, validity, conds and the overflow flag, bit for bit; the
+    flag also a state at a time, on fuzzed rows that flag and rows that do
+    not."""
+    dev = _card()
+    run = _raft(6).spawn_gpu(device="cpu", **RAFT_GEOMETRY).join()
+    reached = run._carry.rows[: run._carry.tail * rc.W].view(-1, rc.W)
+    hazard = raft_hazard_rows(reached.numpy().view(np.uint32))
+    fuzz = _t(raft_fuzz_rows(np.random.default_rng(33), 20_000), dev)
+    for rows in (reached.to(dev), _t(hazard, dev), fuzz):
+        got = rc.raft_step(rows, 1)
+        want = rc.raft_step_plain(rows, 1)
+        for g, p in zip(got, want):
+            assert torch.equal(g, p)
+    nexts, valid, flags = rc.raft_lanes_plain(fuzz, 1)
+    flags = (flags & valid).any(dim=1)
+    flagged = torch.nonzero(flags).flatten()
+    assert flagged.numel()
+    picked = torch.cat([flagged[:32], torch.nonzero(~flags).flatten()[:32]])
+    for i in picked.tolist():
+        assert bool(rc.raft_step(fuzz[i : i + 1], 1)[3]) == bool(flags[i])
+
+
+@pytest.mark.cuda
+def test_cuda_raft_engine_matches_cpu_run(tmp_path):
+    """``raft check`` to depth 6 on the card, bit-equal to the CPU run:
+    4,933 unique / 13,840 states, row log, parents, ebits, fingerprints."""
+    _card()
+    gpu = _raft(6).spawn_gpu(device="cuda", **RAFT_GEOMETRY).join()
+    cpu = _raft(6).spawn_gpu(device="cpu", **RAFT_GEOMETRY).join()
+    assert (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth()) == (
+        4_933, 13_840, 6
+    )
+    g = _logs(gpu, tmp_path / "gpu.npz", rc.W)
+    c = _logs(cpu, tmp_path / "cpu.npz", rc.W)
+    for a, b in zip(g, c):
+        assert np.array_equal(a, b)
+    assert np.array_equal(gpu.discovered_fingerprints(), cpu.discovered_fingerprints())
+    assert sorted(gpu.discoveries()) == ["Election Liveness"]
+
+
+@pytest.mark.cuda
+def test_cuda_raft_depth_10_golden():
+    """``raft check`` to depth 10 on one card: 844,999 unique / 2,525,995
+    states, the JAX engine's count on its claim path at this geometry, and
+    the three discoveries."""
+    _card()
+    checker = _raft(10).spawn_gpu(
+        capacity=1 << 21, max_frontier=1 << 12, dedup_factor=1,
+    ).join()
+    assert (checker.unique_state_count(), checker.state_count(),
+            checker.max_depth()) == (844_999, 2_525_995, 10)
+    assert sorted(checker.discoveries()) == [
+        "Election Liveness", "Election Safety", "Log Liveness",
+    ]
