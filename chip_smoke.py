@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the eleven CUDA kernels of ``stateright_tpu_torch/csrc``
+1. build: compile the fourteen CUDA kernels of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -22,9 +22,9 @@ Phases, in order; any failure exits non-zero:
    K1-K4 and K8 launched, the discoveries' paths re-executed on the host;
 5. ``paxos check 2`` through ``spawn_gpu()``: 16,668 unique / 32,971
    states / depth 21, bit-equal to the port's CPU run;
-6. ``paxos check 3`` through ``spawn_gpu()`` (two-phase expansion): the
-   golden 1,194,428 unique at depth 28, K1 and K3-K8 launched, the
-   discoveries re-executed on the host;
+6. ``paxos check 3`` through ``spawn_gpu()`` (two-phase expansion, at
+   ``dedup_factor=1``): the golden 1,194,428 unique at depth 28, K1 and
+   K3-K8 launched, the discoveries re-executed on the host;
 7. the kernels of the ``paxos check 3`` path (K1, K3-K8) against their
    twins on one real wave of that run, replayed from the card's own row
    log -- the first wave of its widest level, against a table rebuilt as
@@ -35,9 +35,9 @@ Phases, in order; any failure exits non-zero:
    time to it;
 9. ``paxos check 6`` to depth 6 through ``spawn_gpu()`` (64 slots, the
    DP a warp a state): 1,227 unique, bit-equal to the port's CPU run;
-10. ``paxos check 6`` (bench.sh:28) through ``spawn_gpu()``: the golden
-    9,357,525 unique at depth 28, K1 and K3-K8 launched, ``value chosen``
-    re-executed on the host;
+10. ``paxos check 6`` (bench.sh:28) through ``spawn_gpu()`` (at
+    ``dedup_factor=1``): the golden 9,357,525 unique at depth 28, K1 and
+    K3-K8 launched, ``value chosen`` re-executed on the host;
 11. the ``paxos check 6`` path's kernels against their twins on one real
     wave of that run, as phase 7 does for ``check 3``;
 12. the single-copy register: 3 clients / 1 server (4,243 / 6,778 /
@@ -69,8 +69,9 @@ Phases, in order; any failure exits non-zero:
     (844,999 / 2,525,995, the JAX engine's count on its claim path at
     this geometry) at two chunk sizes, bit-equal to each other;
 20. the reference's default ``raft check`` (``target_max_depth(12)``)
-    through ``spawn_gpu()``: unique states within the JAX package's band
-    12,550,000-12,650,000 at depth 12, discoveries ``Election Liveness``,
+    through ``spawn_gpu()``: 12,630,223 unique / 38,569,420 states at
+    depth 12, the JAX engine's own count at ``dedup_factor=1`` (its CPU
+    run, PERF.md), discoveries ``Election Liveness``,
     ``Log Liveness`` and ``Election Safety`` (its path re-executed on the
     host ends in two leaders of one term) and not ``State Machine
     Safety``, K1, K3, K4, K8 and K11 launched; the same run at a quarter
@@ -78,7 +79,35 @@ Phases, in order; any failure exits non-zero:
 21. the ``raft check`` path's kernels (K1 on the 55-word identity prefix,
     K3, K4, K8, K11) against their twins on one real wave of that run,
     replayed as in phase 7; the wave must append what the run appended;
-22. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+22. lossy ping-pong at ``max_nat`` 13 (K13, the duplicating network's
+    Deliver and Drop lanes, the device boundary) through ``spawn_gpu()``
+    on the claim path at the widest geometry the codec allows:
+    268,435,454 unique / 3,556,769,793 states (past 2**32) / depth 54,
+    the three discoveries; then its kernels against their twins on one
+    real wave of that run, replayed as in phase 7;
+23. lossy ping-pong at ``max_nat`` 11 at the default ``dedup_factor``:
+    the full buffer's flag 4 falls back to the sorted dedup path
+    (``sortless=0``, K12) and then relaxes to ``dedup_factor=1`` at 8,192
+    states a chunk, as the JAX engine's rules do at these arguments;
+    16,777,214 / 188,743,681 / depth 46; then its kernels, K12 among them,
+    against their twins on one real wave of its sorted path, and K12 on
+    fuzzed batches (hi >= 2**31, the all-ones key, all duplicates, no
+    active lane, sizes up to 2**22 that are no power of two);
+24. the reference's ping-pong goldens (14 lossy at ``max_nat`` 1, 11
+    lossless at 5, 4,094 lossy at 5) and lossy ``max_nat`` 6 at 4,096
+    states a chunk, which falls back to the sorted path, each bit-equal
+    to the port's CPU run;
+25. bounded paxos, single-phase through K14: ``paxos check 3`` at
+    ``max_round=3`` (1,194,428 / 2,420,477 / depth 28, its row log held
+    against the two-phase run's of phase 6), its kernels against their
+    twins on one real wave, c=4 at ``max_round=2`` (435,244 / 867,663 /
+    depth 25) and c=2 at ``max_round=1`` bit-equal to the CPU run;
+26. raft to depth 10 at the default ``dedup_factor`` (the sorted path
+    under a partial identity: 844,936 / 2,525,950, the JAX engine's
+    count), its kernels, K12 among them, against their twins on one real
+    wave of its sorted path, and raft to depth 7, the shallowest depth
+    past the fallback, bit-equal to the CPU run;
+27. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -119,23 +148,43 @@ GOLDEN_ABD3 = (35_009, 37)
 GOLDEN_ABD3O = (46_516, 37)
 GOLDEN_RAFT_D6 = (4_933, 13_840, 6)
 GOLDEN_RAFT_D10 = (844_999, 2_525_995, 10)
-# tests/test_raft_tpu.py:182-190: the JAX package's band for raft check.
-RAFT_BAND = (12_550_000, 12_650_000)
+# The JAX engine's raft check at dedup_factor=1 (its CPU run, PERF.md).
+GOLDEN_RAFT = (12_630_223, 38_569_420, 12)
 RAFT_FOUND = ["Election Liveness", "Election Safety", "Log Liveness"]
+# Lossy ping-pong: unique 4**(n+1) - 2, states n * 4**(n+1) + 4**n + 1,
+# depth 4n + 2 (the JAX engine's counts through n = 11).
+GOLDEN_PP13 = (268_435_454, 3_556_769_793, 54)
+GOLDEN_PP11 = (16_777_214, 188_743_681, 46)
+PP_FOUND = ["can reach max", "must exceed max", "must reach max"]
+# What the JAX engine's flag-4 rules write at PP11S_GEOMETRY: the claim
+# path's full buffer (425,984 lanes) falls back to the sorted path, whose
+# overflow relaxes to dedup_factor=1, halving the chunk to the band.
+PP11S_NOTES = [
+    "sortless=0",
+    "dedup_factor=1; max_frontier=32768; max_frontier=16384; max_frontier=8192",
+]
+GOLDEN_PAXOS3B = (1_194_428, 2_420_477, 28)
+GOLDEN_PAXOS4B = (435_244, 867_663, 25)
+GOLDEN_PAXOS2B = (1_834, 3_535, 18)
+GOLDEN_RAFT10S = (844_936, 2_525_950, 10)
+GOLDEN_RAFT7S = (17_317, 50_269, 7)
 # paxos check 3: 1,194,428 states fill a 2**22-slot table to 0.28 and a
 # 2**21-position log to 0.57; a wave expands 2**16 states (2**21 lanes) into
-# a compaction buffer of 2**21 / 4 lanes, about five times the valid lanes
-# of the widest wave.
+# a buffer as wide as the candidates.  (At dedup_factor=4 the JAX band,
+# 262,144 lanes at 42 words, would halve the chunk; the run never
+# overflows, so at 1 it writes the same log at the full chunk.)
 PAXOS3_GEOMETRY = dict(
     capacity=1 << 22, log_capacity=1 << 21, max_frontier=1 << 16,
-    dedup_factor=4,
+    dedup_factor=1,
 )
 # paxos check 6: 9,357,525 states fill a 2**25-slot table to 0.28 and a
 # 2**24-position log (5.2 GB of rows) to 0.56; a wave expands 2**17 states
-# (2**23 lanes, 64 a state) into a 2**21-lane compaction buffer.
+# (2**23 lanes, 64 a state) into a buffer as wide as the candidates (at
+# dedup_factor=4 the band, 142,987 lanes at 77 words, would cut the chunk
+# to 8,192 states).
 PAXOS6_GEOMETRY = dict(
     capacity=1 << 25, log_capacity=1 << 24, max_frontier=1 << 17,
-    dedup_factor=4,
+    dedup_factor=1,
 )
 # single-copy-register check 4: 400,233 states in a 2**21-slot table (load
 # 0.19); a wave expands 2**16 states (2**19 lanes, 8 a state) into a
@@ -155,6 +204,22 @@ RAFT_GEOMETRY = dict(
     capacity=1 << 25, log_capacity=14_000_000, max_frontier=1 << 16,
     dedup_factor=1,
 )
+# Lossy ping-pong at max_nat 13, the codec's widest: 268M states in the
+# port's largest table (2**30 slots, load 0.25; 16 GB of key and election
+# planes) and a 2**28-position log (4.3 GB with parents and ebits); a wave
+# expands 2**16 states into 3.9M candidate lanes, a buffer as wide.
+PP13_GEOMETRY = dict(
+    capacity=1 << 30, log_capacity=1 << 28, max_frontier=1 << 16,
+    dedup_factor=1,
+)
+# Lossy ping-pong at max_nat 11 at the default dedup_factor (8): 16.8M
+# states in a 2**26-slot table (load 0.25); the 425,984-lane buffer
+# overflows mid-run and the sorted path takes over.
+PP11S_GEOMETRY = dict(capacity=1 << 26, max_frontier=1 << 16)
+# Bounded paxos check 3: the two-phase run's geometry, single-phase.
+PAXOS3B_GEOMETRY = dict(capacity=1 << 22, max_frontier=1 << 16, dedup_factor=1)
+# raft to depth 10 at the default dedup_factor: the sorted path.
+RAFT10S_GEOMETRY = dict(capacity=1 << 21, max_frontier=1 << 12)
 SEED = 20261017
 
 KERNELS = {
@@ -181,6 +246,12 @@ KERNELS = {
                  "stateright_tpu/models/abd_compiled.py:465"),
     "raft_step": ("stateright_tpu_torch/csrc/raft_step.cu",
                   "stateright_tpu/models/raft_compiled.py:418"),
+    "prededup": ("stateright_tpu_torch/csrc/prededup.cu",
+                 "stateright_tpu/parallel/hashset.py:232"),
+    "ping_pong_step": ("stateright_tpu_torch/csrc/ping_pong_step.cu",
+                       "stateright_tpu/models/ping_pong_compiled.py:138"),
+    "paxos_step": ("stateright_tpu_torch/csrc/paxos_step.cu",
+                   "stateright_tpu/models/paxos_compiled.py:541"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -198,6 +269,14 @@ PATH_KERNELS = {
               "wave_eval"),
     "raft": ("device_fp64", "raft_step", "compact", "insert_batch_claim",
              "wave_eval"),
+    "pp13": ("device_fp64", "ping_pong_step", "compact", "insert_batch_claim",
+             "wave_eval"),
+    "pp11s": ("device_fp64", "ping_pong_step", "compact", "insert_batch_claim",
+              "wave_eval", "prededup"),
+    "paxos3b": ("device_fp64", "compact", "insert_batch_claim", "paxos_step",
+                "paxos_conds", "wave_eval"),
+    "raft10s": ("device_fp64", "raft_step", "compact", "insert_batch_claim",
+                "wave_eval", "prededup"),
 }
 
 
@@ -460,18 +539,20 @@ def kernel_row(rows, path):
 def launch_counted():
     from stateright_tpu_torch.models.abd_compiled import abd_step
     from stateright_tpu_torch.models.paxos_compiled import (
-        paxos_conds, paxos_step_lane, paxos_step_valid,
+        paxos_conds, paxos_step, paxos_step_lane, paxos_step_valid,
     )
+    from stateright_tpu_torch.models.ping_pong_compiled import ping_pong_step
     from stateright_tpu_torch.models.raft_compiled import raft_step
     from stateright_tpu_torch.models.single_copy_compiled import single_copy_step
     from stateright_tpu_torch.models.twophase_compiled import twophase_step
     from stateright_tpu_torch.ops.device_fp import device_fp64
-    from stateright_tpu_torch.parallel.hashset import insert_batch_claim
+    from stateright_tpu_torch.parallel.hashset import insert_batch_claim, prededup
     from stateright_tpu_torch.parallel.wave_common import compact, wave_eval
 
     return (device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
-            single_copy_step, abd_step, raft_step)
+            single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
+            paxos_step)
 
 
 def reset_launches():
@@ -714,7 +795,8 @@ def phase_paxos_kernels(torch, checker, rows, path, geometry):
     size = unique_buffer_size(geometry["max_frontier"] * m,
                               geometry["dedup_factor"])
     gated = k8[0].view(-1)
-    v_orig, v_act, n_valid = compact_valid_indices(gated, size)
+    v_orig, v_act, n_valid = compact_valid_indices(gated, sort_lanes=size)
+    size = v_orig.shape[0]  # the buffer of this wave (a short chunk's is narrower)
     n = int(n_valid)
     if n > size:
         raise AssertionError(f"{n} valid lanes overflow the {size}-lane buffer")
@@ -989,18 +1071,23 @@ def phase_abd3o_kernels(torch, checker, rows):
 
 
 def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
-                               step, step_plain, codec):
-    """A single-phase path's kernels -- its model's fused step ``name``
-    (``step``, twin ``step_plain``), K8, K1, K3 and K4 -- against their
-    twins on one real wave of its run (:func:`replay_wave`), called as the
-    single-phase wave calls them (K1 on each row's identity prefix); the
-    wave must append what the run did.  The step's operation count is the
-    DP's (``codec``'s tester words; no codec, no DP: bound by bytes)."""
+                               step, step_plain, codec, conds=None):
+    """A single-phase path's kernels -- its model's step ``name``
+    (``step``, twin ``step_plain``), K8, K1, K3 and K4, and K12 where the
+    run ended on the sorted path -- against their twins on one real wave
+    of its run (:func:`replay_wave`), called as the single-phase wave
+    calls them (K1 on each row's identity prefix); the wave must append
+    what the run did.  ``step`` returns ``(nexts, valid, conds, flag)``,
+    or with ``conds`` -- ``(name, fn, plain)`` of a separate conds kernel
+    -- ``(nexts, valid, flag)``.  The step's operation count is the DP's
+    (``codec``'s tester words; no codec, no DP: bound by bytes), charged
+    to the conds kernel when there is one.  ``geometry`` is the chunk and
+    ``dedup_factor`` the run ended at."""
     from stateright_tpu_torch.models.register_compiled_common import dp_work
     from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
     from stateright_tpu_torch.ops.u32 import u32
     from stateright_tpu_torch.parallel.hashset import (
-        compact_valid, unique_buffer_size,
+        compact_valid, prededup, prededup_plain, unique_buffer_size,
     )
     from stateright_tpu_torch.parallel.wave_common import (
         prop_kinds, wave_eval, wave_eval_plain,
@@ -1019,12 +1106,25 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     p_step = step_plain(states)
     torch.cuda.synchronize()
     dp_ops = 0 if codec is None else int(dp_work(codec, u32(states)).sum())
-    n_props = k_step[2].shape[1]
+    if conds is None:
+        nexts, valid, cond_t = k_step[:3]
+    else:
+        nexts, valid = k_step[:2]
+        c_name, c_fn, c_plain = conds
+        cond_t = c_fn(states)
+        p_cond = c_plain(states)
+        torch.cuda.synchronize()
+        row(c_name, max_abs_err(torch, [(cond_t, p_cond)]),
+            time_ms(torch, lambda: c_fn(states), 10),
+            time_ms(torch, lambda: c_plain(states), 2),
+            f * w * 4 + cond_t.numel(), ops=dp_ops)
+        dp_ops = 0
+    n_props = cond_t.shape[1]
     row(name, max_abs_err(torch, zip(k_step, p_step)),
         time_ms(torch, lambda: step(states), 10),
         time_ms(torch, lambda: step_plain(states), 2),
-        f * w * 4 + f * m * (w * 4 + 1) + f * n_props + 4, ops=dp_ops)
-    nexts, valid, conds, _flag = k_step
+        f * w * 4 + f * m * (w * 4 + 1) + (f * n_props if conds is None else 1),
+        ops=dp_ops)
     del p_step
     log(f"  {name}: {int(valid.sum())} of {f * m} lanes valid")
 
@@ -1034,13 +1134,13 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     def fresh():
         gated.copy_(valid)
 
-    k8 = wave_eval(conds, gated, eb, start, kinds, discovered)
-    p8 = wave_eval_plain(conds, valid.clone(), eb, start, kinds, discovered)
+    k8 = wave_eval(cond_t, gated, eb, start, kinds, discovered)
+    p8 = wave_eval_plain(cond_t, valid.clone(), eb, start, kinds, discovered)
     torch.cuda.synchronize()
     row("wave_eval", max_abs_err(torch, zip(k8, p8)),
-        time_ms(torch, lambda: wave_eval(conds, gated, eb, start, kinds,
+        time_ms(torch, lambda: wave_eval(cond_t, gated, eb, start, kinds,
                                          discovered), 10, setup=fresh),
-        time_ms(torch, lambda: wave_eval_plain(conds, valid, eb, start, kinds,
+        time_ms(torch, lambda: wave_eval_plain(cond_t, valid, eb, start, kinds,
                                                discovered), 2),
         f * n_props + 2 * f * m + 2 * f * 4 + n_props * 8)
 
@@ -1059,18 +1159,46 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     size = unique_buffer_size(geometry["max_frontier"] * m,
                               geometry["dedup_factor"])
     lane_valid = k8[0].view(-1)
+    v_hi, v_lo, v_orig, v_act, _n_valid = compact_valid(
+        *k1, lane_valid, sort_lanes=size)
+    size = v_orig.shape[0]  # the buffer of this wave
     k3_valid = measure_compact(torch, lane_valid, size)
-    v_hi, v_lo, v_orig, v_act, _n_valid = compact_valid(*k1, lane_valid, size)
     if k3_valid[0] or not (k3_valid[5] == v_orig).all():
         raise AssertionError("compact_valid disagrees with its twin")
-    k_new = check_insert(torch, row, table, v_hi, v_lo, v_act)
+    if checker._sortless:
+        k_new = check_insert(torch, row, table, v_hi, v_lo, v_act)
+        origin = None
+    else:
+        # The sorted path: K12 (+ K3) elects each key's lowest lane in
+        # sorted-key order, then K4 inserts the representatives.
+        got = prededup(v_hi, v_lo, v_act, 1)
+        want = prededup_plain(v_hi, v_lo, v_act, 1)
+        torch.cuda.synchronize()
+        n_act = int(v_act.sum())
+        n_rep = int(got[3].sum())
+        skey = v_hi.long() * (1 << 32) + (v_lo.long() & 0xFFFFFFFF)
+        # Each input lane's key, lane and active flag read once; each
+        # representative's key, origin and filled flag written once.
+        row("prededup", max_abs_err(torch, zip(got, want)),
+            time_ms(torch, lambda: prededup(v_hi, v_lo, v_act, 1), 10),
+            time_ms(torch, lambda: prededup_plain(v_hi, v_lo, v_act, 1), 2),
+            size * (4 + 4 + 1) + size * (4 + 4 + 4 + 1),
+            library_ms=time_ms(
+                torch, lambda: torch.sort(skey ^ (-(1 << 63)), stable=True), 10))
+        log(f"  prededup: {n_act} active lanes of a {size}-lane buffer, "
+            f"{n_rep} distinct keys")
+        u_hi, u_lo, origin, u_act, _ovf = got
+        k_new = check_insert(torch, row, table, u_hi, u_lo, u_act)
     n_new = int(k_new.sum())
-    k3_new = measure_compact(torch, k_new, size)
+    k3_new = measure_compact(torch, k_new, k_new.shape[0])
     (e1, t1, q1, l1, b1, _), (e2, t2, q2, l2, b2, sel) = k3_valid, k3_new
     row("compact", e1 + e2, (t1 + t2) / 2, (q1 + q2) / 2, (b1 + b2) / 2,
         library_ms=(l1 + l2) / 2)
 
-    idxs = v_orig[sel[:n_new].long()].long()
+    lanes = sel[:n_new].long()
+    if origin is not None:
+        lanes = origin[lanes].long()
+    idxs = v_orig[lanes].long()
     check_appends(torch, carry, appended, cand_rows[idxs], idxs, m, start, k8[1])
 
 
@@ -1184,17 +1312,18 @@ def phase_raft_prefix(torch):
 
 def run_raft(torch):
     """The reference's default ``raft check`` (``target_max_depth(12)``)
-    through ``spawn_gpu()`` at ``RAFT_GEOMETRY``, held to the JAX band and
-    discovery set; returns the joined checker and its wall seconds.
-    ``gpu_profile.py --model raft`` times and traces this same run."""
+    through ``spawn_gpu()`` at ``RAFT_GEOMETRY``, held to the JAX engine's
+    count and discovery set; returns the joined checker and its wall
+    seconds.  ``gpu_profile.py --model raft`` times and traces this same
+    run."""
     torch.cuda.synchronize()
     t0 = time.monotonic()
     checker = raft_model().checker().target_max_depth(12).spawn_gpu(
         **RAFT_GEOMETRY).join()
     elapsed = time.monotonic() - t0
-    unique, depth = checker.unique_state_count(), checker.max_depth()
-    if not (RAFT_BAND[0] < unique < RAFT_BAND[1] and depth == 12):
-        raise AssertionError(f"raft check ({unique}, {depth}) outside the band")
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != GOLDEN_RAFT:
+        raise AssertionError(f"raft check {got} != {GOLDEN_RAFT}")
     if sorted(checker.discoveries()) != RAFT_FOUND:
         raise AssertionError(f"raft check found {sorted(checker.discoveries())}")
     return checker, elapsed
@@ -1248,6 +1377,265 @@ def phase_raft_kernels(torch, checker, rows):
         torch, checker, rows, "raft", RAFT_GEOMETRY, "raft_step",
         lambda states: raft_step(states, crashes),
         lambda states: raft_step_plain(states, crashes), None)
+
+
+def ping_pong_model(max_nat, lossy=True):
+    from stateright_tpu_torch.models.ping_pong import PingPongCfg
+
+    return PingPongCfg(False, max_nat).into_model().lossy_network_(lossy)
+
+
+def run_ping_pong(torch, max_nat, geometry, golden=None):
+    """Lossy ping-pong at ``max_nat`` through ``spawn_gpu()`` at
+    ``geometry``, held to ``golden`` (when given) and the three
+    discoveries; returns the joined checker and its wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = ping_pong_model(max_nat).checker().spawn_gpu(**geometry).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if golden is not None and got != golden:
+        raise AssertionError(f"ping-pong max_nat {max_nat} {got} != {golden}")
+    if sorted(checker.discoveries()) != PP_FOUND:
+        raise AssertionError(f"ping-pong found {sorted(checker.discoveries())}")
+    return checker, elapsed
+
+
+def run_pp13(torch):
+    """Lossy ping-pong at ``max_nat`` 13 on the claim path, held to the
+    closed form by :func:`phase_pp13_collisions` (the 64-bit fingerprint
+    merges a few of its states); ``gpu_profile.py --model pp13`` times and
+    traces this same run."""
+    return run_ping_pong(torch, 13, PP13_GEOMETRY)
+
+
+def phase_pp13_collisions(torch, checker):
+    """The pp13 run against the closed form.  Every valid successor of
+    every logged state is fingerprinted (K13, K1) and looked up among the
+    log's fingerprints: each must be there (the search is complete), and
+    a successor whose words differ from the logged row of its fingerprint
+    is a state the 64-bit fingerprint merged into another.  The run must
+    be the closed form less exactly those states: unique by their number,
+    states by their valid successors, the same depth."""
+    from stateright_tpu_torch.models.ping_pong_compiled import ping_pong_step
+    from stateright_tpu_torch.ops.device_fp import device_fp64, fp64_of
+
+    cm = checker._compiled
+    carry = checker._carry
+    n = carry.tail
+    rows = carry.rows[: 2 * n].view(n, 2)
+    skey, perm = torch.sort(fp64_of(*device_fp64(rows)))
+    if (skey[1:] == skey[:-1]).any():
+        raise AssertionError("pp13: two logged rows share a fingerprint")
+    lost = []
+    for start in range(0, n, 1 << 20):
+        chunk = rows[start : start + (1 << 20)]
+        nexts, valid, _conds = ping_pong_step(chunk, cm.max_nat, cm.lossy)
+        cand = nexts.view(-1, 2)[valid.view(-1)]
+        key = fp64_of(*device_fp64(cand))
+        pos = torch.searchsorted(skey, key).clamp(max=n - 1)
+        if not (skey[pos] == key).all():
+            raise AssertionError("pp13: a successor's fingerprint is not in the log")
+        differs = (rows[perm[pos]] != cand).any(dim=1)
+        lost.append(cand[differs])
+    lost = torch.unique(torch.cat(lost), dim=0)
+    _nexts, lost_valid, _conds = ping_pong_step(lost, cm.max_nat, cm.lossy)
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    want = (GOLDEN_PP13[0] - lost.shape[0],
+            GOLDEN_PP13[1] - int(lost_valid.sum()), GOLDEN_PP13[2])
+    log(f"  pp13 against the closed form {GOLDEN_PP13}: {lost.shape[0]} states "
+        f"merged by a fingerprint collision with a logged state "
+        f"({[[hex(int(x) & 0xFFFFFFFF) for x in r] for r in lost.tolist()]}), "
+        f"{int(lost_valid.sum())} valid successors of theirs; run {got}, "
+        f"closed form less those {want}")
+    if got != want:
+        raise AssertionError(f"pp13 {got} != the closed form less the merged states {want}")
+
+
+def run_pp11s(torch):
+    """Lossy ping-pong at ``max_nat`` 11 at the default ``dedup_factor``,
+    through the sorted fallback, with the JAX rules' grow notes;
+    ``gpu_profile.py --model pp11s`` times and traces this same run."""
+    checker, elapsed = run_ping_pong(torch, 11, PP11S_GEOMETRY, GOLDEN_PP11)
+    if checker._grow_notes != PP11S_NOTES:
+        raise AssertionError(f"ping-pong max_nat 11 grew {checker._grow_notes}")
+    return checker, elapsed
+
+
+def final_geometry(checker, geometry):
+    """``geometry`` with the chunk and ``dedup_factor`` the run ended at."""
+    return dict(geometry, max_frontier=checker._max_frontier,
+                dedup_factor=checker._dedup_factor)
+
+
+def phase_ping_pong_kernels(torch, checker, rows, path, geometry):
+    """A ping-pong path's kernels against their twins on one real wave of
+    its run (:func:`phase_single_phase_kernels`)."""
+    from stateright_tpu_torch.models.ping_pong_compiled import (
+        ping_pong_step, ping_pong_step_plain,
+    )
+
+    cm = checker._compiled
+    phase_single_phase_kernels(
+        torch, checker, rows, path, final_geometry(checker, geometry),
+        "ping_pong_step",
+        lambda states: ping_pong_step(states, cm.max_nat, cm.lossy),
+        lambda states: ping_pong_step_plain(states, cm.max_nat, cm.lossy), None)
+
+
+def phase_ping_pong_goldens(torch):
+    """The reference's goldens and a run that falls back to the sorted
+    path, each bit-equal to the port's CPU run."""
+    for max_nat, lossy, kw, golden in (
+        (1, True, {}, (14, 21, 6)),
+        (5, False, {}, (11, 11, 11)),
+        (5, True, {}, (4_094, 21_505, 22)),
+        (6, True, dict(max_frontier=1 << 12), (16_382, 102_401, 26)),
+    ):
+        what = f"ping-pong max_nat {max_nat} {'lossy' if lossy else 'lossless'}"
+        gpu = card_and_cpu(what, ping_pong_model(max_nat, lossy).checker, golden,
+                           2, capacity=1 << 16, **kw)
+        if ("sortless=0" in gpu._grow_notes) != bool(kw):
+            raise AssertionError(f"{what} grew {gpu._grow_notes}")
+        log(f"  {what}: discoveries {sorted(gpu.discoveries())}, growths "
+            f"{gpu._grow_notes}")
+
+
+def phase_prededup_fuzz(torch):
+    """K12 (+ K3) against its twin on fuzzed batches: keys with hi >= 2**31
+    beside small ones, an active all-ones key (never a representative),
+    an all-duplicate batch, a batch with no active lane, and sizes that
+    are no power of two, up to 2**22 lanes; at dedup_factor 1 and 4 and a
+    256-lane rung."""
+    import numpy as np
+
+    from stateright_tpu_torch.ops.u32 import from_numpy_u32
+    from stateright_tpu_torch.parallel.hashset import prededup, prededup_plain
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    for n, pool, p in ((1, 1, 1.0), (37, 5, 0.9), (4097, 4097, 0.5),
+                       (100_003, 20_000, 0.8), ((1 << 22) - 3, 1 << 20, 0.6),
+                       (5000, 1, 1.0), (6000, 100, 0.0)):
+        keys = rng.integers(0, 1 << 63, size=pool, dtype=np.uint64)
+        keys[: pool // 2] |= np.uint64(1 << 63)
+        vals = keys[rng.integers(0, pool, size=n)]
+        vals[n // 2] = np.uint64(0xFFFFFFFFFFFFFFFF)
+        hi = from_numpy_u32((vals >> np.uint64(32)).astype(np.uint32), dev)
+        lo = from_numpy_u32(vals.astype(np.uint32), dev)
+        active = torch.from_numpy(rng.random(n) < p).to(dev)
+        for dd, rung in ((1, None), (4, None), (1, 256)):
+            got = prededup(hi, lo, active, dd, rung)
+            want = prededup_plain(hi, lo, active, dd, rung)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"prededup disagrees with its twin at n={n}, "
+                                     f"dedup_factor={dd}, sort_lanes={rung}")
+        log(f"  prededup: {n} lanes, {int(active.sum())} active, equal to the "
+            f"twin at three geometries")
+
+
+def bounded_paxos_model(c, max_round):
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+
+    return PaxosModelCfg(
+        c, 3, Network.new_unordered_nonduplicating(), max_round=max_round
+    ).into_model()
+
+
+def run_paxos3b(torch):
+    """``paxos check 3`` at ``max_round=3``, single-phase through K14;
+    ``gpu_profile.py --model paxos3b`` times and traces this same run."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = bounded_paxos_model(3, 3).checker().spawn_gpu(**PAXOS3B_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != GOLDEN_PAXOS3B:
+        raise AssertionError(f"bounded paxos check 3 {got} != {GOLDEN_PAXOS3B}")
+    return checker, elapsed
+
+
+def card_logs(checker):
+    """The run's row log, parents and ebits, copied on the card."""
+    c = checker._carry
+    w = checker._compiled.state_width
+    return (c.rows[: c.tail * w].clone(), c.parent[: c.tail].clone(),
+            c.ebits[: c.tail].clone())
+
+
+def phase_bounded_paxos(torch, checker, rows, two_phase_logs):
+    """The bounded run's log against the two-phase run's, its kernels
+    against their twins on one real wave, c=4 at ``max_round=2`` and c=2
+    at ``max_round=1`` against the CPU run."""
+    from stateright_tpu_torch.models.paxos_compiled import (
+        _codec, paxos_conds, paxos_conds_plain, paxos_step, paxos_step_plain,
+        state_width,
+    )
+
+    same = all(torch.equal(a, b) for a, b in zip(card_logs(checker), two_phase_logs))
+    log(f"  bounded paxos check 3: row log, parents and ebits "
+        f"{'equal to' if same else 'DIFFER from'} the two-phase run's")
+    if not same:
+        raise AssertionError("bounded paxos check 3 logs differ from the two-phase run's")
+    phase_single_phase_kernels(
+        torch, checker, rows, "paxos3b", PAXOS3B_GEOMETRY, "paxos_step",
+        lambda states: paxos_step(states, 3, 3),
+        lambda states: paxos_step_plain(states, 3, 3), _codec(3),
+        conds=("paxos_conds", lambda states: paxos_conds(states, 3, False),
+               lambda states: paxos_conds_plain(states, 3, False)))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    four = bounded_paxos_model(4, 2).checker().spawn_gpu(**PAXOS3B_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    got = (four.unique_state_count(), four.state_count(), four.max_depth())
+    log(f"  bounded paxos c=4 max_round=2: unique={got[0]} states={got[1]} "
+        f"depth={got[2]} waves={four.waves()} elapsed_s={elapsed:.3f}")
+    if got != GOLDEN_PAXOS4B:
+        raise AssertionError(f"bounded paxos c=4 {got} != {GOLDEN_PAXOS4B}")
+    four.assert_properties()
+    card_and_cpu("bounded paxos c=2 max_round=1",
+                 bounded_paxos_model(2, 1).checker, GOLDEN_PAXOS2B,
+                 state_width(2), capacity=1 << 13, max_frontier=1 << 8
+                 ).assert_properties()
+
+
+def run_raft10s(torch):
+    """raft to depth 10 at the default ``dedup_factor``: the sorted path
+    under raft's partial identity, at the JAX engine's count."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = raft_model().checker().target_max_depth(10).spawn_gpu(
+        **RAFT10S_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != GOLDEN_RAFT10S or "sortless=0" not in checker._grow_notes:
+        raise AssertionError(f"raft to depth 10 at the default dedup_factor "
+                             f"{got} != {GOLDEN_RAFT10S} (growths "
+                             f"{checker._grow_notes})")
+    if sorted(checker.discoveries()) != RAFT_FOUND:
+        raise AssertionError(f"raft to depth 10 found {sorted(checker.discoveries())}")
+    return checker, elapsed
+
+
+def phase_raft_sorted(torch, checker, rows):
+    """raft to depth 10 on the sorted path: its kernels against their
+    twins on one real wave; raft to depth 7, the shallowest run past the
+    fallback, bit-equal to the CPU run."""
+    from stateright_tpu_torch.models.raft_compiled import (
+        W, raft_step, raft_step_plain,
+    )
+
+    crashes = checker._compiled.max_crashes
+    phase_single_phase_kernels(
+        torch, checker, rows, "raft10s", final_geometry(checker, RAFT10S_GEOMETRY),
+        "raft_step", lambda states: raft_step(states, crashes),
+        lambda states: raft_step_plain(states, crashes), None)
+    gpu = card_and_cpu("raft to depth 7 (sorted path)",
+                       lambda: raft_model().checker().target_max_depth(7),
+                       GOLDEN_RAFT7S, W, **RAFT10S_GEOMETRY)
+    if "sortless=0" not in gpu._grow_notes:
+        raise AssertionError(f"raft to depth 7 grew {gpu._grow_notes}")
 
 
 def main() -> int:
@@ -1304,6 +1692,7 @@ def main() -> int:
     log("phase 7: the paxos check 3 path's kernels against their twins on "
         "one of its waves")
     phase_paxos_kernels(torch, checker, rows, "paxos3", PAXOS3_GEOMETRY)
+    paxos3_logs = card_logs(checker)  # held against the bounded run's
     del checker
     torch.cuda.empty_cache()
 
@@ -1368,6 +1757,45 @@ def main() -> int:
     log("phase 21: the raft check path's kernels against their twins on one "
         "of its waves")
     phase_raft_kernels(torch, checker, rows)
+    del checker
+    torch.cuda.empty_cache()
+
+    log("phase 22: lossy ping-pong at max_nat 13 on the card, and its kernels "
+        "against their twins on one of its waves")
+    launches["pp13"], checker = run_full(torch, gpu, "pp13", run_pp13,
+                                         properties_hold=False)
+    checker._carry.table = None  # the replay rebuilds its own
+    torch.cuda.empty_cache()
+    phase_pp13_collisions(torch, checker)
+    torch.cuda.empty_cache()
+    phase_ping_pong_kernels(torch, checker, rows, "pp13", PP13_GEOMETRY)
+    del checker
+    torch.cuda.empty_cache()
+
+    log("phase 23: lossy ping-pong at max_nat 11 through the sorted fallback, "
+        "and its kernels against their twins on one of its waves")
+    launches["pp11s"], checker = run_full(torch, gpu, "pp11s", run_pp11s,
+                                          properties_hold=False)
+    log(f"  pp11s growths: {checker._grow_notes}")
+    phase_ping_pong_kernels(torch, checker, rows, "pp11s", PP11S_GEOMETRY)
+    del checker
+    torch.cuda.empty_cache()
+    phase_prededup_fuzz(torch)
+
+    log("phase 24: the reference's ping-pong goldens against the CPU runs")
+    phase_ping_pong_goldens(torch)
+
+    log("phase 25: bounded paxos, single-phase through K14")
+    launches["paxos3b"], checker = run_full(torch, gpu, "paxos3b", run_paxos3b)
+    phase_bounded_paxos(torch, checker, rows, paxos3_logs)
+    del checker, paxos3_logs
+    torch.cuda.empty_cache()
+
+    log("phase 26: raft to depth 10 on the sorted path")
+    launches["raft10s"], checker = run_full(torch, gpu, "raft10s", run_raft10s,
+                                            properties_hold=False)
+    log(f"  raft10s growths: {checker._grow_notes}")
+    phase_raft_sorted(torch, checker, rows)
     del checker
     torch.cuda.empty_cache()
 

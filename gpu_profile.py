@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of a full check goes on one H100.
 
-    python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o|raft]
+    python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o|raft|
+                                    pp13|pp11s|paxos3b]
                            [--runs N] [--trace-dir DIR]
 
 Builds the port's kernels, runs one of ``chip_smoke.py``'s full checks
@@ -10,8 +11,11 @@ through ``spawn_gpu()`` at its geometry, held to its goldens --
 3``, phase 6), ``run_paxos6`` (``paxos check 6``, phase 10) or ``run_sc4``
 (``single-copy-register check 4``, phase 13), ``run_abd2``
 (``linearizable-register check 2``, phase 15), ``run_abd3o``
-(``linearizable-register check 3 ordered``, phase 17) or ``run_raft``
-(``raft check``, depth 12, phase 20) -- ``--runs`` times
+(``linearizable-register check 3 ordered``, phase 17), ``run_raft``
+(``raft check``, depth 12, phase 20), ``run_pp13`` (lossy ping-pong at
+``max_nat`` 13, phase 22), ``run_pp11s`` (lossy ping-pong at ``max_nat`` 11
+through the sorted fallback, phase 23) or ``run_paxos3b`` (``paxos check
+3`` at ``max_round=3``, single-phase, phase 25) -- ``--runs`` times
 untraced (wall seconds of each, then median and spread), and once more
 under ``torch.profiler``: device time per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
@@ -35,7 +39,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="rm10",
                     choices=("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o",
-                             "raft"))
+                             "raft", "pp13", "pp11s", "paxos3b"))
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -56,6 +60,9 @@ def main() -> int:
         "abd2": chip_smoke.run_abd2,
         "abd3o": chip_smoke.run_abd3o,
         "raft": chip_smoke.run_raft,
+        "pp13": chip_smoke.run_pp13,
+        "pp11s": chip_smoke.run_pp11s,
+        "paxos3b": chip_smoke.run_paxos3b,
     }[args.model]
     cuda.build()
     card = chip_smoke.gpu_line()

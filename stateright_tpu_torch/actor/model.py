@@ -2,19 +2,20 @@
 
 The counterpart of ``stateright_tpu/actor/model.py`` (reference:
 src/actor/model.rs, src/actor/model_state.rs) for the configurations the
-port compiles: a lossless system on the unordered nonduplicating or the
-ordered network.  Its action families, in the reference's enumeration
-order (src/actor/model.rs:269-333): ``Deliver`` of each distinct
-deliverable envelope (each channel head on the ordered fabric), one
-``Timeout`` per pending timer, ``Crash`` of each live actor while fewer
-than ``max_crashes`` are down, and ``Recover`` of each crashed one.  A
-handler no-op is no successor, except on the ordered fabric, where
-consuming the channel head changes the state (src/actor/model.rs:364); a
-timeout whose handler only renews its timer is none either, and any other
-fired timer is consumed.  ``ActorModelState`` keeps the JAX class's name
+port compiles, on any of the three networks, lossy or not.  Its action
+families, in the reference's enumeration order (src/actor/model.rs:
+269-333): for each distinct deliverable envelope (each channel head on the
+ordered fabric), its ``Drop`` when the network is lossy and its
+``Deliver``; one ``Timeout`` per pending timer; ``Crash`` of each live
+actor while fewer than ``max_crashes`` are down; and ``Recover`` of each
+crashed one.  A handler no-op is no successor, except on the ordered
+fabric, where consuming the channel head changes the state
+(src/actor/model.rs:364); a timeout whose handler only renews its timer
+is none either, and any other fired timer is consumed.  A ``Drop``
+changes only the network.  ``ActorModelState`` keeps the JAX class's name
 and fields (random choices and storages stay at their empty values), so
-states fingerprint the same in both packages.  Lossy networks (``Drop``),
-the duplicating network and ``SelectRandom`` are not ported.
+states fingerprint the same in both packages.  ``SelectRandom`` is not
+ported.
 """
 
 from __future__ import annotations
@@ -38,6 +39,11 @@ class Deliver:
     src: Id
     dst: Id
     msg: Any
+
+
+@dataclass(frozen=True)
+class Drop:
+    envelope: Envelope
 
 
 @dataclass(frozen=True)
@@ -74,7 +80,8 @@ class ActorModel(Model):
         self.actors: List[Actor] = []
         self.cfg = cfg
         self.init_history = init_history
-        self.init_network = Network.new_unordered_nonduplicating()
+        self.init_network = Network.new_unordered_duplicating()
+        self.lossy_network: bool = False
         self.max_crashes: int = 0
         self._properties: List[Property] = []
         self._record_msg_in: Callable = lambda cfg, h, env: None
@@ -89,6 +96,10 @@ class ActorModel(Model):
 
     def init_network_(self, network: Network) -> "ActorModel":
         self.init_network = network
+        return self
+
+    def lossy_network_(self, lossy: bool) -> "ActorModel":
+        self.lossy_network = lossy
         return self
 
     def max_crashes_(self, n: int) -> "ActorModel":
@@ -166,6 +177,8 @@ class ActorModel(Model):
     def actions(self, state: ActorModelState, actions: List[Any]) -> None:
         # Reference: src/actor/model.rs:269-333 (same enumeration order).
         for env in state.network.iter_deliverable():
+            if self.lossy_network:
+                actions.append(Drop(env))
             if int(env.dst) < len(self.actors):
                 actions.append(Deliver(env.src, env.dst, env.msg))
         for index, timers in enumerate(state.timers_set):
@@ -183,6 +196,10 @@ class ActorModel(Model):
         self, last: ActorModelState, action: Any
     ) -> Optional[ActorModelState]:
         # Reference: src/actor/model.rs:335-457.
+        if isinstance(action, Drop):
+            return dataclasses.replace(
+                last, network=last.network.on_drop(action.envelope)
+            )
         if isinstance(action, Deliver):
             index = int(action.dst)
             if index >= len(last.actor_states) or last.crashed[index]:

@@ -26,7 +26,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
-constexpr int kScanThreads = 1024;
 
 __global__ void tile_count_kernel(const uint8_t* __restrict__ mask, int64_t n,
                                   int64_t* __restrict__ tile_counts) {
@@ -41,25 +40,6 @@ __global__ void tile_count_kernel(const uint8_t* __restrict__ mask, int64_t n,
   uint32_t total;
   sr::block_exclusive_scan<kThreads, uint32_t>(c, &total);
   if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
-}
-
-// In place: tile counts -> exclusive tile offsets; *count = all set lanes.
-__global__ void tile_scan_kernel(int64_t* __restrict__ tile, int64_t ntiles,
-                                 int64_t* __restrict__ count) {
-  const int64_t per = (ntiles + kScanThreads - 1) / kScanThreads;
-  const int64_t lo = threadIdx.x * per;
-  const int64_t hi = lo + per < ntiles ? lo + per : ntiles;
-  unsigned long long s = 0;
-  for (int64_t i = lo; i < hi; ++i) s += static_cast<unsigned long long>(tile[i]);
-  unsigned long long total;
-  unsigned long long run =
-      sr::block_exclusive_scan<kScanThreads, unsigned long long>(s, &total);
-  for (int64_t i = lo; i < hi; ++i) {
-    const unsigned long long c = static_cast<unsigned long long>(tile[i]);
-    tile[i] = static_cast<int64_t>(run);
-    run += c;
-  }
-  if (threadIdx.x == 0) *count = static_cast<int64_t>(total);
 }
 
 __global__ void tile_scatter_kernel(const uint8_t* __restrict__ mask,
@@ -100,8 +80,8 @@ extern "C" int sr_compact(const uint8_t* mask, int64_t n, uint32_t* out,
     tile_count_kernel<<<static_cast<unsigned>(ntiles), kThreads, 0, stream>>>(
         mask, n, tile_scratch);
   }
-  tile_scan_kernel<<<1, kScanThreads, 0, stream>>>(tile_scratch, ntiles,
-                                                   count);
+  sr::offsets_scan_kernel<<<1, sr::kScanThreads, 0, stream>>>(
+      tile_scratch, ntiles, count);
   if (ntiles > 0) {
     tile_scatter_kernel<<<static_cast<unsigned>(ntiles), kThreads, 0,
                           stream>>>(mask, n, tile_scratch, out, size);

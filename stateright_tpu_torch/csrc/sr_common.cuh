@@ -1,6 +1,7 @@
 // Shared device helpers for the port's kernels: the murmur3-style 32-bit
 // mixers of stateright_tpu/ops/device_fp.py (bit-exact), a block-wide scan,
-// and the error-string export every library carries for its ctypes wrapper.
+// a one-block offsets scan, and the error-string export every library
+// carries for its ctypes wrapper.
 #pragma once
 
 #include <cstdint>
@@ -76,6 +77,30 @@ __device__ __forceinline__ T block_exclusive_scan(T x, T* total) {
   __syncthreads();
   *total = block_total;
   return warp_sums[warp] + inc - x;
+}
+
+constexpr int kScanThreads = 1024;
+
+// One block of kScanThreads, in place: counts[0..n) -> their exclusive
+// prefix sums (64-bit); *total = the sum of all counts.  Each thread sums
+// a contiguous run serially, the block scans the runs, and each thread
+// writes its run's offsets.
+__global__ void offsets_scan_kernel(int64_t* __restrict__ counts, int64_t n,
+                                    int64_t* __restrict__ total) {
+  const int64_t per = (n + kScanThreads - 1) / kScanThreads;
+  const int64_t lo = threadIdx.x * per;
+  const int64_t hi = lo + per < n ? lo + per : n;
+  unsigned long long s = 0;
+  for (int64_t i = lo; i < hi; ++i) s += static_cast<unsigned long long>(counts[i]);
+  unsigned long long all;
+  unsigned long long run =
+      block_exclusive_scan<kScanThreads, unsigned long long>(s, &all);
+  for (int64_t i = lo; i < hi; ++i) {
+    const unsigned long long c = static_cast<unsigned long long>(counts[i]);
+    counts[i] = static_cast<int64_t>(run);
+    run += c;
+  }
+  if (threadIdx.x == 0 && total != nullptr) *total = static_cast<int64_t>(all);
 }
 
 }  // namespace sr

@@ -199,8 +199,8 @@ class PaxosModelCfg:
     never_decided: bool = False
     # Ballot-round boundary: states where any server's ballot round
     # exceeds this are pruned (None = bounded only by the packed
-    # encoding's MAX_ROUND cap, paxos_compiled.py).  The port's compiled
-    # form has no device boundary yet and refuses a bound below the cap.
+    # encoding's MAX_ROUND cap, paxos_compiled.py, whose single-phase
+    # step then applies it on the device).
     max_round: Optional[int] = None
 
     def into_model(self) -> ActorModel:
@@ -241,8 +241,8 @@ class PaxosModelCfg:
                 ),
             )
         if self.max_round is not None:
-            # Host half of the round boundary (the JAX package's device
-            # half, PaxosCompiled.boundary, is not ported yet).
+            # Host half of the round boundary (the device half is
+            # PaxosCompiled.boundary).
             model.within_boundary_(
                 lambda cfg, s: all(
                     a.ballot[0] <= cfg.max_round

@@ -31,16 +31,20 @@ its plain-torch twin on a CPU tensor:
   parent-row gather;
 - :func:`paxos_conds` (K6, ``csrc/paxos_conds.cu``): the property
   conditions -- linearizable (the DP of ``csrc/register_lin.cuh``), value
-  chosen, and never decided when the model has it.
+  chosen, and never decided when the model has it;
+- :func:`paxos_step` (K14, ``csrc/paxos_step.cu``): the single-phase step
+  of a model whose ``max_round`` is below the encoding's cap -- every
+  lane's successor, its validity ANDed with the ballot-round boundary of
+  the successor (the JAX ``step`` and ``boundary``), and the wave's
+  encoding-overflow flag.  A bounded model is expanded in one phase (the
+  boundary tests the successor, which the validity screen does not
+  build); at the cap the model is unbounded and two-phase, as before.
 
 The twins compute in int64 masked to 32 bits (``ops/u32.py``) and
 reproduce the JAX code's u32 wrap-around: ``code - 1`` on an empty slot,
 ``(accepted - 1) % c`` at accepted 0, ``prop - 1`` on the flagged
 branches, and the unsigned order of the slot re-sort, whose empty-slot
 sentinel is ``0xFFFFFFFF``.
-
-Not ported yet: the ``max_round`` device boundary and the single-phase
-``step`` it needs.
 """
 
 from __future__ import annotations
@@ -143,10 +147,11 @@ class PaxosCompiled(CompiledModel):
                 f"(got {cfg.client_count}): the register harness's tester "
                 f"word holds no more"
             )
-        if cfg.max_round is not None and cfg.max_round != MAX_ROUND:
+        self.max_round = MAX_ROUND if cfg.max_round is None else int(cfg.max_round)
+        if not 0 <= self.max_round <= MAX_ROUND:
             raise ValueError(
-                f"max_round={cfg.max_round}: the port has no device ballot "
-                f"boundary yet; only the encoding cap ({MAX_ROUND}) or None"
+                f"max_round {self.max_round} outside 0..{MAX_ROUND} (the "
+                "packed ballot round has 4 bits)"
             )
         if model.init_network.kind != "unordered_nonduplicating":
             raise ValueError("packed paxos needs the unordered_nonduplicating network")
@@ -465,6 +470,19 @@ class PaxosCompiled(CompiledModel):
     def property_conds(self, states: torch.Tensor) -> torch.Tensor:
         return paxos_conds(states, self.c, self.never_decided)
 
+    def boundary(self, states: torch.Tensor):
+        """The ``max_round`` ballot boundary, ``int32[N, W] -> bool[N]``;
+        None at the encoding cap, where the model is unbounded."""
+        if self.max_round >= MAX_ROUND:
+            return None
+        return paxos_boundary_plain(states, self.max_round)
+
+    def expand(self, states: torch.Tensor):
+        """The single-phase wave of a bounded model (K14, then K6); the
+        engine runs an unbounded one in two phases instead."""
+        nexts, valid, flag = paxos_step(states, self.c, self.max_round)
+        return nexts, valid, self.property_conds(states), flag
+
 
 # --- the twins' lane arithmetic (masked int64, the JAX code line by line) --
 
@@ -737,6 +755,33 @@ def paxos_step_lane_plain(states, v_orig, count, c: int):
     return nexts, flags
 
 
+def paxos_boundary_plain(rows: torch.Tensor, max_round: int) -> torch.Tensor:
+    """Every server's ballot round (its ballot code // 3) at most
+    ``max_round``: ``int32[N, W] -> bool[N]``, the JAX ``boundary``."""
+    inside = torch.ones(rows.shape[:1], dtype=torch.bool, device=rows.device)
+    for s in range(S):
+        inside &= (u32(rows[:, 2 * s]) & 0x3F) // 3 <= max_round
+    return inside
+
+
+def paxos_step_plain(states: torch.Tensor, c: int, max_round: int):
+    """Plain-torch twin of the K14 kernel: ``int32[F, W] -> (nexts
+    int32[F, M, W], valid bool[F, M], flag bool)`` -- the JAX ``step`` of
+    every state (``_deliver_lane`` of each slot), each lane's validity
+    ANDed with its successor's :func:`paxos_boundary_plain`, and the any
+    of the lanes' encoding-overflow flags, taken before the boundary."""
+    m = slot_count(c)
+    w = state_width(c)
+    f = states.shape[0]
+    k = torch.arange(m, dtype=torch.int64, device=states.device).repeat(f)
+    rows, valid, flags = _deliver_lanes(
+        _codec(c), u32(states).repeat_interleave(m, dim=0), k
+    )
+    nexts = i32(rows)
+    valid = valid & paxos_boundary_plain(nexts, max_round)
+    return nexts.view(f, m, w), valid.view(f, m), flags.any()
+
+
 def paxos_conds_plain(states: torch.Tensor, c: int, never_decided: bool):
     """Plain-torch twin of the K6 kernel: ``int32[F, W] -> bool[F, P]`` in
     property order -- linearizable, value chosen, never decided (when the
@@ -852,3 +897,32 @@ def paxos_conds(states: torch.Tensor, c: int, never_decided: bool) -> torch.Tens
 
 
 paxos_conds.launches = 0
+
+
+def paxos_step(states: torch.Tensor, c: int, max_round: int):
+    """The single-phase step of packed paxos rows under the ballot bound
+    ``max_round`` (K14): see :func:`paxos_step_plain`."""
+    if not 0 <= max_round <= MAX_ROUND:
+        raise ValueError(f"max_round {max_round} outside 0..{MAX_ROUND}")
+    if states.device.type == "cpu":
+        return paxos_step_plain(states, c, max_round)
+    _check_rows(states, c)
+    dev = states.device
+    f, m = states.shape[0], slot_count(c)
+    nexts = torch.empty((f, m, state_width(c)), dtype=torch.int32, device=dev)
+    valid = torch.empty((f, m), dtype=torch.bool, device=dev)
+    flags = torch.empty((f, m), dtype=torch.bool, device=dev)
+    fn = cuda.function(
+        "paxos_step", "sr_paxos_step",
+        [cuda.P, cuda.I64, cuda.I32, cuda.U32, cuda.P, cuda.P, cuda.P, cuda.P],
+    )
+    paxos_step.launches += 1
+    code = fn(
+        cuda.ptr(states), f, c, max_round, cuda.ptr(nexts), cuda.ptr(valid),
+        cuda.ptr(flags), cuda.stream(),
+    )
+    cuda.check(code, "paxos_step", "paxos_step")
+    return nexts, valid, flags.any()
+
+
+paxos_step.launches = 0

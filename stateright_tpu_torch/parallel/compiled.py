@@ -11,13 +11,16 @@ int32 bit-views -- on the engine's device.
   ``max_actions`` candidate successors with a validity mask;
 - ``property_conds(states[F, W]) -> bool[F, P]``: every property condition,
   in the order of ``model.properties()``;
-- ``expand(states)``: both at once, plus the encoding-overflow flag, which
-  is what the engine calls each wave.  A model with a fused kernel
-  overrides it.
+- ``boundary(states[N, W]) -> bool[N]``: the device half of the model's
+  ``within_boundary``, or None for an unbounded model;
+- ``expand(states)``: all three at once -- each lane's validity ANDed with
+  its successor's boundary test, as the JAX ``wave_eval`` does before it
+  counts the wave -- plus the encoding-overflow flag, which is what the
+  engine calls each wave.  A model with a fused kernel overrides it.
 
-Two-phase contract (optional; :func:`two_phase_capable`): a model whose
-lanes are mostly invalid answers validity alone and builds successors
-only for the lanes that survive compaction --
+Two-phase contract (optional; :func:`two_phase_capable`): an unbounded
+model whose lanes are mostly invalid answers validity alone and builds
+successors only for the lanes that survive compaction --
 
 - ``step_valid(states[F, W]) -> valid[F, A]``, without successors;
 - ``step_lane(states[F, W], v_orig[U], count) -> (nexts[U, W],
@@ -88,14 +91,24 @@ class CompiledModel:
         """int32[F, W] -> bool[F, P], in ``model.properties()`` order."""
         raise NotImplementedError
 
+    def boundary(self, states: torch.Tensor) -> Optional[torch.Tensor]:
+        """int32[N, W] -> bool[N], True for rows within the model's
+        boundary; None (the default) for an unbounded model."""
+        return None
+
     def expand(
         self, states: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-        """``(nexts, valid, conds, step_flag)`` for one wave's states.
+        """``(nexts, valid, conds, step_flag)`` for one wave's states, the
+        validity already ANDed with each successor's :meth:`boundary`.
         ``step_flag`` is a bool scalar tensor marking a successor that
         overflowed the packed encoding, or None for a model whose encoding
         cannot overflow."""
         nexts, valid = self.step(states)
+        f, a, w = nexts.shape
+        inside = self.boundary(nexts.view(f * a, w))
+        if inside is not None:
+            valid = valid & inside.view(f, a)
         return nexts, valid, self.property_conds(states), None
 
 
@@ -113,6 +126,9 @@ def compiled_model_for(model: Model) -> CompiledModel:
 def two_phase_capable(cm) -> bool:
     """Whether the engine expands ``cm`` in two phases (the counterpart of
     the JAX ``wave_common.two_phase_capable``): it exposes ``step_valid``
-    and ``step_lane``.  The JAX gate also asks for an unbounded model; the
-    port has no device boundary yet."""
-    return hasattr(cm, "step_valid") and hasattr(cm, "step_lane")
+    and ``step_lane`` AND is unbounded -- a boundary tests the successor
+    row, which the validity screen does not build."""
+    if not (hasattr(cm, "step_valid") and hasattr(cm, "step_lane")):
+        return False
+    probe = torch.zeros((1, cm.state_width), dtype=torch.int32)
+    return cm.boundary(probe) is None

@@ -15,8 +15,14 @@ the per-call election tags of the K4 kernel (``csrc/hashset.cu``).
 
 The insert is IN PLACE: :func:`insert_batch_claim` mutates the table it is
 given (the JAX version returns a new one), so a wave holds one table, not
-two.  Only the sortless claim path is ported; the sorted fallback
-(``prededup`` / ``insert_batch_compact``) is not.
+two.  Both dedup paths are ported: the sortless claim path (K4 alone), and
+the sorted fallback -- :func:`prededup` (the K12 sort, ``csrc/prededup.cu``,
+then K3) electing one representative per key in sorted-key order, then K4
+on the representatives (:func:`insert_batch_compact`, :func:`insert_batch`).
+The representatives are distinct keys, so which of two keys contending for
+one empty slot wins it may differ from the JAX ``set`` scatter: on the
+sorted path the two engines' tables hold the same key set, and every
+result the engine reads (new, origin, counts) is the same.
 """
 
 from __future__ import annotations
@@ -29,10 +35,11 @@ import torch
 from ..ops import cuda
 from ..ops.device_fp import fp64_of
 from ..ops.u32 import fmix32, i32, rotl, u32
-from .wave_common import compact
+from .wave_common import compact, compact_plain
 
 _EPOCH_MAX = 0xFFFFFFFF
 _I64_MAX = (1 << 63) - 1
+_SIGN = -(1 << 63)  # XOR with it turns the signed int64 order unsigned
 
 
 class HashSet:
@@ -87,17 +94,29 @@ def unique_buffer_size(b: int, dedup_factor: int) -> int:
     return max(min(b, 1 << 14), b // dedup_factor)
 
 
-def compact_valid_indices(valid: torch.Tensor, size: int):
+def _effective_buffer(b: int, dedup_factor: int, sort_lanes) -> int:
+    """The working compaction width: the ``sort_lanes`` rung when given
+    (clamped to the batch), else the worst case
+    :func:`unique_buffer_size` -- as in the JAX package."""
+    if sort_lanes is not None:
+        return max(1, min(int(sort_lanes), b))
+    return unique_buffer_size(b, dedup_factor)
+
+
+def compact_valid_indices(valid: torch.Tensor, dedup_factor: int = 4,
+                          sort_lanes=None):
     """Index half of :func:`compact_valid`: compact the valid LANE INDICES
     only -- two-phase expansion builds successor rows after compaction, so
-    there are no keys to compact yet.  Returns ``(v_orig, v_act,
-    n_valid)``: ``v_orig`` int32[size] maps buffer lanes back to original
-    ones (K3), ``v_act`` marks the filled buffer lanes, and ``n_valid`` is
-    the int64 device count of valid lanes, in place of the JAX version's
-    ``overflow`` flag, which is ``n_valid > size`` (exactly full at
-    ``size``, tripped at ``size + 1``).  The JAX version derives ``size``
-    from the batch and a ``dedup_factor`` (:func:`unique_buffer_size`); the
-    port's engine passes it."""
+    there are no keys to compact yet.  The buffer is
+    ``_effective_buffer(B, dedup_factor, sort_lanes)`` lanes wide.
+    Returns ``(v_orig, v_act, n_valid)``: ``v_orig`` int32 maps buffer
+    lanes back to original ones (K3), ``v_act`` marks the filled buffer
+    lanes, and ``n_valid`` is the int64 device count of valid lanes, in
+    place of the JAX version's ``overflow`` flag, which is ``n_valid >
+    size`` (exactly full at ``size``, tripped at ``size + 1``).  The engine
+    sizes its buffer from ``max_frontier`` and passes it as ``sort_lanes``
+    (a chunk may be shorter than ``max_frontier``)."""
+    size = _effective_buffer(valid.shape[0], dedup_factor, sort_lanes)
     v_orig, n_valid = compact(valid, size)
     # Filled lanes hold strictly increasing lane indices and the rest 0, so
     # every lane but the first is active iff its index is nonzero -- no
@@ -107,19 +126,108 @@ def compact_valid_indices(valid: torch.Tensor, size: int):
     return v_orig, v_act, n_valid
 
 
-def compact_valid(hi, lo, valid, size: int):
-    """Compact a sparse-valid key batch into a ``size``-lane buffer.
+def compact_valid(hi, lo, valid, dedup_factor: int = 4, sort_lanes=None):
+    """Compact a sparse-valid key batch into the buffer of
+    :func:`compact_valid_indices`.
 
     Returns ``(v_hi, v_lo, v_orig, v_act, n_valid)``: the JAX
     ``compact_valid``'s buffers (inactive buffer lanes hold lane 0's key,
     which ``v_act`` masks), and in place of its ``overflow`` flag the
     valid-lane count it is taken from -- the criterion of
     :func:`compact_valid_indices`."""
-    v_orig, v_act, n_valid = compact_valid_indices(valid, size)
+    v_orig, v_act, n_valid = compact_valid_indices(valid, dedup_factor, sort_lanes)
     return (
         torch.index_select(hi, 0, v_orig), torch.index_select(lo, 0, v_orig),
         v_orig, v_act, n_valid,
     )
+
+
+def prededup(hi, lo, active, dedup_factor: int = 4, sort_lanes=None):
+    """Elect one representative per distinct key and compact them, in
+    sorted-key order, into a ``_effective_buffer(B, dedup_factor,
+    sort_lanes)``-lane buffer -- the JAX ``prededup``.
+
+    ``hi``/``lo``: int32[B] key halves; ``active``: bool[B].  Returns
+    ``(u_hi, u_lo, u_origin, u_active, overflow)``: the representatives'
+    keys and original lanes (int32; 0 past the representatives),
+    ``u_active`` marking the filled lanes, and ``overflow`` (a bool
+    scalar tensor) when the DISTINCT-REPRESENTATIVE count exceeds the
+    buffer -- exactly full at ``u``, tripped at ``u + 1``.  Keys order as
+    unsigned 64-bit ``hi:lo``; the representative of a key is its lowest
+    active lane; an inactive lane, and any all-ones key, is no
+    representative.  On the card the sort is K12 (``csrc/prededup.cu``)
+    and the compaction K3."""
+    if hi.device.type == "cpu":
+        return prededup_plain(hi, lo, active, dedup_factor, sort_lanes)
+    u = _effective_buffer(hi.shape[0], dedup_factor, sort_lanes)
+    return _compacted(_sorted_runs(hi, lo, active), u, compact)
+
+
+def prededup_plain(hi, lo, active, dedup_factor: int = 4, sort_lanes=None):
+    """Plain-torch twin of :func:`prededup`'s K12 + K3 (any device)."""
+    u = _effective_buffer(hi.shape[0], dedup_factor, sort_lanes)
+    return _compacted(_sorted_runs_plain(hi, lo, active), u, compact_plain)
+
+
+def _compacted(runs, u: int, compactor):
+    """The representatives of sorted ``runs`` compacted to ``u`` lanes."""
+    skey, slane, rep = runs
+    idx, n_rep = compactor(rep, u)
+    u_active = torch.arange(u, device=rep.device) < n_rep
+    idx = idx.long()
+    key = torch.where(u_active, skey[idx], 0)
+    u_origin = torch.where(u_active, slane[idx], 0)
+    return i32(key >> 32), i32(key), u_origin, u_active, n_rep > u
+
+
+def _sorted_runs(hi, lo, active):
+    """K12: the stable unsigned sort of the batch's keys (inactive lanes as
+    the all-ones key), returning ``(keys int64, lanes int32, rep bool)``
+    in sorted order, ``rep`` marking the first lane of each active key's
+    run."""
+    dev = hi.device
+    n = hi.shape[0]
+    cuda.require(hi, "hi", torch.int32, 1, dev)
+    cuda.require(lo, "lo", torch.int32, 1, dev)
+    cuda.require(active, "active", torch.bool, 1, dev)
+    if lo.shape[0] != n or active.shape[0] != n:
+        raise ValueError("hi, lo and active differ in length")
+    if n >= 1 << 32:
+        raise ValueError("at most 2**32 - 1 lanes per sort")
+    keys = torch.empty((n,), dtype=torch.int64, device=dev)
+    keys_tmp = torch.empty_like(keys)
+    lanes = torch.empty((n,), dtype=torch.int32, device=dev)
+    lanes_tmp = torch.empty_like(lanes)
+    counts = torch.empty((256 * ((n + 4095) // 4096),), dtype=torch.int64,
+                         device=dev)
+    rep = torch.empty((n,), dtype=torch.bool, device=dev)
+    fn = cuda.function(
+        "prededup", "sr_prededup_sort",
+        [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.P, cuda.P, cuda.P, cuda.P,
+         cuda.P, cuda.P, cuda.P],
+    )
+    prededup.launches += 1
+    code = fn(
+        cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, cuda.ptr(keys),
+        cuda.ptr(keys_tmp), cuda.ptr(lanes), cuda.ptr(lanes_tmp),
+        cuda.ptr(counts), cuda.ptr(rep), cuda.stream(),
+    )
+    cuda.check(code, "prededup", "prededup")
+    return keys, lanes, rep
+
+
+prededup.launches = 0
+
+
+def _sorted_runs_plain(hi, lo, active):
+    """Plain-torch twin of K12 (any device): a stable sort of the
+    sign-flipped key, which orders the int64 ``hi:lo`` words as unsigned."""
+    key = torch.where(active, fp64_of(hi, lo), -1)
+    order = torch.sort(key ^ _SIGN, stable=True).indices
+    skey = key[order]
+    prev = torch.cat([skey[:1] ^ 1, skey[:-1]])  # lane 0 has no predecessor
+    rep = (skey != -1) & (skey != prev)
+    return skey, order.to(torch.int32), rep
 
 
 def insert_batch_claim(
@@ -205,6 +313,40 @@ def insert_batch_claim_plain(
         lane, slot = lane[undone], slot[undone]
         rounds += 1
     return new, torch.tensor(lane.numel() == 0, device=dev)
+
+
+def insert_batch_compact(table: HashSet, hi, lo, active,
+                         dedup_factor: int = 4, sort_lanes=None):
+    """Sorted insert-if-absent, IN PLACE, in the compact form: the JAX
+    ``insert_batch_compact`` -- :func:`prededup`, then K4 on the
+    representatives, which are distinct keys, so each absent one is new.
+
+    Returns ``(u_new, u_origin, u_active, probe_ok, overflow)`` over the
+    ``u``-lane buffer in sorted-key order: which representatives were
+    absent, their original lanes, the filled lanes, False when some lane
+    probed the whole table, and the distinct-key overflow of
+    :func:`prededup`.  The JAX version also returns each key's slot; the
+    engine never reads it, and on this path slots may differ (see the
+    module docstring)."""
+    u_hi, u_lo, u_origin, u_active, overflow = prededup(
+        hi, lo, active, dedup_factor, sort_lanes
+    )
+    u_new, probe_ok = insert_batch_claim(table, u_hi, u_lo, u_active)
+    return u_new, u_origin, u_active, probe_ok, overflow
+
+
+def insert_batch(table: HashSet, hi, lo, active, dedup_factor: int = 4):
+    """Sorted insert-if-absent with per-input-lane results, IN PLACE: the
+    JAX ``insert_batch``.  Returns ``(is_new bool[B], probe_ok,
+    overflow)``: ``is_new`` marks the lowest lane of each key that was
+    absent before the call."""
+    b = hi.shape[0]
+    u_new, u_origin, u_active, probe_ok, overflow = insert_batch_compact(
+        table, hi, lo, active, dedup_factor
+    )
+    is_new = torch.zeros((b + 1,), dtype=torch.bool, device=hi.device)
+    is_new[torch.where(u_active, u_origin.long(), b)] = u_new
+    return is_new[:b], probe_ok, overflow
 
 
 def keys_equal(a: HashSet, b: HashSet) -> bool:

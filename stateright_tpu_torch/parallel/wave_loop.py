@@ -6,8 +6,10 @@ wave_loop.py`` (``FusedWaveLoop``, ``loop_should_break``) and its
 ``fingerprints_of_rows``.  The JAX loop runs up to ``waves_per_call`` waves
 inside one device program between stats readbacks; this port reads one
 small stats tensor back per wave, and checks before each wave what the JAX
-program checks in its loop condition.  Rung ladders, vitals, the journal,
-the knob cache and checkpoint cadence are not ported.
+program checks in its loop condition.  The flag-4 rules of the sort-rung
+ladder and the sorted fallback are ported below (without their journal
+lines); the step-rung ladder, the density tuner, vitals, the journal, the
+knob cache and checkpoint cadence are not.
 
 The engine adapter (the checker) provides:
 
@@ -26,6 +28,8 @@ The engine adapter (the checker) provides:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -35,6 +39,81 @@ from ..ops.device_fp import device_fp64
 # 4 = compaction buffer overflow: all grow in place.  8 = the model's
 # packed encoding overflowed, which no growth can fix.
 RETRYABLE_FLAGS = 1 | 2 | 4
+
+# The sort-geometry rung ladder (JAX ``wave_loop.py:93-166``): a rung is a
+# power-of-two compaction width below the worst-case buffer U; a wave whose
+# valid lanes exceed it raises the non-committing flag 4 and the host
+# climbs one rung (x2, capped at U).
+SORT_RUNG_MIN = 256
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def clamp_rung(requested: int, min_rung: int) -> int:
+    """A requested rung normalized onto the ladder: the next power of two,
+    floored at ``min_rung``."""
+    return max(min_rung, _pow2_ceil(max(1, int(requested))))
+
+
+def clamp_sort_lanes(requested: int) -> int:
+    return clamp_rung(requested, SORT_RUNG_MIN)
+
+
+def next_rung(cur: int, full: int, min_rung: int) -> Optional[int]:
+    """The next rung up (doubling, capped at ``full``), or None when the
+    rung already spans the full buffer."""
+    if cur >= full:
+        return None
+    return min(max(min_rung, cur * 2), full)
+
+
+def next_sort_lanes(cur: int, u_sz: int) -> Optional[int]:
+    return next_rung(cur, u_sz, SORT_RUNG_MIN)
+
+
+def climb_sort_rung(eng, full: int) -> Optional[str]:
+    """Flag 4 at a rung below the full buffer: climb one rung toward
+    ``full`` and return the grow note; None when the rung already spans
+    the full buffer.  (The JAX helper also records the evidence its
+    density tuner reads; the tuner is not ported.)"""
+    nxt = next_sort_lanes(eng._sort_width(), full)
+    if nxt is None:
+        return None
+    eng._sort_lanes = nxt
+    return f"sort_lanes={nxt}"
+
+
+def fall_back_to_sort(eng) -> str:
+    """The sortless -> sorted fallback: the flagged wave committed nothing,
+    so its re-run on the sorted path is exact."""
+    eng._sortless = False
+    return "sortless=0"
+
+
+def reset_sort_rung_to_full(eng) -> None:
+    """After a full-buffer flag 4 relaxed ``dedup_factor``: the rung
+    resets to the new full width."""
+    eng._sort_lanes = None
+
+
+def relax_dedup_geometry(chunk, dedup_factor, lanes_of, lane_cap,
+                         chunk_label: str, chunk_floor: int = 2048):
+    """The dedup-overflow growth rule: straight to the always-safe
+    ``dedup_factor=1``, halving the chunk while ``lanes_of(chunk, 1)``
+    exceeds ``lane_cap``.  Returns ``(dedup_factor, chunk, note)``, or
+    None when already at 1 or even the floor chunk does not fit."""
+    if dedup_factor <= 1:
+        return None
+    notes = ["dedup_factor=1"]
+    c = chunk
+    while c > chunk_floor and lanes_of(c, 1) > lane_cap:
+        c //= 2
+        notes.append(f"{chunk_label}={c}")
+    if lanes_of(c, 1) > lane_cap:
+        return None
+    return 1, c, "; ".join(notes)
 
 
 def loop_should_break(eng, remaining: int, depth: int) -> bool:

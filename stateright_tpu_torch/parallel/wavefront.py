@@ -6,10 +6,11 @@ fingerprints every candidate successor, deduplicates them by a batched
 insert-if-absent into a device-resident fingerprint table, and evaluates
 property conditions as fused predicates over the wave.  The device work of
 a wave runs in hand-written kernels -- the model's step and conds (K2 for
-2pc; K5, K6 and K7 for paxos; K9, K10 and K11 for the single-copy
-register, ABD and raft), the wave verdicts (K8), the fingerprint (K1),
-stable compaction (K3) and the claim insert (K4) -- glued by a few torch
-tensor operations.
+2pc; K5, K6 and K7 for paxos, K14 and K6 for ballot-bounded paxos; K9,
+K10, K11 and K13 for the single-copy register, ABD, raft and ping-pong),
+the wave verdicts (K8), the fingerprint (K1), stable compaction (K3), the
+claim insert (K4) and, on the sorted dedup path, the key sort (K12) --
+glued by a few torch tensor operations.
 
 A model with the two-phase contract (``compiled.py``; paxos) is expanded
 in two phases, as in the JAX engine: lane validity first (K5), the valid
@@ -31,8 +32,14 @@ bit (row log, parents, ebits, counts, discoveries):
 - ``state_count`` counts init states plus generated successors before
   dedup; ``unique_state_count`` counts table insertions;
 - the representative of a key generated several times in one wave is its
-  lowest candidate lane (state-major, action-minor), so new states take
-  positions in the order of (parent position, action) of first generation;
+  lowest candidate lane (state-major, action-minor); on the claim path
+  new states take positions in the order of (parent position, action) of
+  first generation, on the sorted path (after a full-buffer flag 4, or
+  ``sortless=False``) in the order of their unsigned 64-bit fingerprints
+  within each wave -- so there the chunk width is part of the result;
+- a bounded model (one whose compiled form has a ``boundary``) drops each
+  successor outside it from the wave's valid lanes before they are
+  counted, and is expanded in one phase;
 - eventually-bits travel with each state (the first inserter's bits win,
   the reference's documented join behaviour);
 - a state's identity is its row's leading ``fp_words`` words (the whole
@@ -69,12 +76,16 @@ from ..ops.u32 import M32, from_numpy_u32, i32, to_numpy_u32
 from .compiled import CompiledModel, compiled_model_for, two_phase_capable
 from .hashset import (
     HashSet, compact_valid, compact_valid_indices, insert_batch_claim,
-    unique_buffer_size,
+    insert_batch_compact, unique_buffer_size,
 )
 from .wave_common import (
     NO_ID, compact, make_finish_when_device, prop_kinds, wave_eval,
 )
-from .wave_loop import WaveLoop, fingerprints_of_rows
+from .wave_loop import (
+    WaveLoop, clamp_sort_lanes, climb_sort_rung,
+    fall_back_to_sort, fingerprints_of_rows, relax_dedup_geometry,
+    reset_sort_rung_to_full,
+)
 
 # Growth bounds, sized for one 80 GB card: a table slot costs 16 bytes there
 # (key word + election word), a row-log position 4 * state_width + 8.
@@ -82,6 +93,22 @@ _MAX_TABLE_CAPACITY = 1 << 30
 _ROW_LOG_BYTE_BUDGET = 16 << 30
 # Rows per insert when the table is rebuilt from the log after growth.
 _REHASH_ROWS = 1 << 22
+# The JAX engine's band on the compaction buffer (``wavefront.py:100``,
+# validated on a TPU v5e): at most 425,984 lanes and 11,010,048 lane-words.
+# The port applies it wherever flag 4 can fire, because there the chunk
+# width decides which wave first overflows, and on the sorted path (which
+# appends in sorted-key order within a wave) it decides the row log too:
+# the band keeps the port's log the JAX engine's at the same arguments.
+_MAX_UNIQUE_BUFFER = 425_984
+_MAX_UNIQUE_LANE_WORDS = 11_010_048
+
+
+def max_safe_unique_lanes(state_width: int) -> int:
+    """The JAX engine's cap on the compaction buffer's lanes for a model of
+    this state width."""
+    return min(
+        _MAX_UNIQUE_BUFFER, _MAX_UNIQUE_LANE_WORDS // max(state_width, 1)
+    )
 
 
 def snapshot_engine_key(cm, properties) -> str:
@@ -196,6 +223,8 @@ class GpuChecker(Checker):
         compiled: Optional[CompiledModel] = None,
         resume_from: Optional[str] = None,
         log_capacity: Optional[int] = None,
+        sort_lanes: Optional[int] = None,
+        sortless: Optional[bool] = None,
     ):
         """``capacity`` sizes the fingerprint table (slots; load is kept at
         or below 50%), ``log_capacity`` the row log (positions = unique
@@ -203,9 +232,27 @@ class GpuChecker(Checker):
         wave expands and ``dedup_factor`` the compaction buffer
         (``max(min(B, 16K), B / dedup_factor)`` lanes for B = max_frontier
         * max_actions candidates).  An overflow grows the tripped buffer in
-        place: the table x16 (dragging a defaulted log), the log x2, the
-        compaction buffer straight to ``dedup_factor=1``, which cannot
-        overflow.  A buffer already at its ceiling raises instead.
+        place: the table x16 (dragging a defaulted log), the log x2; a
+        compaction-buffer overflow (flag 4) follows the JAX engine's rules
+        in its order -- an explicit claim budget falls back to the sorted
+        path, a rung below the full buffer climbs, the claim path at the
+        full buffer falls back to the sorted path (``sortless=0``), and
+        the sorted path relaxes to ``dedup_factor=1``, halving
+        ``max_frontier`` while the buffer exceeds
+        :func:`max_safe_unique_lanes`.  A buffer already at its ceiling
+        raises instead.
+
+        ``sortless`` selects the dedup path: the claim election (K4 over
+        the compacted batch, new states appended in lane order) or the
+        sorted fallback (K12 + K3 + K4, new states appended in sorted-key
+        order within a wave); it defaults to ``sort_lanes is None``, as in
+        the JAX engine.  ``sort_lanes`` pins the compaction width to a
+        power-of-two rung below the full buffer.  Wherever flag 4 can fire
+        (``dedup_factor > 1``, a rung, or the sorted path) the spawn halves
+        ``max_frontier`` until the buffer fits the JAX band, so which wave
+        overflows -- and on the sorted path the row log -- is the JAX
+        engine's at the same arguments; at ``dedup_factor=1`` on the claim
+        path the caller's chunk stands (the log does not depend on it).
 
         ``device`` defaults to ``cuda``; with no card present the spawn
         raises -- it never carries on on the CPU unless the caller asks for
@@ -236,6 +283,17 @@ class GpuChecker(Checker):
         self._log_capacity_explicit = log_capacity is not None
         self._max_frontier = max_frontier
         self._dedup_factor = dedup_factor
+        # The sort-geometry rung and the dedup path, as the JAX engine
+        # sets them (``wavefront.py:369-390``); the density tuner that
+        # would downshift a defaulted rung is not ported, so _sort_tune
+        # only tells an explicit claim budget from a defaulted rung.
+        self._sort_lanes = (
+            None if sort_lanes is None else clamp_sort_lanes(sort_lanes)
+        )
+        self._sort_tune = sort_lanes is None
+        self._sortless = (
+            (sort_lanes is None) if sortless is None else bool(sortless)
+        )
         self._resume_from = resume_from
         self._properties = self._model.properties()
         if len(self._properties) > 32:
@@ -247,6 +305,8 @@ class GpuChecker(Checker):
         ]
         self._kinds = prop_kinds(self._properties)
         self._two_phase = two_phase_capable(self._compiled)
+        if dedup_factor > 1 or sort_lanes is not None or not self._sortless:
+            self._clamp_chunk()
         # State identity: the leading fp_words of a row (compiled.py).
         self._fp_words = self._compiled.fp_words or self._compiled.state_width
         self._fw_matched = make_finish_when_device(
@@ -259,12 +319,54 @@ class GpuChecker(Checker):
         self._carry: Optional[Carry] = None
         self._waves = 0
         self._grow_flags: List[int] = []  # overflow flags of each growth
+        self._grow_notes: List[str] = []  # what each growth changed
         self._discoveries_cache: Optional[Dict[str, Path]] = None
         self._done = threading.Event()
         self._errors: List[BaseException] = []
         self._lock = threading.Lock()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+
+    def _clamp_chunk(self) -> None:
+        """The JAX spawn clamp (``wavefront.py:400-430``): halve
+        ``max_frontier`` (not below 2,048) while the worst-case buffer
+        exceeds :func:`max_safe_unique_lanes`; refuse a geometry that the
+        floor chunk cannot fit."""
+        a = self._compiled.max_actions
+        cap = max_safe_unique_lanes(self._compiled.state_width)
+        requested = self._max_frontier
+        while (
+            self._max_frontier > 2048
+            and unique_buffer_size(self._max_frontier * a, self._dedup_factor) > cap
+        ):
+            self._max_frontier //= 2
+        if unique_buffer_size(self._max_frontier * a, self._dedup_factor) > cap:
+            raise ValueError(
+                f"chunk geometry (max_frontier={self._max_frontier}, "
+                f"max_actions={a}, dedup_factor={self._dedup_factor}) exceeds "
+                "the compaction-buffer band even at the floor chunk; raise "
+                "dedup_factor"
+            )
+        if self._max_frontier != requested:
+            logging.getLogger(__name__).warning(
+                "spawn_gpu: max_frontier clamped to %d (max_actions=%d, "
+                "dedup_factor=%d): the requested chunk geometry exceeds the "
+                "compaction-buffer band", self._max_frontier, a,
+                self._dedup_factor,
+            )
+
+    def _wl_full_sort_lanes(self) -> int:
+        """The worst-case compaction buffer U of a full chunk."""
+        return unique_buffer_size(
+            self._max_frontier * self._compiled.max_actions, self._dedup_factor
+        )
+
+    def _sort_width(self) -> int:
+        """The live compaction width: the rung capped at U, or U."""
+        full = self._wl_full_sort_lanes()
+        if self._sort_lanes is None:
+            return full
+        return min(self._sort_lanes, full)
 
     # --- run -------------------------------------------------------------
 
@@ -390,7 +492,10 @@ class GpuChecker(Checker):
         states = c.rows[lo_pos * w : (lo_pos + count) * w].view(count, w)
         discovered = sum(1 << p for p, d in enumerate(c.disc) if d != NO_ID)
         eb_in = c.ebits[lo_pos : lo_pos + count]
-        size = unique_buffer_size(self._max_frontier * a, self._dedup_factor)
+        # The compaction buffer: the rung, or the worst case U of a FULL
+        # chunk -- sized from max_frontier, as the JAX engine's padded
+        # chunk is, so flag 4 fires where it fires there.
+        size = self._sort_width()
         # The JAX version folds the discovery candidates into the discovery
         # vector on device; here they come back per property and are folded
         # first-writer-wins once the wave commits.
@@ -403,11 +508,16 @@ class GpuChecker(Checker):
                 cm.property_conds(states), cm.step_valid(states), eb_in,
                 lo_pos, self._kinds, discovered,
             )
-            v_orig, v_act, n_valid = compact_valid_indices(valid.view(-1), size)
+            v_orig, v_act, n_valid = compact_valid_indices(
+                valid.view(-1), sort_lanes=size
+            )
             cand_rows, lane_flags = cm.step_lane(states, v_orig, n_valid)
             hi, lo = device_fp64(cand_rows[:, : self._fp_words])
             step_flag = lane_flags.any()
         else:
+            # The model's step applies its boundary to the lanes' validity
+            # (compiled.py), before K8 counts them and tests for terminal
+            # states.
             nexts, valid, conds, step_flag = cm.expand(states)
             valid, eb, cands = wave_eval(
                 conds, valid, eb_in, lo_pos, self._kinds, discovered,
@@ -415,28 +525,41 @@ class GpuChecker(Checker):
             cand_rows = nexts.view(count * a, w)
             hi, lo = device_fp64(cand_rows[:, : self._fp_words])
             hi, lo, v_orig, v_act, n_valid = compact_valid(
-                hi, lo, valid.view(-1), size
+                hi, lo, valid.view(-1), sort_lanes=size
             )
-        is_new, probe_ok = insert_batch_claim(c.table, hi, lo, v_act)
-        sel, n_new = compact(is_new, size)
+        if self._sortless:
+            # The claim election: buffer lane j is its own representative
+            # (u_origin is the identity), new states append in lane order.
+            is_new, probe_ok = insert_batch_claim(c.table, hi, lo, v_act)
+            u_origin = None
+            dd_overflow = torch.zeros((), dtype=torch.bool, device=self._device)
+        else:
+            # The sorted fallback: one representative per key in sorted-key
+            # order over the whole buffer, so new states append in that
+            # order (JAX wave_body at dedup_factor=1).
+            is_new, u_origin, _u_act, probe_ok, dd_overflow = (
+                insert_batch_compact(c.table, hi, lo, v_act, dedup_factor=1)
+            )
+        sel, n_new = compact(is_new, is_new.shape[0])
         if step_flag is None:
             step_flag = torch.zeros((), dtype=torch.bool, device=self._device)
         # The wave's one readback.
         stats = torch.cat([
             torch.stack([
                 n_new, n_valid, probe_ok.long(), step_flag.long(),
+                dd_overflow.long(),
             ]),
             cands,
         ]).tolist()
-        n_new, generated, ok, s_flag = (int(x) for x in stats[:4])
-        cands = [int(x) for x in stats[4:]]
+        n_new, generated, ok, s_flag, dd_flag = (int(x) for x in stats[:5])
+        cands = [int(x) for x in stats[5:]]
 
         flags = 0
         if not ok or (c.unique_count + n_new) * 2 > self._capacity:
             flags |= 1
         if c.tail + n_new > self._log_capacity:
             flags |= 2
-        if generated > size:
+        if generated > size or dd_flag:
             flags |= 4
         if s_flag:
             flags |= 8
@@ -447,10 +570,13 @@ class GpuChecker(Checker):
 
         if n_new:
             # Append the new representatives' rows, parents and ebits as
-            # three contiguous block writes at the tail.  Two-phase rows
-            # are already compacted: buffer lane j holds original lane
-            # v_orig[j]'s successor.
+            # three contiguous block writes at the tail.  ``lanes`` are the
+            # representatives' buffer lanes (through u_origin on the sorted
+            # path).  Two-phase rows are already compacted: buffer lane j
+            # holds original lane v_orig[j]'s successor.
             lanes = sel[:n_new].long()
+            if u_origin is not None:
+                lanes = u_origin[lanes].long()
             idxs = v_orig[lanes].long()
             src = idxs // a
             t = c.tail
@@ -490,7 +616,8 @@ class GpuChecker(Checker):
                f"{self._log_capacity}); raise spawn_gpu(log_capacity=...)",
             4: "a wave generated more valid successor candidates than the "
                "compaction buffer holds; lower spawn_gpu(dedup_factor=...) "
-               f"(now {self._dedup_factor}; 1 is always safe)",
+               f"(now {self._dedup_factor}; 1 with no sort_lanes is always "
+               "safe)",
         }
         qcap = self._log_capacity
         grown = []
@@ -504,9 +631,10 @@ class GpuChecker(Checker):
                 raise RuntimeError(msgs[bit])
             grown.append(note)
         self._grow_flags.append(flags)
+        self._grow_notes.append("; ".join(grown))
         logging.getLogger(__name__).warning(
             "auto-tune: overflow flags=%d; growing in place (%s) at "
-            "unique=%d depth=%d", flags, " ".join(grown),
+            "unique=%d depth=%d", flags, "; ".join(grown),
             self._carry.unique_count, self._carry.depth,
         )
         c = self._carry
@@ -539,10 +667,33 @@ class GpuChecker(Checker):
                 return None
             self._log_capacity = min(self._log_capacity * 2, log_bound)
             return f"log_capacity={self._log_capacity}"
-        if self._dedup_factor == 1:
+        # Flag 4, in the JAX engine's order (wavefront.py:1096-1171).
+        # An explicit claim budget (sortless with a pinned rung) falls back
+        # to the sorted path rather than climbing.
+        if self._sortless and not self._sort_tune:
+            return fall_back_to_sort(self)
+        # A rung below the full buffer climbs, on either path.
+        full = self._wl_full_sort_lanes()
+        note = climb_sort_rung(self, full)
+        if note is not None:
+            return note
+        # The claim path at the full buffer falls back to the sorted path.
+        if self._sortless:
+            return fall_back_to_sort(self)
+        # The sorted path relaxes to dedup_factor=1, halving the chunk
+        # while the buffer exceeds the band.
+        a = self._compiled.max_actions
+        relaxed = relax_dedup_geometry(
+            self._max_frontier, self._dedup_factor,
+            lambda f, dd: unique_buffer_size(f * a, dd),
+            max_safe_unique_lanes(self._compiled.state_width),
+            chunk_label="max_frontier",
+        )
+        if relaxed is None:
             return None
-        self._dedup_factor = 1
-        return "dedup_factor=1"
+        self._dedup_factor, self._max_frontier, note = relaxed
+        reset_sort_rung_to_full(self)
+        return note
 
     def _rehash(self, rows: torch.Tensor, tail: int) -> HashSet:
         """A fresh table of the current capacity holding the fingerprints

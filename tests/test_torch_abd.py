@@ -140,8 +140,8 @@ def test_codec_refuses_what_the_slice_does_not_port():
         _port_model((4, False, None)).compiled()
     with pytest.raises(ValueError, match="server_count=2"):
         AbdModelCfg(2, 3, Network.new_ordered()).into_model().compiled()
-    with pytest.raises(ValueError, match="not 'unordered_duplicating'"):
-        Network(kind="unordered_duplicating")
+    with pytest.raises(ValueError, match="unordered_nonduplicating and ordered"):
+        AbdModelCfg(2, 2, Network.new_unordered_duplicating()).into_model().compiled()
 
 
 # --- the K10 twin ----------------------------------------------------------------

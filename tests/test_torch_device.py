@@ -24,10 +24,12 @@ from stateright_tpu_torch.actor.register import Get, Internal, Put
 from stateright_tpu_torch.models import abd_compiled as ac
 from stateright_tpu_torch.models import paxos as port_paxos
 from stateright_tpu_torch.models import paxos_compiled as pc
+from stateright_tpu_torch.models import ping_pong_compiled as ppc
 from stateright_tpu_torch.models import raft_compiled as rc
 from stateright_tpu_torch.models import single_copy_compiled as scc
 from stateright_tpu_torch.models.abd import AbdModelCfg
 from stateright_tpu_torch.models.paxos import PaxosModelCfg
+from stateright_tpu_torch.models.ping_pong import PingPongCfg
 from stateright_tpu_torch.models.raft import RaftModelCfg
 from stateright_tpu_torch.models.single_copy_register import SingleCopyModelCfg
 from stateright_tpu_torch.models.twophase import TwoPhaseSys
@@ -38,6 +40,7 @@ from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
 from stateright_tpu_torch.ops.u32 import from_numpy_u32
 from stateright_tpu_torch.parallel.hashset import (
     HashSet, insert_batch_claim, insert_batch_claim_plain, keys_equal,
+    prededup, prededup_plain,
 )
 from stateright_tpu_torch.parallel.wave_common import (
     compact, compact_plain, wave_eval, wave_eval_plain,
@@ -94,6 +97,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "c = m.checker().target_max_depth(4).spawn_gpu(device='cpu',"
         " capacity=1 << 12, max_frontier=1 << 8).join()\n"
         "assert c.unique_state_count() == 367, c.unique_state_count()\n"
+        "from stateright_tpu_torch.models.ping_pong import PingPongCfg\n"
+        "m = PingPongCfg(False, 6).into_model().lossy_network_(True)\n"
+        "c = m.checker().spawn_gpu(device='cpu', capacity=1 << 16,"
+        " max_frontier=1 << 12).join()\n"
+        "assert c.unique_state_count() == 16382, c.unique_state_count()\n"
+        "assert 'sortless=0' in c._grow_notes, c._grow_notes\n"
+        "m = PaxosModelCfg(2, 3, Network.new_unordered_nonduplicating(),"
+        " max_round=1).into_model()\n"
+        "c = m.checker().spawn_gpu(device='cpu', capacity=1 << 12,"
+        " max_frontier=1 << 8).join()\n"
+        "assert c.unique_state_count() == 1834, c.unique_state_count()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -105,6 +119,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "isolated"
+
+
+def test_every_kernel_source_is_in_the_parallel_build():
+    """``ops/cuda.py`` ``SOURCES`` names every ``csrc/*.cu``: the up-front
+    build compiles them all together, so no kernel is first compiled
+    inside a timed run."""
+    from stateright_tpu_torch.ops import cuda
+
+    assert sorted(cuda.SOURCES) == sorted(p.stem for p in cuda.CSRC.glob("*.cu"))
 
 
 def test_spawn_gpu_defaults_to_the_card():
@@ -706,16 +729,186 @@ def test_cuda_raft_engine_matches_cpu_run(tmp_path):
 
 
 @pytest.mark.cuda
-def test_cuda_raft_depth_10_golden():
-    """``raft check`` to depth 10 on one card: 844,999 unique / 2,525,995
-    states, the JAX engine's count on its claim path at this geometry, and
-    the three discoveries."""
+@pytest.mark.parametrize("dedup_factor,golden", [
+    (1, (844_999, 2_525_995, 10)), (8, (844_936, 2_525_950, 10)),
+])
+def test_cuda_raft_depth_10_golden(dedup_factor, golden):
+    """``raft check`` to depth 10 on one card, the JAX engine's counts at
+    the same arguments: 844,999 / 2,525,995 on the claim path at
+    ``dedup_factor=1``; 844,936 / 2,525,950 at the default, where a flag 4
+    falls back to the sorted path and K12's representatives (raft's
+    identity is partial) decide which rows stand for a state."""
     _card()
     checker = _raft(10).spawn_gpu(
-        capacity=1 << 21, max_frontier=1 << 12, dedup_factor=1,
+        capacity=1 << 21, max_frontier=1 << 12, dedup_factor=dedup_factor,
     ).join()
     assert (checker.unique_state_count(), checker.state_count(),
-            checker.max_depth()) == (844_999, 2_525_995, 10)
+            checker.max_depth()) == golden
     assert sorted(checker.discoveries()) == [
         "Election Liveness", "Election Safety", "Log Liveness",
     ]
+    assert checker._sortless == (dedup_factor == 1)
+
+
+@pytest.mark.cuda
+def test_cuda_raft_check_golden():
+    """The reference's default ``raft check`` on one card: 12,630,223
+    unique / 38,569,420 states at depth 12, the JAX engine's own count at
+    ``dedup_factor=1`` (its CPU run, recorded in PERF.md)."""
+    _card()
+    checker = _raft(12).spawn_gpu(
+        capacity=1 << 25, log_capacity=14_000_000, max_frontier=1 << 16,
+        dedup_factor=1,
+    ).join()
+    assert (checker.unique_state_count(), checker.state_count(),
+            checker.max_depth()) == (12_630_223, 38_569_420, 12)
+
+
+def prededup_batches(rng, dev):
+    """Batches for K12: keys with hi >= 2**31 beside small ones, an active
+    all-ones key, an all-duplicate batch, a batch with no active lane, and
+    sizes that are no power of two, up to 2**22 lanes."""
+    out = []
+    for n, pool, p in ((1, 1, 1.0), (37, 5, 0.9), (4097, 4097, 0.5),
+                       (100_003, 20_000, 0.8), ((1 << 22) - 3, 1 << 20, 0.6),
+                       (5000, 1, 1.0), (6000, 100, 0.0)):
+        keys = rng.integers(0, 1 << 63, size=pool, dtype=np.uint64)
+        keys[: pool // 2] |= np.uint64(1 << 63)
+        vals = keys[rng.integers(0, pool, size=n)]
+        vals[n // 2] = np.uint64(0xFFFFFFFFFFFFFFFF)
+        hi = (vals >> np.uint64(32)).astype(np.uint32)
+        lo = vals.astype(np.uint32)
+        active = torch.from_numpy(rng.random(n) < p).to(dev)
+        out.append((_t(hi, dev), _t(lo, dev), active))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_prededup_matches_twin():
+    """K12 + K3 against the twin (a stable torch sort of the sign-flipped
+    key) on the card, at dedup_factor 1 and 4 and a 256-lane rung."""
+    dev = _card()
+    for hi, lo, active in prededup_batches(np.random.default_rng(41), dev):
+        for dd, rung in ((1, None), (4, None), (1, 256)):
+            got = prededup(hi, lo, active, dd, rung)
+            want = prededup_plain(hi, lo, active, dd, rung)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+def ping_pong_rows(rng, n, max_nat):
+    """Random ping-pong rows: counters in range and past it, random
+    envelope sets and markers, and random words."""
+    e = ppc.envelope_count(max_nat)
+    c = rng.integers(0, 16, size=(n, 2))
+    env = rng.integers(0, 1 << e, size=n, dtype=np.uint64)
+    last = rng.integers(0, 32, size=n, dtype=np.uint64)
+    bits = (c[:, 0] | (c[:, 1] << 4)).astype(np.uint64) | (env << np.uint64(8)) | (
+        last << np.uint64(8 + e))
+    rows = np.stack([bits & np.uint64(0xFFFFFFFF), bits >> np.uint64(32)], 1)
+    rows[: n // 8] = rng.integers(0, 1 << 32, size=(n // 8, 2))
+    return rows.astype(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_nat", [1, 5, 11, 13])
+@pytest.mark.parametrize("lossy", [False, True])
+def test_cuda_ping_pong_step_matches_twin(max_nat, lossy):
+    """K13 against its twin on the card: every lane's successor, the
+    boundary-gated validity and the conds."""
+    dev = _card()
+    rows = _t(ping_pong_rows(np.random.default_rng(max_nat), 50_000, max_nat), dev)
+    for g, w in zip(ppc.ping_pong_step(rows, max_nat, lossy),
+                    ppc.ping_pong_step_plain(rows, max_nat, lossy)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", range(1, 8))
+def test_cuda_paxos_step_matches_twin(c):
+    """K14 against its twin on the card, on fuzzed rows and on the rows of
+    the port's bounded CPU run, at several ballot bounds."""
+    dev = _card()
+    m, w = pc.slot_count(c), pc.state_width(c)
+    rng = np.random.default_rng(50 + c)
+    rows = [_t(_fuzz_rows(rng, 3000, w, pc._NET0, m, 9), dev)]
+    if c <= 2:
+        run = PaxosModelCfg(c, 3, Network.new_unordered_nonduplicating(),
+                            max_round=1).into_model().checker().spawn_gpu(
+            device="cpu", capacity=1 << 13, max_frontier=1 << 8).join()
+        rows.append(run._carry.rows[: run._carry.tail * w].view(-1, w).to(dev))
+    for r in rows:
+        for max_round in (0, 1, 3, 14):
+            for g, p in zip(pc.paxos_step(r, c, max_round),
+                            pc.paxos_step_plain(r, c, max_round)):
+                assert torch.equal(g, p)
+
+
+def _ping_pong(max_nat, lossy=True):
+    return PingPongCfg(False, max_nat).into_model().lossy_network_(lossy).checker()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_nat,lossy,kw,golden", [
+    (1, True, {}, (14, 21, 6)),
+    (5, False, {}, (11, 11, 11)),
+    (5, True, {}, (4_094, 21_505, 22)),
+    (6, True, dict(max_frontier=1 << 12), (16_382, 102_401, 26)),
+])
+def test_cuda_ping_pong_engine_matches_cpu_run(max_nat, lossy, kw, golden, tmp_path):
+    """The reference goldens on the card, bit-equal to the CPU runs; at
+    ``max_nat`` 6 with 4,096 states a chunk the run falls back to the
+    sorted path and still writes the CPU run's log."""
+    _card()
+    geo = dict(capacity=1 << 16, **kw)
+    gpu = _ping_pong(max_nat, lossy).spawn_gpu(**geo).join()
+    cpu = _ping_pong(max_nat, lossy).spawn_gpu(device="cpu", **geo).join()
+    assert (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth()) == golden
+    for a, b in zip(_logs(gpu, tmp_path / "g.npz"), _logs(cpu, tmp_path / "c.npz")):
+        assert np.array_equal(a, b)
+    assert sorted(gpu.discoveries()) == sorted(cpu.discoveries())
+    assert gpu._grow_notes == cpu._grow_notes
+    assert ("sortless=0" in gpu._grow_notes) == bool(kw)
+
+
+@pytest.mark.cuda
+def test_cuda_ping_pong_goldens_at_size():
+    """Lossy ``max_nat`` 13 on the claim path, past 2**32 generated
+    states: the closed form's 268,435,454 unique / 3,556,769,793 states /
+    depth 54 less three states the 64-bit fingerprint merges into logged
+    ones and their 34 successors (``chip_smoke.py`` phase 22 finds them);
+    and ``max_nat`` 11 at the default dedup_factor, where the full
+    buffer's flag 4 falls back to the sorted path and then relaxes to
+    ``dedup_factor=1`` at 8,192 states a chunk (16,777,214 / 188,743,681 /
+    46)."""
+    _card()
+    big = _ping_pong(13).spawn_gpu(
+        capacity=1 << 30, log_capacity=1 << 28, max_frontier=1 << 16,
+        dedup_factor=1).join()
+    assert (big.unique_state_count(), big.state_count(), big.max_depth()) == (
+        268_435_451, 3_556_769_759, 54)
+    del big
+    torch.cuda.empty_cache()
+    mid = _ping_pong(11).spawn_gpu(capacity=1 << 26, max_frontier=1 << 16).join()
+    assert (mid.unique_state_count(), mid.state_count(), mid.max_depth()) == (
+        16_777_214, 188_743_681, 46)
+    assert mid._grow_notes[-2:] == [
+        "sortless=0",
+        "dedup_factor=1; max_frontier=32768; max_frontier=16384; max_frontier=8192",
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,max_round,golden", [
+    (3, 3, (1_194_428, 2_420_477, 28)), (4, 2, (435_244, 867_663, 25)),
+])
+def test_cuda_bounded_paxos_golden(c, max_round, golden):
+    """Bounded paxos on one card, single-phase through K14."""
+    _card()
+    checker = PaxosModelCfg(
+        c, 3, Network.new_unordered_nonduplicating(), max_round=max_round
+    ).into_model().checker().spawn_gpu(
+        capacity=1 << 22, max_frontier=1 << 16, dedup_factor=1).join()
+    assert (checker.unique_state_count(), checker.state_count(),
+            checker.max_depth()) == golden
+    assert sorted(checker.discoveries()) == ["value chosen"]

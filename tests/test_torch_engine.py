@@ -191,21 +191,22 @@ def test_eventually_bits_and_counterexample_match_jax(tmp_path, tmp_path_factory
 
 
 def test_growth_of_table_log_and_buffer_keeps_logs_bit_equal(tmp_path, tmp_path_factory):
-    """A tiny table and log and a chunk of 2,048 states on 2pc rm=6: the run
-    trips flag 1 (table), 2 (log) and 4 (compaction buffer, past its 16K
-    floor), expands levels wider than a chunk, grows in place each time --
-    and still writes the log a single JAX run without growth writes."""
-    jax_checker, jax_logs = _jax_run(
-        6, tmp_path_factory, capacity=1 << 17, max_frontier=1 << 11, dedup_factor=1
-    )
-    port = TwoPhaseSys(rm_count=6).checker().spawn_gpu(
-        device="cpu", capacity=1 << 8, log_capacity=1 << 7, max_frontier=1 << 11,
-    ).join()
+    """A tiny table and log and a chunk of 2,048 states on 2pc rm=6 at the
+    default dedup_factor: the run trips flag 1 (table), 2 (log) and 4
+    (compaction buffer, past its 16K floor), falls back to the sorted
+    dedup path at the first flag 4 (``sortless=0``, new states appended in
+    sorted-key order from then on), expands levels wider than a chunk,
+    grows in place each time -- and writes the log the JAX engine writes
+    at the same arguments."""
+    geometry = dict(capacity=1 << 8, log_capacity=1 << 7, max_frontier=1 << 11)
+    jax_checker, jax_logs = _jax_run(6, tmp_path_factory, **geometry)
+    port = TwoPhaseSys(rm_count=6).checker().spawn_gpu(device="cpu", **geometry).join()
     seen = 0
     for flags in port._grow_flags:
         seen |= flags
     assert seen == 1 | 2 | 4
-    assert port._dedup_factor == 1
+    assert any("sortless=0" in note for note in port._grow_notes)
+    assert not port._sortless and port._dedup_factor == 1
     assert port.waves() - len(port._grow_flags) > port.max_depth()
     assert port.unique_state_count() == 50_816
     _assert_same_run(jax_checker, jax_logs, port, _port_logs(port, tmp_path))

@@ -108,7 +108,7 @@ def test_compact_valid_overflow_edge_matches_jax(extra):
     valid[rng.choice(b, v_sz + extra, replace=False)] = True
     hi = rng.integers(0, 2**32, size=b, dtype=np.uint32)
     lo = rng.integers(0, 2**32, size=b, dtype=np.uint32)
-    got = compact_valid(_t(hi), _t(lo), torch.from_numpy(valid), v_sz)
+    got = compact_valid(_t(hi), _t(lo), torch.from_numpy(valid), dd)
     want = jax_hashset.compact_valid(
         jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(valid), dd
     )

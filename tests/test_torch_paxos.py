@@ -134,9 +134,9 @@ def test_codec_refuses_what_the_slice_does_not_port():
     with pytest.raises(ValueError, match="1 to 7 clients"):
         _port_model(8).compiled()
     model = PaxosModelCfg(
-        2, 3, Network.new_unordered_nonduplicating(), max_round=3
+        2, 3, Network.new_unordered_nonduplicating(), max_round=16
     ).into_model()
-    with pytest.raises(ValueError, match="no device ballot boundary"):
+    with pytest.raises(ValueError, match="outside 0..15"):
         model.compiled()
 
 
@@ -555,3 +555,55 @@ def test_jax_snapshot_of_paxos_check_4_resumes_in_the_port(tmp_path, tmp_path_fa
     w = pc.state_width(4)
     _assert_same_run((straight, _logs(straight, tmp_path / "s.npz", w), None),
                      resumed, tmp_path, w)
+
+
+# --- the ballot-bounded model: single-phase through K14's twin -------------------
+
+
+def _bounded(pkg_cfg, net, c, max_round):
+    return pkg_cfg(c, 3, net, max_round=max_round).into_model()
+
+
+def test_bounded_step_twin_matches_jax_step_and_boundary(tmp_path_factory):
+    """K14's twin against the JAX ``step`` and ``boundary`` of c=2 at
+    ``max_round=1``: every lane's words, the validity ANDed with the
+    successor's boundary, and the overflow flag -- over the JAX engine's
+    whole log and the overflow and wrap-around rows."""
+    jm = _bounded(jpaxos.PaxosModelCfg, JNetwork.new_unordered_nonduplicating(), 2, 1)
+    jcm = JPaxosCompiled(jm)
+    rows = _jax_run(tmp_path_factory, "c2r1", jm)[1]["rows2d"]
+    rows = np.concatenate([rows, _hazard_rows(2)]).astype(np.uint32)
+
+    def jax_step(x):
+        nexts, valid, flag = jax.vmap(jcm.step)(x)
+        inside = jax.vmap(jax.vmap(jcm.boundary))(nexts)
+        return nexts, valid & inside, flag
+
+    j_nexts, j_valid, j_flag = (np.asarray(x) for x in jax.jit(jax_step)(jnp.asarray(rows)))
+    p_nexts, p_valid, p_flag = pc.paxos_step_plain(from_numpy_u32(rows, "cpu"), 2, 1)
+    assert np.array_equal(to_numpy_u32(p_nexts), j_nexts)
+    assert np.array_equal(p_valid.numpy(), j_valid)
+    assert bool(p_flag) == bool(j_flag.any())
+    # The boundary drops lanes the unbounded step keeps.
+    assert (pc.paxos_step_valid_plain(from_numpy_u32(rows, "cpu"), 2).numpy() & ~j_valid).any()
+
+
+def test_engine_matches_jax_on_bounded_paxos(tmp_path, tmp_path_factory):
+    """c=2 at ``max_round=1``: single-phase in both engines (1,834 unique /
+    3,535 states / depth 18), the logs bit-equal; at ``max_round=0`` the
+    single init state."""
+    from stateright_tpu.parallel.wave_common import two_phase_capable as j_two_phase
+    from stateright_tpu_torch.parallel.compiled import two_phase_capable
+
+    jm = _bounded(jpaxos.PaxosModelCfg, JNetwork.new_unordered_nonduplicating(), 2, 1)
+    pm = _bounded(PaxosModelCfg, Network.new_unordered_nonduplicating(), 2, 1)
+    assert not two_phase_capable(pm.compiled()) and not j_two_phase(JPaxosCompiled(jm))
+    assert two_phase_capable(_port_model(2).compiled())
+    port = pm.checker().spawn_gpu(device="cpu", **GEOMETRY).join()
+    assert (port.unique_state_count(), port.state_count(), port.max_depth()) == (
+        1_834, 3_535, 18)
+    _assert_same_run(_jax_run(tmp_path_factory, "c2r1", jm), port, tmp_path,
+                     pc.state_width(2))
+    zero = _bounded(PaxosModelCfg, Network.new_unordered_nonduplicating(), 2, 0)
+    one = zero.checker().spawn_gpu(device="cpu", **GEOMETRY).join()
+    assert (one.unique_state_count(), one.state_count(), one.max_depth()) == (1, 1, 1)

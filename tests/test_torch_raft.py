@@ -270,3 +270,22 @@ def test_jax_snapshot_resumes_in_the_port(tmp_path, tmp_path_factory):
     resumed = RaftModelCfg(3).into_model().checker().target_max_depth(6).spawn_gpu(
         device="cpu", resume_from=str(partial[2]), **GEOMETRY).join()
     _assert_same_run(_jax_run(tmp_path_factory, 6), resumed, tmp_path)
+
+
+@pytest.mark.slow
+def test_jax_raft_check_count_is_the_cards():
+    """The JAX engine's own ``raft check`` (depth 12) at the card run's
+    arguments and ``dedup_factor=1``: 12,630,223 unique / 38,569,420
+    states, the count ``chip_smoke.py`` phase 20 and
+    ``test_cuda_raft_check_golden`` pin the port to.  A full-size run
+    (about three minutes and 7.5 GB on a CPU), so out of the tier."""
+    checker = JRaftModelCfg(server_count=3).into_model().checker().target_max_depth(
+        12).spawn_tpu(
+        capacity=1 << 25, log_capacity=14_000_000, max_frontier=1 << 16,
+        dedup_factor=1, device=jax.devices("cpu")[0],
+    ).join()
+    assert (checker.unique_state_count(), checker.state_count(),
+            checker.max_depth()) == (12_630_223, 38_569_420, 12)
+    assert sorted(checker.discoveries()) == [
+        "Election Liveness", "Election Safety", "Log Liveness",
+    ]
