@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the fourteen CUDA kernels of ``stateright_tpu_torch/csrc``
+1. build: compile the seventeen CUDA kernels of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -107,7 +107,28 @@ Phases, in order; any failure exits non-zero:
     count), its kernels, K12 among them, against their twins on one real
     wave of its sorted path, and raft to depth 7, the shallowest depth
     past the fallback, bit-equal to the CPU run;
-27. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+27. ``2pc check-sym 12`` through ``spawn_gpu()`` under ``symmetry()``
+    (K15 canonicalizes every candidate row before K1 hashes it): 6,656
+    orbits / 105,081 states / depth 38 with both agreement discoveries,
+    their paths re-executed on the host; rm=10 3,300 / 43,298 / 32 and
+    rm=5 314 / 2,048 / 17, each bit-equal to the port's CPU run, and rm=5
+    314 again at 64 states a chunk;
+28. K15 against its twin on seeded rm=12 rows of every bit pattern (F =
+    2**20 states x A = 62 lanes), idempotent, and on synthetic specs (Id
+    fields with sentinels >= n, a word-aligned layout with a 32-bit key,
+    keys past 64 bits, sixteen records); then the sym12 path's other
+    kernels against their twins on one real wave, replayed as in phase 7;
+29. the LWW-register CRDT (K16, SelectRandom): 2 nodes to depth 7
+    (189,031 / 468,398), 3 nodes to depth 5 (17,364 / 37,504), 2 nodes
+    to depth 6 (30,991 / 68,295) bit-equal to the CPU run, all at the
+    default ``dedup_factor`` with no discovery; to the reference's depth
+    8 the codec's flag stops the run with the JAX engine's error; then
+    the depth-7 path's kernels, K16 and K12 among them, against their
+    twins on one real wave;
+30. the trap counter (K17): ``reaches limit`` (ending in the trap) and
+    ``trapped`` discovered, nothing without the trap, the same run under
+    the identity canonicalization, and its kernels against their twins;
+31. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -220,6 +241,17 @@ PP11S_GEOMETRY = dict(capacity=1 << 26, max_frontier=1 << 16)
 PAXOS3B_GEOMETRY = dict(capacity=1 << 22, max_frontier=1 << 16, dedup_factor=1)
 # raft to depth 10 at the default dedup_factor: the sorted path.
 RAFT10S_GEOMETRY = dict(capacity=1 << 21, max_frontier=1 << 12)
+# 2pc under symmetry: the JAX engine's orbit counts at this geometry.
+SYM_GEOMETRY = dict(capacity=1 << 20, max_frontier=1 << 13)
+GOLDEN_SYM = {5: (314, 2_048, 17), 10: (3_300, 43_298, 32),
+              12: (6_656, 105_081, 38)}
+SYM_FOUND = ["abort agreement", "commit agreement"]
+# LWW at the default dedup_factor (its waves fall back to the sorted path).
+LWW_GEOMETRY = dict(capacity=1 << 22, max_frontier=1 << 14)
+GOLDEN_LWW2D7 = (189_031, 468_398, 7)
+GOLDEN_LWW3D5 = (17_364, 37_504, 5)
+GOLDEN_LWW2D6 = (30_991, 68_295, 6)
+TRAP_GEOMETRY = dict(capacity=1 << 10, max_frontier=1 << 4)
 SEED = 20261017
 
 KERNELS = {
@@ -252,6 +284,12 @@ KERNELS = {
                        "stateright_tpu/models/ping_pong_compiled.py:138"),
     "paxos_step": ("stateright_tpu_torch/csrc/paxos_step.cu",
                    "stateright_tpu/models/paxos_compiled.py:541"),
+    "canonicalize_rows": ("stateright_tpu_torch/csrc/canon.cu",
+                          "stateright_tpu/parallel/canon.py:182"),
+    "lww_step": ("stateright_tpu_torch/csrc/lww_step.cu",
+                 "stateright_tpu/models/lww_compiled.py:195"),
+    "trap_step": ("stateright_tpu_torch/csrc/fixtures_step.cu",
+                  "stateright_tpu/models/fixtures.py:201"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -277,6 +315,12 @@ PATH_KERNELS = {
                 "paxos_conds", "wave_eval"),
     "raft10s": ("device_fp64", "raft_step", "compact", "insert_batch_claim",
                 "wave_eval", "prededup"),
+    "sym12": ("device_fp64", "twophase_step", "canonicalize_rows", "compact",
+              "insert_batch_claim", "wave_eval"),
+    "lww": ("device_fp64", "lww_step", "compact", "insert_batch_claim",
+            "wave_eval", "prededup"),
+    "trap": ("device_fp64", "trap_step", "compact", "insert_batch_claim",
+             "wave_eval"),
 }
 
 
@@ -538,6 +582,8 @@ def kernel_row(rows, path):
 
 def launch_counted():
     from stateright_tpu_torch.models.abd_compiled import abd_step
+    from stateright_tpu_torch.models.fixtures import trap_step
+    from stateright_tpu_torch.models.lww_compiled import lww_step
     from stateright_tpu_torch.models.paxos_compiled import (
         paxos_conds, paxos_step, paxos_step_lane, paxos_step_valid,
     )
@@ -546,13 +592,14 @@ def launch_counted():
     from stateright_tpu_torch.models.single_copy_compiled import single_copy_step
     from stateright_tpu_torch.models.twophase_compiled import twophase_step
     from stateright_tpu_torch.ops.device_fp import device_fp64
+    from stateright_tpu_torch.parallel.canon import canonicalize_rows
     from stateright_tpu_torch.parallel.hashset import insert_batch_claim, prededup
     from stateright_tpu_torch.parallel.wave_common import compact, wave_eval
 
     return (device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
             single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
-            paxos_step)
+            paxos_step, canonicalize_rows, lww_step, trap_step)
 
 
 def reset_launches():
@@ -682,15 +729,15 @@ def replay_wave(torch, checker, geometry):
     """One real wave of a card run at ``geometry``: the first chunk of its
     widest expanded level.  Returns its rows, start position,
     eventually-bits, discovered mask, the run's table as it stood when the
-    wave ran (every state of the levels before, rebuilt from the log), and
-    the positions the run appended from that wave."""
+    wave ran (every state of the levels before, rebuilt from the log, the
+    canonical rows' fingerprints under symmetry), and the positions the
+    run appended from that wave."""
     from stateright_tpu_torch.ops.device_fp import device_fp64
     from stateright_tpu_torch.parallel.hashset import HashSet, insert_batch_claim
     from stateright_tpu_torch.parallel.wave_common import NO_ID
 
     carry = checker._carry
     w = checker._compiled.state_width
-    fpw = checker._fp_words
     f = geometry["max_frontier"]
     parent = carry.parent[: carry.tail].long()
     # BFS depth of every position: the log is in level order.
@@ -709,7 +756,8 @@ def replay_wave(torch, checker, geometry):
     # When the level's first chunk ran, the table held exactly the states
     # of the levels before it and of this one: positions [0, level_end).
     table = HashSet.empty(geometry["capacity"], states.device)
-    hi, lo = device_fp64(carry.rows[: level_end * w].view(level_end, w)[:, :fpw])
+    logged = carry.rows[: level_end * w].view(level_end, w)
+    hi, lo = device_fp64(checker._identity(logged))
     insert_batch_claim(table, hi, lo,
                        torch.ones((level_end,), dtype=torch.bool,
                                   device=states.device))
@@ -1079,13 +1127,17 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     calls them (K1 on each row's identity prefix); the wave must append
     what the run did.  ``step`` returns ``(nexts, valid, conds, flag)``,
     or with ``conds`` -- ``(name, fn, plain)`` of a separate conds kernel
-    -- ``(nexts, valid, flag)``.  The step's operation count is the DP's
+    -- ``(nexts, valid, flag)``.  Under a symmetry with a non-empty spec,
+    K15 is held to its twin on the wave's candidate rows.  The step's operation count is the DP's
     (``codec``'s tester words; no codec, no DP: bound by bytes), charged
     to the conds kernel when there is one.  ``geometry`` is the chunk and
     ``dedup_factor`` the run ended at."""
     from stateright_tpu_torch.models.register_compiled_common import dp_work
     from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
     from stateright_tpu_torch.ops.u32 import u32
+    from stateright_tpu_torch.parallel.canon import (
+        canonicalize_rows, canonicalize_rows_plain, is_identity,
+    )
     from stateright_tpu_torch.parallel.hashset import (
         compact_valid, prededup, prededup_plain, unique_buffer_size,
     )
@@ -1096,7 +1148,6 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     row = kernel_row(rows, path)
     cm = checker._compiled
     w, m = cm.state_width, cm.max_actions
-    fpw = checker._fp_words
     carry = checker._carry
     states, start, eb, discovered, table, appended = replay_wave(
         torch, checker, geometry)
@@ -1145,9 +1196,23 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
         f * n_props + 2 * f * m + 2 * f * 4 + n_props * 8)
 
     # K1 on every candidate row's identity prefix, as the single-phase
-    # wave hashes them (in place: the prefix is a strided view).
+    # wave hashes them (in place: the prefix is a strided view; of the
+    # canonical rows, through K15, under symmetry).
     cand_rows = nexts.view(f * m, w)
-    ident = cand_rows[:, :fpw]
+    spec = cm.canon_spec() if checker._canon is not None else None
+    if spec is not None and not is_identity(spec):
+        # K15 reads and writes each candidate row once: bound by bytes.
+        k15 = canonicalize_rows(spec, cand_rows)
+        p15 = canonicalize_rows_plain(spec, cand_rows)
+        torch.cuda.synchronize()
+        row("canonicalize_rows", max_abs_err(torch, [(k15, p15)]),
+            time_ms(torch, lambda: canonicalize_rows(spec, cand_rows), 10),
+            time_ms(torch, lambda: canonicalize_rows_plain(spec, cand_rows), 2),
+            2 * f * m * w * 4)
+        log(f"  canonicalize_rows: {f * m} candidate rows of the wave")
+        del k15, p15
+    ident = checker._identity(cand_rows)
+    fpw = ident.shape[1]
     k1 = device_fp64(ident)
     p1 = device_fp64_plain(ident)
     torch.cuda.synchronize()
@@ -1638,6 +1703,219 @@ def phase_raft_sorted(torch, checker, rows):
         raise AssertionError(f"raft to depth 7 grew {gpu._grow_notes}")
 
 
+def run_sym12(torch):
+    """``2pc check-sym 12`` through ``spawn_gpu()`` under ``symmetry()``,
+    held to the JAX engine's orbit count; ``gpu_profile.py --model sym12``
+    times and traces this same run."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = TwoPhaseSys(rm_count=12).checker().symmetry().spawn_gpu(
+        **SYM_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != GOLDEN_SYM[12] or sorted(checker.discoveries()) != SYM_FOUND:
+        raise AssertionError(f"2pc check-sym 12 {got} {sorted(checker.discoveries())}")
+    return checker, elapsed
+
+
+def phase_sym_smaller(torch):
+    """rm=5 and rm=10 under symmetry bit-equal to the CPU run; rm=5 at 64
+    states a chunk (the orbit count does not depend on the traversal)."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    for rm in (5, 10):
+        gpu = card_and_cpu(f"2pc check-sym {rm}",
+                           lambda: TwoPhaseSys(rm_count=rm).checker().symmetry(),
+                           GOLDEN_SYM[rm], 2, **SYM_GEOMETRY)
+        if sorted(gpu.discoveries()) != SYM_FOUND:
+            raise AssertionError(f"check-sym {rm} found {sorted(gpu.discoveries())}")
+        paths = {k: len(p) - 1 for k, p in gpu.discoveries().items()}
+        log(f"  check-sym {rm} discoveries re-executed: {paths}")
+    narrow = TwoPhaseSys(rm_count=5).checker().symmetry().spawn_gpu(
+        capacity=1 << 20, max_frontier=1 << 6).join()
+    log(f"  check-sym 5 at 64 states a chunk: unique={narrow.unique_state_count()} "
+        f"waves={narrow.waves()}")
+    if narrow.unique_state_count() != GOLDEN_SYM[5][0]:
+        raise AssertionError("check-sym 5 depends on the chunk width")
+
+
+def canon_synthetic_specs():
+    from stateright_tpu_torch.parallel.canon import CanonSpec, field as F
+
+    return [
+        CanonSpec(3, (F(0, 0, 8), F(1, 0, 2, is_id=True)), (F(2, 0, 4),)),
+        CanonSpec(4, (F(1, 0, 32, word_stride=2), F(2, 3, 5, word_stride=2),
+                      F(0, 0, 3, is_id=True)), (F(0, 16, 3), F(9, 0, 8))),
+        CanonSpec(6, (F(0, 0, 32, word_stride=1), F(6, 0, 32, word_stride=1),
+                      F(12, 0, 32, word_stride=1)), ()),
+        CanonSpec(16, (F(0, 0, 2), F(1, 0, 2), F(2, 0, 1, bit_stride=2),
+                       F(3, 0, 4, word_stride=1, is_id=True)),
+                  (F(19, 0, 5), F(19, 27, 5))),
+    ]
+
+
+def phase_canon_kernel(torch):
+    """K15 against its twin at size: seeded rm=12 rows at the rm=10
+    kernels' scale (F = 2**20 states x A = 62 lanes, words of every bit
+    pattern), idempotent; then synthetic specs on fuzzed rows.  Its time
+    goes to the log; the kernels line times K15 on the sym12 path's own
+    wave (:func:`phase_single_phase_kernels`).  The twin runs in chunks of
+    2**22 rows (its int64 temporaries of 65M rows would not fit beside the
+    rest)."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+    from stateright_tpu_torch.parallel.canon import (
+        canonicalize_rows, canonicalize_rows_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    spec = TwoPhaseSys(rm_count=12).compiled().canon_spec()
+    b = F * (2 + 5 * 12)
+    x = torch.randint(-(1 << 31), 1 << 31, (b, 2), generator=gen, device=dev,
+                      dtype=torch.int32)
+    k = canonicalize_rows(spec, x)
+    err = max_abs_err(torch, [
+        (k[i : i + (1 << 22)], canonicalize_rows_plain(spec, x[i : i + (1 << 22)]))
+        for i in range(0, b, 1 << 22)])
+    if err:
+        raise AssertionError("K15 disagrees with its twin on the seeded rows")
+    if not torch.equal(canonicalize_rows(spec, k), k):
+        raise AssertionError("K15 is not idempotent on the seeded rows")
+    ms = time_ms(torch, lambda: canonicalize_rows(spec, x), 10)
+    nbytes = 2 * b * 2 * 4
+    moved = int((k != x).any(dim=1).sum())
+    log(f"  canonicalize_rows [seeded, not on the path]: {b} rm=12 rows, "
+        f"{moved} of them permuted, bit-equal to the twin and idempotent; "
+        f"kernel_ms={ms:.4f} bound_ms={nbytes / HBM_BYTES_PER_SEC * 1e3:.4f} "
+        f"(bytes={nbytes})")
+    del x, k
+    rng_gen = torch.Generator(device=dev)
+    rng_gen.manual_seed(SEED + 13)
+    for sp in canon_synthetic_specs():
+        w = 1 + max([f.word + (sp.n - 1) * f.word_stride for f in sp.fields]
+                    + [g.word for g in sp.id_fields])
+        for low, high in ((-(1 << 31), 1 << 31), (0, 20)):
+            r = torch.randint(low, high, (1 << 20, w), generator=rng_gen,
+                              device=dev, dtype=torch.int32)
+            got = canonicalize_rows(sp, r)
+            if not (torch.equal(got, canonicalize_rows_plain(sp, r))
+                    and torch.equal(canonicalize_rows(sp, got), got)):
+                raise AssertionError(f"K15 disagrees with its twin on {sp}")
+    torch.cuda.synchronize()
+    log(f"  canonicalize_rows: {len(canon_synthetic_specs())} synthetic specs "
+        "bit-equal to the twin and idempotent on 2**20 fuzzed rows each")
+
+
+def phase_sym12_kernels(torch, checker, rows):
+    """The sym12 path's kernels against their twins on one real wave
+    (:func:`phase_single_phase_kernels`; K15 on its candidate rows, K1 on
+    the K15 rows)."""
+    from stateright_tpu_torch.models.twophase_compiled import (
+        twophase_step, twophase_step_plain,
+    )
+
+    phase_single_phase_kernels(
+        torch, checker, rows, "sym12", final_geometry(checker, SYM_GEOMETRY),
+        "twophase_step", lambda states: twophase_step(states, 12),
+        lambda states: twophase_step_plain(states, 12), None)
+
+
+def lww_model(n):
+    from stateright_tpu_torch.models.lww_register import build_model
+
+    return build_model(n)
+
+
+def run_lww(torch, n=2, depth=7, golden=GOLDEN_LWW2D7):
+    """LWW with ``n`` nodes to ``depth`` through ``spawn_gpu()`` at the
+    default ``dedup_factor``, held to ``golden`` with no discovery;
+    ``gpu_profile.py --model lww2d7`` times and traces the default."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = lww_model(n).checker().target_max_depth(depth).spawn_gpu(
+        **LWW_GEOMETRY).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != golden or checker.discoveries():
+        raise AssertionError(f"lww {n} nodes depth {depth}: {got}, found "
+                             f"{sorted(checker.discoveries())}")
+    return checker, elapsed
+
+
+def phase_lww(torch, checker, rows):
+    """3 nodes to depth 5; 2 nodes to depth 6 against the CPU run; the
+    overflow at depth 8; then the depth-7 path's kernels against their
+    twins on one real wave."""
+    from stateright_tpu_torch.models.lww_compiled import (
+        NET_SLOTS, lww_step, lww_step_plain,
+    )
+
+    three, elapsed = run_lww(torch, 3, 5, GOLDEN_LWW3D5)
+    log(f"  lww 3 nodes depth 5: unique={three.unique_state_count()} "
+        f"states={three.state_count()} waves={three.waves()} growths "
+        f"{three._grow_notes} elapsed_s={elapsed:.3f}")
+    card_and_cpu("lww 2 nodes depth 6",
+                 lambda: lww_model(2).checker().target_max_depth(6),
+                 GOLDEN_LWW2D6, 2 + NET_SLOTS, **LWW_GEOMETRY)
+    try:
+        lww_model(2).checker().target_max_depth(8).spawn_gpu(**LWW_GEOMETRY).join()
+    except RuntimeError as e:
+        if "encoding-capacity overflow" not in str(e):
+            raise
+        log(f"  lww 2 nodes depth 8 stops as the JAX engine does: {e}")
+    else:
+        raise AssertionError("lww 2 nodes depth 8 did not flag the codec's overflow")
+
+    def reorder(out):  # (nexts, valid, flags, conds) -> conds before flags
+        return out[0], out[1], out[3], out[2]
+
+    phase_single_phase_kernels(
+        torch, checker, rows, "lww", final_geometry(checker, LWW_GEOMETRY),
+        "lww_step", lambda states: reorder(lww_step(states, 2)),
+        lambda states: reorder(lww_step_plain(states, 2)), None)
+
+
+def run_trap(torch, trap_at=2, symmetric=False):
+    from stateright_tpu_torch.models.fixtures import TrapCounter
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    builder = TrapCounter(trap_at=trap_at).checker()
+    if symmetric:
+        builder = builder.symmetry_fn(lambda s: s)
+    checker = builder.spawn_gpu(**TRAP_GEOMETRY).join()
+    return checker, time.monotonic() - t0
+
+
+def phase_trap(torch, checker, rows):
+    """The trap counter's discoveries, its run without the trap and under
+    the identity canonicalization, and its kernels against their twins."""
+    from stateright_tpu_torch.models.fixtures import trap_step, trap_step_plain
+
+    found = sorted(checker.discoveries())
+    last = checker.discoveries()["reaches limit"].last_state() if found else None
+    log(f"  trap: found {found}, reaches limit's path ends in {last}")
+    if found != ["reaches limit", "trapped"] or last != 6:
+        raise AssertionError("trap counter: wrong discoveries")
+    free, _ = run_trap(torch, trap_at=10**6)
+    if free.discoveries():
+        raise AssertionError(f"trap counter without the trap found {sorted(free.discoveries())}")
+    sym, _ = run_trap(torch, symmetric=True)
+    same = ((sym.unique_state_count(), sym.state_count(), sorted(sym.discoveries()))
+            == (checker.unique_state_count(), checker.state_count(), found))
+    log(f"  trap under the identity canonicalization: "
+        f"{'the plain run' if same else 'DIFFERS from the plain run'}")
+    if not same:
+        raise AssertionError("trap counter: symmetry_fn(identity) changed the run")
+    phase_single_phase_kernels(
+        torch, checker, rows, "trap", final_geometry(checker, TRAP_GEOMETRY),
+        "trap_step", lambda states: trap_step(states, 5, 2, 6),
+        lambda states: trap_step_plain(states, 5, 2, 6), None)
+
+
 def main() -> int:
     use_one_card()
     try:
@@ -1798,6 +2076,32 @@ def main() -> int:
     phase_raft_sorted(torch, checker, rows)
     del checker
     torch.cuda.empty_cache()
+
+    log("phase 27: 2pc check-sym 12 on the card; rm=5 and rm=10 against "
+        "the CPU runs")
+    launches["sym12"], checker = run_full(torch, gpu, "sym12", run_sym12)
+    phase_sym_smaller(torch)
+
+    log("phase 28: K15 against its twin at size; the sym12 path's kernels, "
+        "K15 among them, on one of its waves")
+    phase_canon_kernel(torch)
+    torch.cuda.empty_cache()
+    phase_sym12_kernels(torch, checker, rows)
+    del checker
+    torch.cuda.empty_cache()
+
+    log("phase 29: the LWW-register CRDT (SelectRandom) on the card")
+    launches["lww"], checker = run_full(torch, gpu, "lww", run_lww)
+    log(f"  lww growths: {checker._grow_notes}")
+    phase_lww(torch, checker, rows)
+    del checker
+    torch.cuda.empty_cache()
+
+    log("phase 30: the trap counter on the card")
+    launches["trap"], checker = run_full(torch, gpu, "trap", run_trap,
+                                         properties_hold=False)
+    phase_trap(torch, checker, rows)
+    del checker
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []

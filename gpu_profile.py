@@ -2,7 +2,7 @@
 """Where the time of a full check goes on one H100.
 
     python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o|raft|
-                                    pp13|pp11s|paxos3b]
+                                    pp13|pp11s|paxos3b|sym12|lww2d7]
                            [--runs N] [--trace-dir DIR]
 
 Builds the port's kernels, runs one of ``chip_smoke.py``'s full checks
@@ -14,8 +14,10 @@ through ``spawn_gpu()`` at its geometry, held to its goldens --
 (``linearizable-register check 3 ordered``, phase 17), ``run_raft``
 (``raft check``, depth 12, phase 20), ``run_pp13`` (lossy ping-pong at
 ``max_nat`` 13, phase 22), ``run_pp11s`` (lossy ping-pong at ``max_nat`` 11
-through the sorted fallback, phase 23) or ``run_paxos3b`` (``paxos check
-3`` at ``max_round=3``, single-phase, phase 25) -- ``--runs`` times
+through the sorted fallback, phase 23), ``run_paxos3b`` (``paxos check
+3`` at ``max_round=3``, single-phase, phase 25), ``run_sym12`` (``2pc
+check-sym 12``, phase 27) or ``run_lww`` (the LWW register, 2 nodes to
+depth 7, phase 29) -- ``--runs`` times
 untraced (wall seconds of each, then median and spread), and once more
 under ``torch.profiler``: device time per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
@@ -39,7 +41,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="rm10",
                     choices=("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o",
-                             "raft", "pp13", "pp11s", "paxos3b"))
+                             "raft", "pp13", "pp11s", "paxos3b", "sym12",
+                             "lww2d7"))
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -63,6 +66,8 @@ def main() -> int:
         "pp13": chip_smoke.run_pp13,
         "pp11s": chip_smoke.run_pp11s,
         "paxos3b": chip_smoke.run_paxos3b,
+        "sym12": chip_smoke.run_sym12,
+        "lww2d7": chip_smoke.run_lww,
     }[args.model]
     cuda.build()
     card = chip_smoke.gpu_line()

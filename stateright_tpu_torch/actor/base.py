@@ -1,12 +1,13 @@
 """The ``Actor`` abstraction and its command output.
 
 The counterpart of ``stateright_tpu/actor/base.py`` (reference:
-src/actor.rs) with the commands the port's actor models emit: a send, and
-setting or cancelling a timer.  Handlers *return* the next state, or
+src/actor.rs) with the commands the port's actor models emit: a send, setting or
+cancelling a timer, and a random choice set.  Handlers *return* the next
+state, or
 ``None`` for "unchanged" (the reference's ``Cow::Borrowed``); a no-op is a
 ``None`` return with no commands, and a timeout whose handler only renews
-its own timer is one too (:func:`is_no_op_with_timer`).  Random choices
-and storage saves are not ported.
+its own timer is one too (:func:`is_no_op_with_timer`).  Storage saves
+are not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +33,12 @@ class SetTimerCmd:
 @dataclass(frozen=True)
 class CancelTimerCmd:
     timer: Any
+
+
+@dataclass(frozen=True)
+class ChooseRandomCmd:
+    key: str
+    choices: Tuple[Any, ...]
 
 
 def model_timeout() -> Tuple[float, float]:
@@ -73,6 +80,11 @@ class Out:
     def cancel_timer(self, timer: Any) -> None:
         self.commands.append(CancelTimerCmd(timer))
 
+    def choose_random(self, key: str, choices: Iterable[Any]) -> None:
+        """Record a nondeterministic choice set, a branch of the search
+        tree; replaces an earlier set of the same key."""
+        self.commands.append(ChooseRandomCmd(key, tuple(choices)))
+
     def __repr__(self) -> str:
         return f"Out({self.commands!r})"
 
@@ -94,8 +106,8 @@ def is_no_op_with_timer(returned_state: Optional[Any], out: Out, timer: Any) -> 
 
 class Actor:
     """Event-driven actor.  Reference: the ``Actor`` trait,
-    src/actor.rs:305-411.  ``on_msg`` and ``on_timeout`` return the next
-    actor state, or ``None`` for no change."""
+    src/actor.rs:305-411.  ``on_msg``, ``on_timeout`` and ``on_random``
+    return the next actor state, or ``None`` for no change."""
 
     def on_start(self, id: Id, storage: Optional[Any], o: Out) -> Any:
         raise NotImplementedError
@@ -104,6 +116,9 @@ class Actor:
         return None
 
     def on_timeout(self, id: Id, state: Any, timer: Any, o: Out) -> Optional[Any]:
+        return None
+
+    def on_random(self, id: Id, state: Any, random: Any, o: Out) -> Optional[Any]:
         return None
 
     def name(self) -> str:

@@ -7,15 +7,19 @@ families, in the reference's enumeration order (src/actor/model.rs:
 269-333): for each distinct deliverable envelope (each channel head on the
 ordered fabric), its ``Drop`` when the network is lossy and its
 ``Deliver``; one ``Timeout`` per pending timer; ``Crash`` of each live
-actor while fewer than ``max_crashes`` are down; and ``Recover`` of each
-crashed one.  A handler no-op is no successor, except on the ordered
+actor while fewer than ``max_crashes`` are down; ``Recover`` of each
+crashed one; and a ``SelectRandom`` for each choice of each pending
+random choice set.  A handler no-op is no successor, except on the ordered
 fabric, where consuming the channel head changes the state
 (src/actor/model.rs:364); a timeout whose handler only renews its timer
 is none either, and any other fired timer is consumed.  A ``Drop``
-changes only the network.  ``ActorModelState`` keeps the JAX class's name
-and fields (random choices and storages stay at their empty values), so
-states fingerprint the same in both packages.  ``SelectRandom`` is not
-ported.
+changes only the network; a ``SelectRandom`` always makes a successor,
+consuming its choice set before the handler's commands apply (the
+handler may choose again), and a crash forgets the actor's sets.
+``ActorModelState`` keeps the JAX class's name and fields and the JAX
+encoding of random choices (per actor, a tuple of ``(key, choices)``
+items sorted by key; storages stay None), so states fingerprint the same
+in both packages.
 """
 
 from __future__ import annotations
@@ -27,8 +31,8 @@ from typing import Any, Callable, List, Optional, Tuple
 from ..core.model import Model, Property
 from ..ops.fingerprint import fingerprint
 from .base import (
-    Actor, CancelTimerCmd, Out, SendCmd, SetTimerCmd, is_no_op,
-    is_no_op_with_timer,
+    Actor, CancelTimerCmd, ChooseRandomCmd, Out, SendCmd, SetTimerCmd,
+    is_no_op, is_no_op_with_timer,
 )
 from .ids import Id
 from .network import Envelope, Network
@@ -63,11 +67,18 @@ class Recover:
 
 
 @dataclass(frozen=True)
+class SelectRandom:
+    actor: Id
+    key: str
+    random: Any
+
+
+@dataclass(frozen=True)
 class ActorModelState:
     actor_states: Tuple[Any, ...]
     network: Network
     timers_set: Tuple[Any, ...]  # per actor: frozenset of pending timers
-    random_choices: Tuple[Any, ...]  # per actor: () (no random choices)
+    random_choices: Tuple[Any, ...]  # per actor: ((key, choices), ...) by key
     crashed: Tuple[bool, ...]
     history: Any
     actor_storages: Tuple[Any, ...]  # per actor: None (no storage)
@@ -132,11 +143,11 @@ class ActorModel(Model):
         return self._within_boundary(self.cfg, state)
 
     def _process_commands(self, id: Id, out: Out, network: Network, history,
-                          timers: List[Any]):
+                          timers: List[Any], randoms: List[Any]):
         """Apply a handler's commands (src/actor/model.rs:191-235): a send
         is recorded into the history, then added to the network; a timer
-        command updates the actor's entry of ``timers`` in place.  Returns
-        the new network and history."""
+        or random-choice command updates the actor's entry of ``timers``
+        or ``randoms`` in place.  Returns the new network and history."""
         index = int(id)
         for c in out.commands:
             if isinstance(c, SendCmd):
@@ -149,6 +160,13 @@ class ActorModel(Model):
                 timers[index] = timers[index] | {c.timer}
             elif isinstance(c, CancelTimerCmd):
                 timers[index] = timers[index] - {c.timer}
+            elif isinstance(c, ChooseRandomCmd):
+                choices = dict(randoms[index])
+                if c.choices:
+                    choices[c.key] = tuple(c.choices)
+                else:
+                    choices.pop(c.key, None)
+                randoms[index] = tuple(sorted(choices.items()))
             else:
                 raise TypeError(f"unsupported actor command {c!r}")
         return network, history
@@ -157,18 +175,19 @@ class ActorModel(Model):
         n = len(self.actors)
         network, history = self.init_network, self.init_history
         timers = [frozenset()] * n
+        randoms = [()] * n
         actor_states = []
         for index, actor in enumerate(self.actors):
             out = Out()
             actor_states.append(actor.on_start(Id(index), None, out))
             network, history = self._process_commands(
-                Id(index), out, network, history, timers
+                Id(index), out, network, history, timers, randoms
             )
         return [ActorModelState(
             actor_states=tuple(actor_states),
             network=network,
             timers_set=tuple(timers),
-            random_choices=((),) * n,
+            random_choices=tuple(randoms),
             crashed=(False,) * n,
             history=history,
             actor_storages=(None,) * n,
@@ -191,6 +210,10 @@ class ActorModel(Model):
         for index, crashed in enumerate(state.crashed):
             if crashed:
                 actions.append(Recover(Id(index)))
+        for index, choices in enumerate(state.random_choices):
+            for key, decision in choices:
+                for choice in decision:
+                    actions.append(SelectRandom(Id(index), key, choice))
 
     def next_state(
         self, last: ActorModelState, action: Any
@@ -238,10 +261,13 @@ class ActorModel(Model):
             index = int(action.id)
             timers = list(last.timers_set)
             timers[index] = frozenset()
+            randoms = list(last.random_choices)
+            randoms[index] = ()
             crashed = list(last.crashed)
             crashed[index] = True
             return dataclasses.replace(
-                last, timers_set=tuple(timers), crashed=tuple(crashed)
+                last, timers_set=tuple(timers), random_choices=tuple(randoms),
+                crashed=tuple(crashed),
             )
         if isinstance(action, Recover):
             index = int(action.id)
@@ -256,24 +282,40 @@ class ActorModel(Model):
                 self._successor(last, index, state, out, last.network, last.history),
                 crashed=tuple(crashed),
             )
+        if isinstance(action, SelectRandom):
+            index = int(action.actor)
+            out = Out()
+            next_actor_state = self.actors[index].on_random(
+                action.actor, last.actor_states[index], action.random, out
+            )
+            # The chosen set is consumed; the handler may choose again.
+            randoms = list(last.random_choices)
+            randoms[index] = tuple(
+                kv for kv in randoms[index] if kv[0] != action.key
+            )
+            return self._successor(
+                last, index, next_actor_state, out, last.network,
+                last.history, randoms=randoms,
+            )
         raise TypeError(f"unknown action {action!r}")
 
     def _successor(self, last, index, next_actor_state, out, network, history,
-                   timers=None) -> ActorModelState:
+                   timers=None, randoms=None) -> ActorModelState:
         """``last`` with actor ``index``'s state replaced (unless None) and
         the handler's commands applied."""
         actor_states = list(last.actor_states)
         if next_actor_state is not None:
             actor_states[index] = next_actor_state
         timers = list(last.timers_set if timers is None else timers)
+        randoms = list(last.random_choices if randoms is None else randoms)
         network, history = self._process_commands(
-            Id(index), out, network, history, timers
+            Id(index), out, network, history, timers, randoms
         )
         return ActorModelState(
             actor_states=tuple(actor_states),
             network=network,
             timers_set=tuple(timers),
-            random_choices=last.random_choices,
+            random_choices=tuple(randoms),
             crashed=last.crashed,
             history=history,
             actor_storages=last.actor_storages,
@@ -282,4 +324,6 @@ class ActorModel(Model):
     def format_action(self, action) -> str:
         if isinstance(action, Deliver):
             return f"{action.src!r} → {action.msg!r} → {action.dst!r}"
+        if isinstance(action, SelectRandom):
+            return f"{action.actor!r} select random {action.random!r}"
         return repr(action)

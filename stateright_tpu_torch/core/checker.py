@@ -25,6 +25,22 @@ class CheckerBuilder:
         self._target_state_count: Optional[int] = None
         self._target_max_depth: Optional[int] = None
         self._finish_when: HasDiscoveries = HasDiscoveries.ALL
+        self._symmetry = None
+
+    def symmetry(self) -> "CheckerBuilder":
+        """Reduce by symmetry (src/checker.rs:222-227): ``spawn_gpu``
+        dedups on the fingerprint of each row's canonical form (the
+        compiled model's ``canon_spec()``/``canon_rows``) while it logs
+        the original rows, and raises where the compiled model declares
+        no canonicalization."""
+        return self.symmetry_fn(lambda s: s.representative())
+
+    def symmetry_fn(self, representative) -> "CheckerBuilder":
+        """Reduce by symmetry with a host ``representative`` function;
+        the GPU engine reads only whether one is set and canonicalizes on
+        the card."""
+        self._symmetry = representative
+        return self
 
     def finish_when(self, has_discoveries: HasDiscoveries) -> "CheckerBuilder":
         self._finish_when = has_discoveries
@@ -43,7 +59,8 @@ class CheckerBuilder:
         successor expansion, fingerprinting, frontier dedup and property
         evaluation run on the card in hand-written kernels.  ``device``
         defaults to ``cuda``; with no card present the spawn raises -- pass
-        ``device="cpu"`` explicitly to run the plain-torch twins."""
+        ``device="cpu"`` explicitly to run the plain-torch twins.  Under
+        :meth:`symmetry` the table holds canonical fingerprints."""
         from ..parallel.wavefront import GpuChecker
 
         return GpuChecker(self, **kwargs)

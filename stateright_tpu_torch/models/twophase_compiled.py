@@ -206,3 +206,21 @@ class TwoPhaseCompiled(CompiledModel):
     def expand(self, states):
         nexts, valid, conds = twophase_step(states, self.n)
         return nexts, valid, conds, None
+
+    def canon_spec(self):
+        """An RM's record is three bit fields -- its state (word0, 2 bits
+        at 2i), tm_prepared (word1, bit i) and its Prepared message (word1,
+        bit n+i) -- so sorting whole records canonicalizes exactly the
+        orbit; the TM state and the Commit/Abort bits are invariant under
+        the permutation and stay."""
+        from ..parallel.canon import CanonSpec, field
+
+        n = self.n
+        return CanonSpec(
+            n=n,
+            fields=(
+                field(word=0, shift=0, width=2),  # rm_state
+                field(word=1, shift=0, width=1),  # tm_prepared
+                field(word=1, shift=n, width=1),  # Prepared(i) in msgs
+            ),
+        )

@@ -33,6 +33,7 @@ SOURCES = (
     "paxos_valid", "paxos_lane", "paxos_conds", "wave_eval",
     "single_copy_step", "abd_step", "raft_step",
     "prededup", "ping_pong_step", "paxos_step",
+    "canon", "lww_step", "fixtures_step",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -16,7 +16,10 @@ int32 bit-views -- on the engine's device.
 - ``expand(states)``: all three at once -- each lane's validity ANDed with
   its successor's boundary test, as the JAX ``wave_eval`` does before it
   counts the wave -- plus the encoding-overflow flag, which is what the
-  engine calls each wave.  A model with a fused kernel overrides it.
+  engine calls each wave.  A model with a fused kernel overrides it;
+- ``canon_spec()``: the symmetric record block ``symmetry()`` reduces by
+  (``canon.py``), or None for a model without one; ``canon_rows(rows[B,
+  W])`` overrides it where the declarative spec cannot say enough.
 
 Two-phase contract (optional; :func:`two_phase_capable`): an unbounded
 model whose lanes are mostly invalid answers validity alone and builds
@@ -110,6 +113,23 @@ class CompiledModel:
         if inside is not None:
             valid = valid & inside.view(f, a)
         return nexts, valid, self.property_conds(states), None
+
+    # --- symmetry canonicalization (canon.py) -------------------------------
+
+    def canon_spec(self):
+        """The declarative symmetry spec (:class:`~.canon.CanonSpec`):
+        which row-word spans form the symmetric record block and which
+        fields hold record indices.  None (the default): the model has no
+        canonicalization, and ``symmetry()`` on ``spawn_gpu`` raises."""
+        return None
+
+    def canon_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """``int32[B, W] -> int32[B, W]``: a model's own canonicalization
+        of each row, used in place of K15 over :meth:`canon_spec` when a
+        subclass overrides it (``canon.make_canon``).  An override must be
+        idempotent and apply only genuine symmetries of the model, or the
+        reduction prunes reachable states."""
+        raise NotImplementedError
 
 
 def compiled_model_for(model: Model) -> CompiledModel:

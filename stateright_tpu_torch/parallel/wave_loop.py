@@ -168,9 +168,9 @@ class WaveLoop:
 
 def fingerprints_of_rows(rows: torch.Tensor) -> np.ndarray:
     """Sorted uint64 fingerprints of packed rows (``int32[n, W]`` on any
-    device, or its identity prefix ``rows[:, :fp_words]``) -- the identity
-    behind ``discovered_fingerprints()``, computed by the same K1
-    fingerprint the engine dedups on."""
+    device, or the engine's identity view of them, ``GpuChecker._identity``)
+    -- the identity behind ``discovered_fingerprints()``, computed by the
+    same K1 fingerprint the engine dedups on."""
     hi, lo = device_fp64(rows)
     hi = hi.to("cpu").numpy().view(np.uint32).astype(np.uint64)
     lo = lo.to("cpu").numpy().view(np.uint32).astype(np.uint64)

@@ -7,10 +7,11 @@ insert-if-absent into a device-resident fingerprint table, and evaluates
 property conditions as fused predicates over the wave.  The device work of
 a wave runs in hand-written kernels -- the model's step and conds (K2 for
 2pc; K5, K6 and K7 for paxos, K14 and K6 for ballot-bounded paxos; K9,
-K10, K11 and K13 for the single-copy register, ABD, raft and ping-pong),
-the wave verdicts (K8), the fingerprint (K1), stable compaction (K3), the
-claim insert (K4) and, on the sorted dedup path, the key sort (K12) --
-glued by a few torch tensor operations.
+K10, K11, K13, K16 and K17 for the single-copy register, ABD, raft,
+ping-pong, the LWW register and the trap counter), the wave verdicts
+(K8), under symmetry the canonical form (K15), the fingerprint (K1),
+stable compaction (K3), the claim insert (K4) and, on the sorted dedup
+path, the key sort (K12) -- glued by a few torch tensor operations.
 
 A model with the two-phase contract (``compiled.py``; paxos) is expanded
 in two phases, as in the JAX engine: lane validity first (K5), the valid
@@ -46,6 +47,10 @@ bit (row log, parents, ebits, counts, discoveries):
   row unless the compiled model says less): K1 hashes that prefix in
   place, while the row log, parents, conds and paths keep the whole row,
   whose trailing words ride along with the representative;
+- under ``symmetry()`` the identity is that of the row's canonical form
+  (K15, ``canon.py``): the seed, every wave, the rehash and
+  ``discovered_fingerprints()`` hash canonical rows, while the row log,
+  parents, property evaluation and paths keep the original rows;
 - discoveries are first-writer-wins in wave order; paths are rebuilt by
   walking the parent chain, decoding rows and re-executing the host model.
 
@@ -73,6 +78,7 @@ from ..core.model import Expectation
 from ..core.path import Path
 from ..ops.device_fp import device_fp64
 from ..ops.u32 import M32, from_numpy_u32, i32, to_numpy_u32
+from .canon import make_canon
 from .compiled import CompiledModel, compiled_model_for, two_phase_capable
 from .hashset import (
     HashSet, compact_valid, compact_valid_indices, insert_batch_claim,
@@ -111,10 +117,12 @@ def max_safe_unique_lanes(state_width: int) -> int:
     )
 
 
-def snapshot_engine_key(cm, properties) -> str:
+def snapshot_engine_key(cm, properties, symmetric: bool = False) -> str:
     """Compatibility key of engine snapshots -- the JAX package's
-    ``snapshot_engine_key`` for a run without symmetry, character for
-    character, so the two engines resume each other's snapshots."""
+    ``snapshot_engine_key``, character for character, so the two engines
+    resume each other's snapshots.  A symmetric run's table holds
+    canonical fingerprints, so its key carries a ``"sym"`` suffix and
+    neither kind of snapshot resumes as the other."""
     init_digest = hashlib.sha256(cm.init_packed().tobytes()).hexdigest()[:16]
     return repr(
         (
@@ -125,6 +133,7 @@ def snapshot_engine_key(cm, properties) -> str:
             tuple(p.name for p in properties),
             init_digest,
         )
+        + (("sym",) if symmetric else ())
     )
 
 
@@ -274,6 +283,21 @@ class GpuChecker(Checker):
         self._device = device
         self._options = options
         self._compiled = compiled or compiled_model_for(options.model)
+        # Symmetry: dedup on the fingerprint of the canonical row.  A model
+        # with no canonicalization is refused here: exploring the full
+        # space silently would report its counts as if they were reduced.
+        self._canon = (
+            make_canon(self._compiled)
+            if options._symmetry is not None
+            else None
+        )
+        if options._symmetry is not None and self._canon is None:
+            raise ValueError(
+                "spawn_gpu() with symmetry() requires the compiled model "
+                f"to declare a canonicalization, but "
+                f"{type(self._compiled).__name__} defines neither "
+                "canon_spec() nor canon_rows (parallel/canon.py)"
+            )
         if capacity & (capacity - 1):
             raise ValueError("capacity must be a power of two")
         self._capacity = capacity
@@ -355,6 +379,13 @@ class GpuChecker(Checker):
                 self._dedup_factor,
             )
 
+    def _identity(self, rows: torch.Tensor) -> torch.Tensor:
+        """What K1 hashes of packed rows ``int32[N, W]``: the identity
+        prefix of each row, or of its canonical form under symmetry."""
+        if self._canon is not None:
+            rows = self._canon(rows)
+        return rows[:, : self._fp_words]
+
     def _wl_full_sort_lanes(self) -> int:
         """The worst-case compaction buffer U of a full chunk."""
         return unique_buffer_size(
@@ -400,7 +431,7 @@ class GpuChecker(Checker):
                 f"({self._max_frontier}); raise spawn_gpu(max_frontier=...)"
             )
         init_t = from_numpy_u32(init, dev)
-        hi, lo = device_fp64(init_t[:, : self._fp_words])
+        hi, lo = device_fp64(self._identity(init_t))
         active = torch.ones((n_init,), dtype=torch.bool, device=dev)
         while True:
             table = HashSet.empty(self._capacity, dev)
@@ -437,7 +468,9 @@ class GpuChecker(Checker):
                     "geometry); re-run the original check"
                 )
             got = str(snap["engine_key"])
-            want = snapshot_engine_key(self._compiled, self._properties)
+            want = snapshot_engine_key(
+                self._compiled, self._properties, self._canon is not None
+            )
             if got != want:
                 raise ValueError(
                     "snapshot does not match this checker configuration"
@@ -512,7 +545,7 @@ class GpuChecker(Checker):
                 valid.view(-1), sort_lanes=size
             )
             cand_rows, lane_flags = cm.step_lane(states, v_orig, n_valid)
-            hi, lo = device_fp64(cand_rows[:, : self._fp_words])
+            hi, lo = device_fp64(self._identity(cand_rows))
             step_flag = lane_flags.any()
         else:
             # The model's step applies its boundary to the lanes' validity
@@ -523,7 +556,7 @@ class GpuChecker(Checker):
                 conds, valid, eb_in, lo_pos, self._kinds, discovered,
             )
             cand_rows = nexts.view(count * a, w)
-            hi, lo = device_fp64(cand_rows[:, : self._fp_words])
+            hi, lo = device_fp64(self._identity(cand_rows))
             hi, lo, v_orig, v_act, n_valid = compact_valid(
                 hi, lo, valid.view(-1), sort_lanes=size
             )
@@ -705,7 +738,7 @@ class GpuChecker(Checker):
         for start in range(0, tail, _REHASH_ROWS):
             n = min(_REHASH_ROWS, tail - start)
             block = rows[start * w : (start + n) * w].view(n, w)
-            hi, lo = device_fp64(block[:, : self._fp_words])
+            hi, lo = device_fp64(self._identity(block))
             active = torch.ones((n,), dtype=torch.bool, device=self._device)
             oks.append(insert_batch_claim(table, hi, lo, active)[1])
         if oks and not bool(torch.stack(oks).all()):
@@ -726,19 +759,22 @@ class GpuChecker(Checker):
         with open(tmp, "wb") as fh:
             np.savez_compressed(
                 fh,
-                engine_key=snapshot_engine_key(self._compiled, self._properties),
+                engine_key=snapshot_engine_key(
+                    self._compiled, self._properties, self._canon is not None
+                ),
                 **arrays,
             )
         os.replace(tmp, path)
 
     def discovered_fingerprints(self) -> np.ndarray:
-        """Sorted uint64 fingerprints of every discovered unique state."""
+        """Sorted uint64 fingerprints of every discovered unique state:
+        of its canonical row under symmetry (the logged original is
+        whichever member of its orbit the traversal reached first)."""
         self.join()
         c = self._carry
         w = self._compiled.state_width
-        return fingerprints_of_rows(
-            c.rows[: c.tail * w].view(c.tail, w)[:, : self._fp_words]
-        )
+        rows = c.rows[: c.tail * w].view(c.tail, w)
+        return fingerprints_of_rows(self._identity(rows))
 
     def state_count(self) -> int:
         return self._state_count

@@ -22,12 +22,15 @@ import torch
 from stateright_tpu_torch.actor import Envelope, Id, Network
 from stateright_tpu_torch.actor.register import Get, Internal, Put
 from stateright_tpu_torch.models import abd_compiled as ac
+from stateright_tpu_torch.models import fixtures as fx
+from stateright_tpu_torch.models import lww_compiled as lc
 from stateright_tpu_torch.models import paxos as port_paxos
 from stateright_tpu_torch.models import paxos_compiled as pc
 from stateright_tpu_torch.models import ping_pong_compiled as ppc
 from stateright_tpu_torch.models import raft_compiled as rc
 from stateright_tpu_torch.models import single_copy_compiled as scc
 from stateright_tpu_torch.models.abd import AbdModelCfg
+from stateright_tpu_torch.models.lww_register import build_model as lww_model
 from stateright_tpu_torch.models.paxos import PaxosModelCfg
 from stateright_tpu_torch.models.ping_pong import PingPongCfg
 from stateright_tpu_torch.models.raft import RaftModelCfg
@@ -42,6 +45,7 @@ from stateright_tpu_torch.parallel.hashset import (
     HashSet, insert_batch_claim, insert_batch_claim_plain, keys_equal,
     prededup, prededup_plain,
 )
+from stateright_tpu_torch.parallel import canon
 from stateright_tpu_torch.parallel.wave_common import (
     compact, compact_plain, wave_eval, wave_eval_plain,
 )
@@ -108,6 +112,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "c = m.checker().spawn_gpu(device='cpu', capacity=1 << 12,"
         " max_frontier=1 << 8).join()\n"
         "assert c.unique_state_count() == 1834, c.unique_state_count()\n"
+        "import stateright_tpu_torch.parallel.canon\n"
+        "c = TwoPhaseSys(rm_count=3).checker().symmetry().spawn_gpu("
+        "device='cpu').join()\n"
+        "assert c.unique_state_count() == 80, c.unique_state_count()\n"
+        "import stateright_tpu_torch.models.lww_compiled\n"
+        "from stateright_tpu_torch.models.lww_register import build_model\n"
+        "c = build_model(2).checker().target_max_depth(4).spawn_gpu("
+        "device='cpu', capacity=1 << 12, max_frontier=1 << 8).join()\n"
+        "assert c.unique_state_count() == 706, c.unique_state_count()\n"
+        "from stateright_tpu_torch.models.fixtures import TrapCounter\n"
+        "c = TrapCounter().checker().symmetry_fn(lambda s: s).spawn_gpu("
+        "device='cpu', capacity=1 << 10, max_frontier=1 << 4).join()\n"
+        "assert sorted(c.discoveries()) == ['reaches limit', 'trapped']\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -912,3 +929,180 @@ def test_cuda_bounded_paxos_golden(c, max_round, golden):
     assert (checker.unique_state_count(), checker.state_count(),
             checker.max_depth()) == golden
     assert sorted(checker.discoveries()) == ["value chosen"]
+
+
+SYM_GOLDENS = {5: (314, 2_048, 17), 10: (3_300, 43_298, 32), 12: (6_656, 105_081, 38)}
+SYM_GEOMETRY = dict(capacity=1 << 20, max_frontier=1 << 13)
+F = canon.field
+CANON_SPECS = [
+    canon.CanonSpec(3, (F(0, 0, 8), F(1, 0, 2, is_id=True)), (F(2, 0, 4),)),
+    canon.CanonSpec(4, (F(1, 0, 32, word_stride=2), F(2, 3, 5, word_stride=2),
+                        F(0, 0, 3, is_id=True)), (F(0, 16, 3), F(9, 0, 8))),
+    canon.CanonSpec(6, (F(0, 0, 32, word_stride=1), F(6, 0, 32, word_stride=1),
+                        F(12, 0, 32, word_stride=1)), ()),
+    canon.CanonSpec(16, (F(0, 0, 2), F(1, 0, 2), F(2, 0, 1, bit_stride=2),
+                         F(3, 0, 4, word_stride=1, is_id=True)),
+                    (F(19, 0, 5), F(19, 27, 5))),
+    canon.CanonSpec(5, (F(0, 0, 3, is_id=True),), (F(1, 0, 3),)),
+]
+
+
+def canon_cases(rng, n_rows):
+    """(spec, rows) pairs for K15: 2pc at rm=5 and rm=12 on words of every
+    bit pattern, then synthetic specs -- a per-record and a global Id
+    with sentinel values >= n, a word-aligned layout with a 32-bit key,
+    keys past 64 bits, sixteen records, Id fields only -- on words of
+    every bit pattern and on small words (many equal keys)."""
+    out = []
+    for rm in (5, 12):
+        spec = TwoPhaseSys(rm_count=rm).compiled().canon_spec()
+        out.append((spec, rng.integers(0, 1 << 32, size=(n_rows, 2), dtype=np.uint32)))
+    for spec in CANON_SPECS:
+        w = 1 + max([f.word + (spec.n - 1) * f.word_stride for f in spec.fields]
+                    + [g.word for g in spec.id_fields])
+        for high in (1 << 32, 20):
+            out.append((spec, rng.integers(0, high, size=(n_rows, w),
+                                           dtype=np.uint64).astype(np.uint32)))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_canonicalize_matches_twin():
+    """K15 against its twin on the card, and idempotent there."""
+    dev = _card()
+    for spec, rows in canon_cases(np.random.default_rng(70), 100_000):
+        r = _t(rows, dev)
+        got = canon.canonicalize_rows(spec, r)
+        assert torch.equal(got, canon.canonicalize_rows_plain(spec, r))
+        assert torch.equal(canon.canonicalize_rows(spec, got), got)
+
+
+def lww_fuzz_rows(rng, n, count):
+    """LWW rows for K16: words of every bit pattern, small words with
+    trailing empty slots, and sorted slots with duplicate runs beside
+    node words whose clocks sit at 0 and 63."""
+    w = n + lc.NET_SLOTS
+    raw = rng.integers(0, 1 << 32, size=(count, w), dtype=np.uint32)
+    small = rng.integers(0, 1 << 15, size=(count, w), dtype=np.uint32)
+    small[:, n + 5:] = 0
+    runs = np.sort(rng.integers(1, 1 << 14, size=(count, lc.NET_SLOTS)), axis=1)
+    runs[:, :3] = runs[:, 3:4]
+    nodes = rng.integers(0, 1 << 23, size=(count, n))
+    nodes[: count // 3] |= 63 << 11
+    nodes[count // 3 : 2 * count // 3] &= ~(63 << 11)
+    return np.concatenate([raw, small, np.concatenate([nodes, runs], 1)]).astype(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_cuda_lww_step_matches_twin(n):
+    """K16 against its twin on the card: every lane's successor, the
+    validity, the per-state flag and the condition, on fuzzed rows and on
+    the rows of the port's CPU run."""
+    dev = _card()
+    rows = [_t(lww_fuzz_rows(np.random.default_rng(80 + n), n, 20_000), dev)]
+    run = lww_model(n).checker().target_max_depth(4 if n < 3 else 3).spawn_gpu(
+        device="cpu", capacity=1 << 16, max_frontier=1 << 10).join()
+    w = n + lc.NET_SLOTS
+    rows.append(run._carry.rows[: run._carry.tail * w].view(-1, w).to(dev))
+    for r in rows:
+        got, want = lc.lww_step(r, n), lc.lww_step_plain(r, n)
+        for g, p in zip(got, want):
+            assert torch.equal(g, p)
+
+
+@pytest.mark.cuda
+def test_cuda_trap_step_matches_twin():
+    dev = _card()
+    rng = np.random.default_rng(90)
+    rows = _t(np.concatenate([np.arange(64), rng.integers(0, 1 << 32, 50_000),
+                              [0xFFFFFFFF]]).astype(np.uint32).reshape(-1, 1), dev)
+    for limit, trap_at in ((5, 2), (5, 10**6), (0xFFFFFFFE, 7)):
+        args = (limit, trap_at, limit + 1)
+        for g, p in zip(fx.trap_step(rows, *args), fx.trap_step_plain(rows, *args)):
+            assert torch.equal(g, p)
+
+
+@pytest.mark.cuda
+def test_cuda_sym_engine_matches_cpu_run(tmp_path):
+    """2pc rm=5 under symmetry on the card: 314 orbits at two chunk
+    widths, the log bit-equal to the CPU run's."""
+    _card()
+    model = TwoPhaseSys(rm_count=5)
+    gpu = model.checker().symmetry().spawn_gpu(**SYM_GEOMETRY).join()
+    cpu = model.checker().symmetry().spawn_gpu(device="cpu", **SYM_GEOMETRY).join()
+    assert (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth()) == SYM_GOLDENS[5]
+    for a, b in zip(_logs(gpu, tmp_path / "g.npz"), _logs(cpu, tmp_path / "c.npz")):
+        assert np.array_equal(a, b)
+    assert np.array_equal(gpu.discovered_fingerprints(), cpu.discovered_fingerprints())
+    narrow = model.checker().symmetry().spawn_gpu(
+        capacity=1 << 20, max_frontier=1 << 6).join()
+    assert narrow.unique_state_count() == SYM_GOLDENS[5][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rm", [10, 12])
+def test_cuda_sym_goldens(rm):
+    """``2pc check-sym`` at rm=10 and 12 (the codec's widest): the JAX
+    engine's orbit counts and both agreement discoveries."""
+    _card()
+    checker = TwoPhaseSys(rm_count=rm).checker().symmetry().spawn_gpu(
+        **SYM_GEOMETRY).join()
+    assert (checker.unique_state_count(), checker.state_count(),
+            checker.max_depth()) == SYM_GOLDENS[rm]
+    assert sorted(checker.discoveries()) == ["abort agreement", "commit agreement"]
+
+
+LWW_GEOMETRY = dict(capacity=1 << 22, max_frontier=1 << 14)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,depth,golden", [
+    (2, 7, (189_031, 468_398, 7)), (3, 5, (17_364, 37_504, 5)),
+])
+def test_cuda_lww_goldens(n, depth, golden):
+    """The deepest LWW runs the codec packs, at the JAX engine's counts,
+    with no discovery."""
+    _card()
+    checker = lww_model(n).checker().target_max_depth(depth).spawn_gpu(
+        **LWW_GEOMETRY).join()
+    assert (checker.unique_state_count(), checker.state_count(),
+            checker.max_depth()) == golden
+    assert checker.discoveries() == {}
+
+
+@pytest.mark.cuda
+def test_cuda_lww_engine_matches_cpu_run_and_overflows_at_depth_8(tmp_path):
+    """2 nodes to depth 6 on the card bit-equal to the CPU run (30,991 /
+    68,295); to the reference's depth 8 the codec's flag stops the run
+    with the JAX engine's error."""
+    _card()
+    w = 2 + lc.NET_SLOTS
+    gpu = lww_model(2).checker().target_max_depth(6).spawn_gpu(**LWW_GEOMETRY).join()
+    cpu = lww_model(2).checker().target_max_depth(6).spawn_gpu(
+        device="cpu", **LWW_GEOMETRY).join()
+    assert (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth()) == (
+        30_991, 68_295, 6)
+    for a, b in zip(_logs(gpu, tmp_path / "g.npz", w), _logs(cpu, tmp_path / "c.npz", w)):
+        assert np.array_equal(a, b)
+    with pytest.raises(RuntimeError, match="encoding-capacity overflow"):
+        lww_model(2).checker().target_max_depth(8).spawn_gpu(**LWW_GEOMETRY).join()
+
+
+@pytest.mark.cuda
+def test_cuda_trap_counter_on_the_card():
+    """The eventually pipeline through K17: "reaches limit" fails in the
+    trap, "trapped" is found; without the trap nothing is; under the
+    identity canonicalization the run is the plain one."""
+    _card()
+    geo = dict(capacity=1 << 10, max_frontier=1 << 4)
+    model = fx.TrapCounter()
+    plain = model.checker().spawn_gpu(**geo).join()
+    assert sorted(plain.discoveries()) == ["reaches limit", "trapped"]
+    assert plain.discoveries()["reaches limit"].last_state() == model.trap_state
+    sym = model.checker().symmetry_fn(lambda s: s).spawn_gpu(**geo).join()
+    assert (sym.unique_state_count(), sym.state_count()) == (
+        plain.unique_state_count(), plain.state_count())
+    assert sorted(sym.discoveries()) == sorted(plain.discoveries())
+    free = fx.TrapCounter(trap_at=10**6).checker().spawn_gpu(**geo).join()
+    assert free.discoveries() == {}
