@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the seventeen CUDA kernels of ``stateright_tpu_torch/csrc``
+1. build: compile the nineteen CUDA kernels of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -128,7 +128,29 @@ Phases, in order; any failure exits non-zero:
 30. the trap counter (K17): ``reaches limit`` (ending in the trap) and
     ``trapped`` discovered, nothing without the trap, the same run under
     the identity canonicalization, and its kernels against their twins;
-31. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+31. the device walk (K18, ``spawn_gpu_simulation``): 2pc rm=10, one round
+    of 4,096 walkers at T = 64, seed 3 -- 44,108 states, depth 23,
+    ``abort agreement`` (the JAX engine's round), its path re-executed on
+    the host; a 2**18-walker round bit-equal (trace, discoveries, counts,
+    lengths, flags) to the same walk through every kernel's twin on the
+    card; the path's kernels (K18's four entries, K1, K2) against their
+    twins on one real step;
+32. raft at depth 12 through ``spawn_gpu_simulation``: 4,096 walkers,
+    seed 3 -- 48,439 states, depth 12, ``Election Liveness`` and ``Log
+    Liveness``; 2**16 walkers a round to 10M states with no ``State
+    Machine Safety`` discovery (the exhaustive check to depth 12 has
+    none) and every discovery's path re-executed on the host to where it
+    is found (``Election Safety``'s, which phase 20 finds too, ends in two
+    leaders of one term); a 2**16-walker round bit-equal to its twins';
+    the path's kernels (K18, K1, K11) on one real step;
+33. the ABD ``skip_ack`` chaos ensemble (K19 masks each member's lanes):
+    ``run_ensemble(replay=False)`` at 1,024 members, seed 7 -- 8,943
+    states walked, 939 failing members, two shrink steps, repro member 2
+    with 5 steps (the JAX engine's sweep) -- the repro member's trace
+    re-executed on the host model to a non-linearizable state; 2**16
+    members bit-equal to the twins' sweep; the path's kernels (K18, K19,
+    K1, K10) on one real step;
+34. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -148,6 +170,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import fields
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 F = 1 << 20  # states per wave at rm=10 (max_frontier)
@@ -252,6 +275,32 @@ GOLDEN_LWW2D7 = (189_031, 468_398, 7)
 GOLDEN_LWW3D5 = (17_364, 37_504, 5)
 GOLDEN_LWW2D6 = (30_991, 68_295, 6)
 TRAP_GEOMETRY = dict(capacity=1 << 10, max_frontier=1 << 4)
+# The device walk's goldens: the JAX engine's spawn_tpu_simulation on the
+# CPU (JAX 0.9.0) at these arguments, one round each.
+GOLDEN_SIM_RM10 = (44_108, 23, ["abort agreement"])
+GOLDEN_SIM_RAFT = (48_439, 12, ["Election Liveness", "Log Liveness"])
+SIM_WALKERS = 4_096
+SIM_RM10_WIDE = 1 << 18  # walkers of the rm=10 batch held to its twins
+SIM_RAFT_WIDE = 1 << 16  # walkers a round of the long raft run
+SIM_RAFT_TARGET = 10_000_000
+# The exhaustive raft check to depth 12 finds Election Safety's
+# counterexample (phase 20) and no State Machine Safety one, so a walk
+# bounded at depth 12 may find the first and can never find the second.
+RAFT_NEVER = "State Machine Safety"
+# The chaos ensemble: tests/test_ensemble.py's sweep (JAX engine, CPU).
+ENS_ARGS = dict(seed=7, steps=48, fault="skip_ack",
+                chaos='{"default": {"drop": 0.1}}', shrink=True, replay=False)
+GOLDEN_ENS = dict(members=1_024, states_walked=8_943, failing=939,
+                  shrink_steps=2, repro_member=2, repro_steps=5)
+ENS_WIDE = 1 << 16
+# Integer operations of one Threefry-2x32 hash: 20 rounds of add, rotate
+# (one funnel shift by a constant) and xor, and six key injections of one
+# add to each counter word (the round constant joins the same three-input
+# add).
+THREEFRY_OPS = 20 * 3 + 6 * 2
+# Hashes of a walker's draw (``split`` and ``randint``): the split's two
+# rows, then randint's own split and its two 32-bit draws.
+DRAW_HASHES = 2 + 2 + 2
 SEED = 20261017
 
 KERNELS = {
@@ -290,6 +339,18 @@ KERNELS = {
                  "stateright_tpu/models/lww_compiled.py:195"),
     "trap_step": ("stateright_tpu_torch/csrc/fixtures_step.cu",
                   "stateright_tpu/models/fixtures.py:201"),
+    # K18's four entries: the walkers' keys, the init draw, a step and the
+    # leftover-eventually pass.
+    "walker_keys": ("stateright_tpu_torch/csrc/walk.cu",
+                    "stateright_tpu/parallel/simulation_tpu.py:324"),
+    "walk_init": ("stateright_tpu_torch/csrc/walk.cu",
+                  "stateright_tpu/parallel/simulation_tpu.py:106"),
+    "walk_step": ("stateright_tpu_torch/csrc/walk.cu",
+                  "stateright_tpu/parallel/simulation_tpu.py:49"),
+    "walk_finish": ("stateright_tpu_torch/csrc/walk.cu",
+                    "stateright_tpu/parallel/simulation_tpu.py:230"),
+    "fate_mask": ("stateright_tpu_torch/csrc/fate.cu",
+                  "stateright_tpu/ensemble/engine.py:80"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -321,6 +382,12 @@ PATH_KERNELS = {
             "wave_eval", "prededup"),
     "trap": ("device_fp64", "trap_step", "compact", "insert_batch_claim",
              "wave_eval"),
+    "sim-rm10": ("device_fp64", "twophase_step", "walker_keys", "walk_init",
+                 "walk_step", "walk_finish"),
+    "sim-raft": ("device_fp64", "raft_step", "walker_keys", "walk_init",
+                 "walk_step", "walk_finish"),
+    "ens-abd": ("device_fp64", "abd_step", "walker_keys", "walk_init",
+                "walk_step", "walk_finish", "fate_mask"),
 }
 
 
@@ -595,11 +662,16 @@ def launch_counted():
     from stateright_tpu_torch.parallel.canon import canonicalize_rows
     from stateright_tpu_torch.parallel.hashset import insert_batch_claim, prededup
     from stateright_tpu_torch.parallel.wave_common import compact, wave_eval
+    from stateright_tpu_torch.ensemble.fate import fate_mask
+    from stateright_tpu_torch.parallel.simulation_gpu import (
+        walk_finish, walk_init, walk_step, walker_keys,
+    )
 
     return (device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
             single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
-            paxos_step, canonicalize_rows, lww_step, trap_step)
+            paxos_step, canonicalize_rows, lww_step, trap_step,
+            walker_keys, walk_init, walk_step, walk_finish, fate_mask)
 
 
 def reset_launches():
@@ -1916,6 +1988,374 @@ def phase_trap(torch, checker, rows):
         lambda states: trap_step_plain(states, 5, 2, 6), None)
 
 
+# --- the device walk and the chaos ensemble ------------------------------------
+
+
+def run_sim_rm10(torch):
+    """``2pc`` rm=10 through ``spawn_gpu_simulation()``: one round of 4,096
+    walkers at T = 64, seed 3, held to the JAX engine's round."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = TwoPhaseSys(rm_count=RM).checker().target_state_count(1) \
+        .spawn_gpu_simulation(seed=3, walkers=SIM_WALKERS, max_trace_len=64).join()
+    elapsed = time.monotonic() - t0
+    check_sim("sim-rm10", checker, GOLDEN_SIM_RM10)
+    return checker, elapsed
+
+
+def run_sim_raft(torch):
+    """The reference's raft at ``target_max_depth(12)`` through
+    ``spawn_gpu_simulation()``: one round of 4,096 walkers, seed 3."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = raft_model().checker().target_max_depth(12).target_state_count(1) \
+        .spawn_gpu_simulation(seed=3, walkers=SIM_WALKERS).join()
+    elapsed = time.monotonic() - t0
+    check_sim("sim-raft", checker, GOLDEN_SIM_RAFT)
+    return checker, elapsed
+
+
+def run_sim_raft_wide(torch):
+    """Raft at depth 12, 2**16 walkers a round until 10M states: no State
+    Machine Safety discovery (none exists within depth 12), and every
+    discovery's path re-executed on the host to where it is found."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = raft_model().checker().target_max_depth(12) \
+        .target_state_count(SIM_RAFT_TARGET) \
+        .spawn_gpu_simulation(seed=3, walkers=SIM_RAFT_WIDE).join()
+    elapsed = time.monotonic() - t0
+    found = sorted(checker.discoveries())
+    if checker.state_count() < SIM_RAFT_TARGET or RAFT_NEVER in found:
+        raise AssertionError(f"raft walk: {checker.state_count()} states, found {found}")
+    check_paths("sim-raft 10M", checker.model(), checker.discoveries())
+    return checker, elapsed
+
+
+def run_ens(torch, members=GOLDEN_ENS["members"]):
+    """The ABD ``skip_ack`` ensemble (``tests/test_ensemble.py``'s sweep)
+    through ``run_ensemble(replay=False)``."""
+    from stateright_tpu_torch.ensemble import run_ensemble
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    result = run_ensemble(members=members, **ENS_ARGS)
+    return result, time.monotonic() - t0
+
+
+def check_sim(path, checker, golden):
+    """A simulation round held to its JAX golden; its discovery paths
+    re-executed on the host model."""
+    states, depth, found = golden
+    got = (checker.state_count(), checker.max_depth(), sorted(checker.discoveries()))
+    if got != (states, depth, found):
+        raise AssertionError(f"{path}: {got} != {golden}")
+    check_paths(path, checker.model(), checker.discoveries())
+
+
+def check_paths(what, model, discoveries):
+    """Each discovery's path (already re-executed on the host model by
+    ``Path.from_fingerprints``) ends where its property is discovered: a
+    SOMETIMES condition holding, an ALWAYS one failing."""
+    for name, path_ in discoveries.items():
+        prop = model.get_property(name)
+        holds = prop.condition(model, path_.last_state())
+        if prop.expectation.name != "EVENTUALLY" and holds != (
+                prop.expectation.name == "SOMETIMES"):
+            raise AssertionError(f"{what}: {name}'s path does not end in its discovery")
+    log(f"  {what}: {len(discoveries)} discovery paths re-executed on the host: "
+        f"{', '.join(f'{k} ({len(v) - 1} steps)' for k, v in discoveries.items())}")
+
+
+def run_walk_path(torch, gpu, path, run):
+    """One run of a walk path with its launch counts read around it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    obj, elapsed = run(torch)
+    launches = read_launches(path)
+    walked = getattr(obj, "states_walked", None)
+    walked = obj.state_count() if walked is None else walked
+    log(f"  {path}: states walked={walked} elapsed_s={elapsed:.3f} "
+        f"states_per_s={walked / elapsed:.1f} "
+        f"peak_bytes={torch.cuda.max_memory_allocated()} card={gpu!r}")
+    log(f"  {path} launches: {launches}")
+    return launches, obj
+
+
+def same_batch(torch, what, got, want):
+    """A card walk's batch against its twins' batch, every output."""
+    names = ("trace", "disc", "counted", "appended", "flag")
+    bad = [n for n, g, w in zip(names, got, want) if not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"{what}: {bad} differ between the kernels and the twins")
+
+
+def batch_vs_twins(torch, what, walk, plain, keys, params=None):
+    """The whole batch through the kernels and through the twins on the
+    card, bit-equal; returns the kernels' outputs and both times."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = walk(keys, params)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    want = plain(keys, params)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    same_batch(torch, what, got, want)
+    walked = int(got[2].sum())
+    log(f"  {what}: {keys.shape[0]} walkers, {walked} states, "
+        f"{walk.steps_run} steps, bit-equal to the twins' batch; kernels "
+        f"{t1 - t0:.3f} s ({walked / (t1 - t0):.1f} states/s), twins {t2 - t1:.3f} s")
+    return got
+
+
+def walk_rows(torch, rows, path, walk, keys, t_at, params=None, codec=None,
+              model_kernel=None):
+    """The walk path's kernels against their twins on one real step
+    (step ``t_at`` of ``keys``' walk), timed there: K18's keys, init, step
+    and finish entries, K1 on the walkers' identity, the model's step
+    (``model_kernel``) and, with ``params``, K19.  Bounds count the bytes
+    this step's data moves and the Threefry hashes it draws (one a key
+    for ``fold_in``, six a walker's draw)."""
+    from stateright_tpu_torch.ensemble.fate import fate_mask, fate_mask_plain
+    from stateright_tpu_torch.models.register_compiled_common import dp_work
+    from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
+    from stateright_tpu_torch.ops.u32 import u32
+    from stateright_tpu_torch.parallel import simulation_gpu as sg
+
+    row = kernel_row(rows, path)
+    cm, props = walk.cm, walk.props
+    b, w, a, n_p = keys.shape[0], cm.state_width, cm.max_actions, props.count
+    base = torch.zeros((1, 2), dtype=torch.int32)
+    k_keys = sg.walker_keys(base, 0, b, keys.device)
+    p_keys = sg.walker_keys_plain(base, 0, b, keys.device)
+    torch.cuda.synchronize()
+    row("walker_keys", max_abs_err(torch, [(k_keys, p_keys)]),
+        time_ms(torch, lambda: sg.walker_keys(base, 0, b, keys.device), 10),
+        time_ms(torch, lambda: sg.walker_keys_plain(base, 0, b, keys.device), 2),
+        8 * b, ops=b * THREEFRY_OPS)
+
+    init = sg.from_numpy_u32(walk.init, keys.device)
+    lanes = None if walk.hook is None else walk.hook.n_lanes
+    fresh = sg.WalkCarry.empty(keys, walk.t_max, w, props, lanes)
+    work = sg.WalkCarry.empty(keys, walk.t_max, w, props, lanes)
+
+    def restore(src, dst):
+        for f in fields(dst):
+            x = getattr(dst, f.name)
+            if x is not None:
+                x.copy_(getattr(src, f.name))
+
+    def carries_err(c1, c2):
+        return max_abs_err(torch, [(getattr(c1, f.name), getattr(c2, f.name))
+                                   for f in fields(c1) if getattr(c1, f.name) is not None])
+
+    twin = sg.WalkCarry.empty(keys, walk.t_max, w, props, lanes)
+    sg.walk_init(work, init)
+    sg.walk_init_plain(twin, init)
+    torch.cuda.synchronize()
+    row("walk_init", carries_err(work, twin),
+        time_ms(torch, lambda: sg.walk_init(work, init), 10,
+                setup=lambda: restore(fresh, work)),
+        time_ms(torch, lambda: sg.walk_init_plain(work, init), 2,
+                setup=lambda: restore(fresh, work)),
+        b * (16 + 4 * w), ops=b * DRAW_HASHES * THREEFRY_OPS)
+
+    c = walk.start(keys)
+    for t in range(t_at):
+        sg.walk_step(c, t, props, **walk.step_inputs(c, t, params))
+    inp = walk.step_inputs(c, t_at, params)
+    torch.cuda.synchronize()
+    active = int((~c.done).sum())
+    state = c.state
+    ident = state[:, : walk.fp_words]
+    fpw = ident.shape[1]
+    k1, p1 = device_fp64(ident), device_fp64_plain(ident)
+    torch.cuda.synchronize()
+    row("device_fp64", max_abs_err(torch, zip(k1, p1)),
+        time_ms(torch, lambda: device_fp64(ident), 10),
+        time_ms(torch, lambda: device_fp64_plain(ident), 2), b * (fpw * 4 + 8))
+
+    name = model_kernel
+    k_m = cm.walk_step(state)
+    p_m = cm.walk_step(state, plain=True)
+    torch.cuda.synchronize()
+    ops = 0 if codec is None else int(dp_work(codec, u32(state)).sum())
+    row(name, max_abs_err(torch, [(x, y) for x, y in zip(k_m, p_m) if x is not None]),
+        time_ms(torch, lambda: cm.walk_step(state), 10),
+        time_ms(torch, lambda: cm.walk_step(state, plain=True), 2),
+        b * w * 4 + b * a * (w * 4 + 1) + b * n_p + (b if k_m[3] is not None else 0),
+        ops=ops)
+    del p_m
+
+    if params is not None:
+        ctr = c.ctr
+        k19 = fate_mask(t_at, ctr, params)
+        p19 = fate_mask_plain(t_at, ctr, params)
+        torch.cuda.synchronize()
+        # Each lane: its counter, two seed words, two thresholds, two flags,
+        # two group ids in, a byte out; each member's three words in.  Two
+        # splitmix finalizers of about 20 operations a lane.
+        row("fate_mask", max_abs_err(torch, [(k19, p19)]),
+            time_ms(torch, lambda: fate_mask(t_at, ctr, params), 10),
+            time_ms(torch, lambda: fate_mask_plain(t_at, ctr, params), 2),
+            b * a * (4 + 8 + 8 + 2 + 8 + 1) + b * 12, ops=b * a * 40)
+        log(f"  fate_mask: {int(k19.sum())} of {b * a} lanes blocked at step {t_at}")
+
+    snap = sg.WalkCarry.empty(keys, walk.t_max, w, props, lanes)
+    restore(c, snap)
+    restore(snap, twin)
+    sg.walk_step(c, t_at, props, **inp)
+    sg.walk_step_plain(twin, t_at, props, **inp)
+    torch.cuda.synchronize()
+    # Bytes this step's data moves: per walker its fingerprint, done,
+    # appended, key (read and written) and flags; per counted walker its
+    # valid and cond bytes, counters, a trace row and history entry
+    # written, its row read; per advancing walker a successor read and
+    # its row written; the history entries each active walker scanned.
+    app = snap.appended.long()
+    appended = int((c.appended.long() - app).sum())
+    counted = int((c.counted.long() - snap.counted.long()).sum())
+    advanced = int((c.state != snap.state).any(dim=1).sum())
+    scanned = int(app[~snap.done].sum())
+    lane_bytes = a * (1 + (9 if params is not None else 0))
+    nbytes = (b * (8 + 1 + 4 + 16 + 1) + appended * (4 * w * 2 + 8)
+              + counted * (lane_bytes + n_p + 12) + advanced * 8 * w
+              + scanned * 8)
+    row("walk_step", carries_err(c, twin),
+        time_ms(torch, lambda: sg.walk_step(work, t_at, props, **inp), 10,
+                setup=lambda: restore(snap, work)),
+        time_ms(torch, lambda: sg.walk_step_plain(work, t_at, props, **inp), 2,
+                setup=lambda: restore(snap, work)),
+        nbytes, ops=b * DRAW_HASHES * THREEFRY_OPS)
+    log(f"  walk_step at step {t_at}: {active} of {b} walkers active, "
+        f"{counted} counted, {advanced} advanced, {scanned} history entries "
+        f"scanned")
+
+    restore(c, snap)
+    restore(c, twin)
+    sg.walk_finish(c, props)
+    sg.walk_finish_plain(twin, props)
+    torch.cuda.synchronize()
+    row("walk_finish", carries_err(c, twin),
+        time_ms(torch, lambda: sg.walk_finish(work, props), 10,
+                setup=lambda: restore(snap, work)),
+        time_ms(torch, lambda: sg.walk_finish_plain(work, props), 2,
+                setup=lambda: restore(snap, work)),
+        b * (1 + 4 + 4) + b * n_p * 4)
+
+
+def phase_sim_rm10(torch, rows):
+    """The 2**18-walker rm=10 round against its twins' batch, and the
+    path's kernels on one real step."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+    from stateright_tpu_torch.ops import prng
+    from stateright_tpu_torch.parallel.simulation_gpu import build_walk, walker_keys
+
+    model = TwoPhaseSys(rm_count=RM)
+    cm = model.compiled()
+    keys = walker_keys(prng.fold_in(prng.prng_key(3), 0), 0, SIM_RM10_WIDE, "cuda")
+    walk = build_walk(cm, model.properties(), 64)
+    out = batch_vs_twins(torch, "sim-rm10 2**18", walk,
+                         build_walk(cm, model.properties(), 64, plain=True), keys)
+    if int(out[4].sum()):
+        raise AssertionError("sim-rm10: a 2pc step flagged")
+    walk_rows(torch, rows, "sim-rm10", walk, keys, 8, model_kernel="twophase_step")
+
+
+def phase_sim_raft(torch, rows):
+    """The 2**16-walker raft round against its twins' batch, and the
+    path's kernels on one real step."""
+    import numpy as np
+
+    from stateright_tpu_torch.core.path import Path
+    from stateright_tpu_torch.ops import prng
+    from stateright_tpu_torch.ops.u32 import to_numpy_u32
+    from stateright_tpu_torch.parallel.simulation_gpu import NO_STEP, build_walk, walker_keys
+
+    model = raft_model()
+    cm = model.compiled()
+    keys = walker_keys(prng.fold_in(prng.prng_key(3), 0), 0, SIM_RAFT_WIDE, "cuda")
+    walk = build_walk(cm, model.properties(), 12)
+    out = batch_vs_twins(torch, "sim-raft 2**16", walk,
+                         build_walk(cm, model.properties(), 12, plain=True), keys)
+    disc = to_numpy_u32(out[1])
+    found = {}
+    for i, prop in enumerate(model.properties()):
+        hits = np.flatnonzero(disc[:, i] != NO_STEP)
+        if len(hits):  # the first hitting walker's trace, on the host
+            wkr, end = int(hits[0]), int(disc[hits[0], i]) + 1
+            rows_np = to_numpy_u32(out[0][wkr, :end])
+            found[prop.name] = Path.from_fingerprints(
+                model, [model.fingerprint(cm.decode(r)) for r in rows_np])
+    if RAFT_NEVER in found or int(out[4].sum()):
+        raise AssertionError(f"sim-raft 2**16: found {sorted(found)}, "
+                             f"flags {int(out[4].sum())}")
+    check_paths("sim-raft 2**16", model, found)
+    walk_rows(torch, rows, "sim-raft", walk, keys, 6, model_kernel="raft_step")
+
+
+def phase_ens(torch, rows, result):
+    """The ensemble's golden, its repro member's trace re-executed on the
+    host, the 2**16-member sweep against its twins' batch, and the path's
+    kernels on one real step."""
+    from stateright_tpu_torch.core.path import Path
+    from stateright_tpu_torch.ensemble.engine import (
+        FateLaneHook, _abd_model, _member_params, params_on,
+    )
+    from stateright_tpu_torch.ensemble.schedule import derive_schedule
+    from stateright_tpu_torch.models.abd_compiled import AbdCompiled, _codec
+    from stateright_tpu_torch.ops import prng
+    from stateright_tpu_torch.ops.u32 import to_numpy_u32
+    from stateright_tpu_torch.parallel.simulation_gpu import build_walk, walker_keys
+    from stateright_tpu_torch.runtime.chaos import ChaosSpec
+
+    g = GOLDEN_ENS
+    got = dict(members=result.members, states_walked=result.states_walked,
+               failing=len(result.failing), shrink_steps=result.shrink_steps,
+               repro_member=result.repro["member"], repro_steps=result.repro["steps"])
+    log(f"  ens-abd 1,024: {got}, elapsed_s={result.elapsed_sec:.4f}")
+    if got != g:
+        raise AssertionError(f"ens-abd: {got} != {g}")
+
+    model = _abd_model(2, ENS_ARGS["fault"])
+    cm = AbdCompiled(model)
+    spec = ChaosSpec.from_json(ENS_ARGS["chaos"])
+    steps = ENS_ARGS["steps"]
+    hook = FateLaneHook(len(cm.pairs))
+    walk = build_walk(cm, model.properties(), steps, fault_hook=hook)
+    base = prng.prng_key(ENS_ARGS["seed"])
+
+    # The repro member's walk, re-executed on the host model: its trace up
+    # to the latch is a path of the model that ends non-linearizable.
+    member = g["repro_member"]
+    first = next(f for f in result.failing if f["member"] == member)
+    sch = derive_schedule(ENS_ARGS["seed"], member, spec, steps)
+    trace, _d, _c, _a, _f = walk(walker_keys(base, member, 1, "cuda"),
+                                 params_on(_member_params(cm.pairs, [sch]), "cuda"))
+    rows_np = to_numpy_u32(trace[0, : first["step"] + 1])
+    path = Path.from_fingerprints(model, [model.fingerprint(cm.decode(r)) for r in rows_np])
+    lin = model.get_property("linearizable")
+    if lin.condition(model, path.last_state()):
+        raise AssertionError("ens-abd: the repro member's path ends linearizable")
+    log(f"  ens-abd repro member {member}: a {len(path) - 1}-step path re-executed "
+        "on the host, ending non-linearizable")
+
+    scheds = [derive_schedule(ENS_ARGS["seed"], m, spec, steps) for m in range(ENS_WIDE)]
+    params = params_on(_member_params(cm.pairs, scheds), "cuda")
+    keys = walker_keys(base, 0, ENS_WIDE, "cuda")
+    out = batch_vs_twins(torch, "ens-abd 2**16", walk,
+                         build_walk(cm, model.properties(), steps, fault_hook=hook,
+                                    plain=True), keys, params)
+    failing = int((to_numpy_u32(out[1])[:, 0] != 0xFFFFFFFF).sum())
+    log(f"  ens-abd 2**16: {failing} failing members")
+    walk_rows(torch, rows, "ens-abd", walk, keys, 4, params=params,
+              codec=_codec(2, True), model_kernel="abd_step")
+
+
 def main() -> int:
     use_one_card()
     try:
@@ -2102,6 +2542,27 @@ def main() -> int:
                                          properties_hold=False)
     phase_trap(torch, checker, rows)
     del checker
+
+    log("phase 31: 2pc rm=10 through spawn_gpu_simulation on the card (K18)")
+    launches["sim-rm10"], _checker = run_walk_path(torch, gpu, "sim-rm10", run_sim_rm10)
+    phase_sim_rm10(torch, rows)
+    torch.cuda.empty_cache()
+
+    log("phase 32: raft through spawn_gpu_simulation on the card")
+    launches["sim-raft"], _checker = run_walk_path(torch, gpu, "sim-raft", run_sim_raft)
+    _checker, elapsed = run_sim_raft_wide(torch)
+    log(f"  raft at 2**16 walkers a round: {_checker.state_count()} states in "
+        f"{_checker.rounds()} rounds, {elapsed:.3f} s "
+        f"({_checker.state_count() / elapsed:.1f} states/s), found "
+        f"{sorted(_checker.discoveries())}")
+    phase_sim_raft(torch, rows)
+    torch.cuda.empty_cache()
+
+    log("phase 33: the ABD chaos ensemble on the card (K18 with K19)")
+    launches["ens-abd"], result = run_walk_path(torch, gpu, "ens-abd", run_ens)
+    phase_ens(torch, rows, result)
+    del _checker, result
+    torch.cuda.empty_cache()
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []

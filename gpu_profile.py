@@ -2,7 +2,8 @@
 """Where the time of a full check goes on one H100.
 
     python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o|raft|
-                                    pp13|pp11s|paxos3b|sym12|lww2d7]
+                                    pp13|pp11s|paxos3b|sym12|lww2d7|
+                                    sim-rm10|sim-raft|ens-abd]
                            [--runs N] [--trace-dir DIR]
 
 Builds the port's kernels, runs one of ``chip_smoke.py``'s full checks
@@ -17,7 +18,12 @@ through ``spawn_gpu()`` at its geometry, held to its goldens --
 through the sorted fallback, phase 23), ``run_paxos3b`` (``paxos check
 3`` at ``max_round=3``, single-phase, phase 25), ``run_sym12`` (``2pc
 check-sym 12``, phase 27) or ``run_lww`` (the LWW register, 2 nodes to
-depth 7, phase 29) -- ``--runs`` times
+depth 7, phase 29) -- or one of the device walk's: ``sim-rm10`` (2pc rm=10
+through ``spawn_gpu_simulation``, one round of 2**18 walkers at T = 64),
+``sim-raft`` (raft at depth 12, 2**16 walkers a round to 10M states,
+``run_sim_raft_wide``, phase 32) or ``ens-abd`` (``run_ensemble`` over
+2**16 ABD members, phase 33), whose rate is states walked per second --
+``--runs`` times
 untraced (wall seconds of each, then median and spread), and once more
 under ``torch.profiler``: device time per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
@@ -37,12 +43,46 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+def run_sim_rm10_wide(torch):
+    """2pc rm=10 through ``spawn_gpu_simulation``: one round of 2**18
+    walkers at T = 64, seed 3."""
+    import time
+
+    import chip_smoke
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = TwoPhaseSys(rm_count=chip_smoke.RM).checker().target_state_count(1) \
+        .spawn_gpu_simulation(seed=3, walkers=chip_smoke.SIM_RM10_WIDE,
+                              max_trace_len=64).join()
+    return checker, time.monotonic() - t0
+
+
+def count_of(run) -> int:
+    """The states a run checked: unique states of a search, states walked
+    by a walk or an ensemble."""
+    if hasattr(run, "states_walked"):
+        return run.states_walked
+    if hasattr(run, "waves"):
+        return run.unique_state_count()
+    return run.state_count()
+
+
+def calls_of(run) -> str:
+    if hasattr(run, "waves"):
+        return f"{run.waves()} waves"
+    if hasattr(run, "rounds"):
+        return f"{run.rounds()} rounds"
+    return f"{run.dispatches} sweep"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="rm10",
                     choices=("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o",
                              "raft", "pp13", "pp11s", "paxos3b", "sym12",
-                             "lww2d7"))
+                             "lww2d7", "sim-rm10", "sim-raft", "ens-abd"))
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -68,18 +108,22 @@ def main() -> int:
         "paxos3b": chip_smoke.run_paxos3b,
         "sym12": chip_smoke.run_sym12,
         "lww2d7": chip_smoke.run_lww,
+        "sim-rm10": run_sim_rm10_wide,
+        "sim-raft": chip_smoke.run_sim_raft_wide,
+        "ens-abd": lambda torch: chip_smoke.run_ens(torch, chip_smoke.ENS_WIDE),
     }[args.model]
     cuda.build()
     card = chip_smoke.gpu_line()
     print(f"card: {card}; model {args.model}", flush=True)
 
-    unique = run(torch)[0].unique_state_count()  # warm-up: library loads, pools
+    unique = count_of(run(torch)[0])  # warm-up: library loads, pools
     times = []
     for i in range(args.runs):
         checker, elapsed = run(torch)
         times.append(elapsed)
-        print(f"run {i}: {elapsed:.4f} s, {checker.waves()} waves, "
-              f"{unique / elapsed:.1f} unique states/s", flush=True)
+        print(f"run {i}: {elapsed:.4f} s, {calls_of(checker)}, "
+              f"{unique / elapsed:.1f} {'unique' if hasattr(checker, 'waves') else 'walked'} "
+              "states/s", flush=True)
     q = statistics.quantiles(times, n=4) if len(times) > 1 else [times[0]] * 3
 
     from torch.autograd import DeviceType
@@ -113,7 +157,8 @@ def main() -> int:
         "runs_s": times,
         "median_s": median,
         "quartiles_s": [q[0], q[2]],
-        "unique_per_s_median": unique / median,
+        ("unique_per_s_median" if hasattr(_checker, "waves")
+         else "walked_per_s_median"): unique / median,
         "traced_s": traced_s,
         "device_busy_ms": busy_ms,
         "device_busy_share_of_median": busy_ms / 1e3 / median,

@@ -2,9 +2,10 @@
 
 Reference: src/checker.rs -- ``CheckerBuilder`` (fluent config + spawn) and
 the ``Checker`` trait (counts, discoveries, join/report, assertion helpers).
-The port's builder carries the options its GPU engine reads and spawns it
-with :meth:`CheckerBuilder.spawn_gpu`, the counterpart of the JAX package's
-``spawn_tpu``.
+The port's builder carries the options its GPU engines read and spawns
+them with :meth:`CheckerBuilder.spawn_gpu` and
+:meth:`CheckerBuilder.spawn_gpu_simulation`, the counterparts of the JAX
+package's ``spawn_tpu`` and ``spawn_tpu_simulation``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ class CheckerBuilder:
         self._target_max_depth: Optional[int] = None
         self._finish_when: HasDiscoveries = HasDiscoveries.ALL
         self._symmetry = None
+        self._timeout: Optional[float] = None
 
     def symmetry(self) -> "CheckerBuilder":
         """Reduce by symmetry (src/checker.rs:222-227): ``spawn_gpu``
@@ -54,6 +56,13 @@ class CheckerBuilder:
         self._target_max_depth = depth if depth > 0 else None
         return self
 
+    def timeout(self, seconds: float) -> "CheckerBuilder":
+        """Stop the check after ``seconds`` of wall time, keeping its
+        counts and discoveries (checked between waves, or between walk
+        batches)."""
+        self._timeout = seconds
+        return self
+
     def spawn_gpu(self, **kwargs) -> "Checker":
         """Spawn the single-GPU wavefront checker (parallel/wavefront.py):
         successor expansion, fingerprinting, frontier dedup and property
@@ -65,6 +74,21 @@ class CheckerBuilder:
 
         return GpuChecker(self, **kwargs)
 
+    def spawn_gpu_simulation(self, seed: int, walkers: int = 1024,
+                             max_trace_len: Optional[int] = None,
+                             device=None) -> "Checker":
+        """Spawn the device Monte-carlo checker: a batch of ``walkers``
+        random trace walks per round, up to ``max_trace_len`` steps each
+        (default ``target_max_depth``, else 256), their lane choices JAX's
+        threefry draws (parallel/simulation_gpu.py).  Runs until
+        ``finish_when`` / ``target_state_count`` / ``timeout`` /
+        :meth:`Checker.request_stop` stops it.  ``device`` defaults to
+        ``cuda`` and raises where there is no card."""
+        from ..parallel.simulation_gpu import GpuSimulationChecker
+
+        return GpuSimulationChecker(self, seed, walkers=walkers,
+                                    max_trace_len=max_trace_len, device=device)
+
 
 class Checker:
     """Base checker surface.  Reference: the ``Checker`` trait,
@@ -72,6 +96,10 @@ class Checker:
 
     def __init__(self, model: Model):
         self._model = model
+        # Cooperative cancellation: request_stop() asks the engine to wind
+        # down at its next host-side check, exactly like a timeout --
+        # partial counts stand, is_done() becomes true, join() returns.
+        self._stop_requested = threading.Event()
 
     # --- interface implemented by engines -----------------------------------
 
@@ -100,6 +128,15 @@ class Checker:
         for h in self.handles():
             h.join()
         return self
+
+    def request_stop(self) -> None:
+        """Ask a running check to stop early (never blocks): the engine
+        finishes its current wave or walk batch, keeps every committed
+        count and discovery, and completes like a timed-out run."""
+        self._stop_requested.set()
+
+    def stop_requested(self) -> bool:
+        return self._stop_requested.is_set()
 
     # --- shared functionality -----------------------------------------------
 

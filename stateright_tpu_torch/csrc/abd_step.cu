@@ -32,9 +32,9 @@
 // slots in unsigned order.  Ordered: a delivery whose guard fails still
 // consumes the head and is a valid lane with the original records; the
 // pair shifts, and the send is appended at its target pair's tail, counted
-// over the already shifted words.  One overflow word is set by any lane
-// whose send does not fit (or has no lane) or whose clock passes
-// MAX_CLOCK.  The conds: linearizable (the DP) and value chosen (a GetOk
+// over the already shifted words.  A state's overflow byte is set when
+// one of its lanes' sends does not fit (or has no lane) or its clock
+// passes MAX_CLOCK.  The conds: linearizable (the DP) and value chosen (a GetOk
 // with a non-null value in any network word).
 //
 // Bound: bytes (a row in, A successor rows and A + 2 bytes out; a few
@@ -410,7 +410,7 @@ __global__ void abd_step_kernel(const uint32_t* __restrict__ states, int64_t f,
                                 uint32_t* __restrict__ nexts,
                                 uint8_t* __restrict__ valid,
                                 uint8_t* __restrict__ conds,
-                                int32_t* __restrict__ flag) {
+                                uint8_t* __restrict__ flags) {
   using G = Geom<C, ORD>;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t st = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -430,7 +430,7 @@ __global__ void abd_step_kernel(const uint32_t* __restrict__ states, int64_t f,
       }
       valid[st * G::A + k] = v ? 1 : 0;
     }
-    if (over) *flag = 1;
+    flags[st] = over ? 1 : 0;
     bool chosen = false;
 #pragma unroll
     for (int i = 0; i < G::M; ++i) {
@@ -447,39 +447,39 @@ __global__ void abd_step_kernel(const uint32_t* __restrict__ states, int64_t f,
 
 template <int C, bool ORD, bool SKIP>
 void launch(const uint32_t* states, int64_t f, uint32_t* nexts, uint8_t* valid,
-            uint8_t* conds, int32_t* flag, cudaStream_t stream) {
+            uint8_t* conds, uint8_t* flags, cudaStream_t stream) {
   constexpr int kThreads = 128;
   abd_step_kernel<C, ORD, SKIP><<<sr::grid_for(f, kThreads), kThreads, 0, stream>>>(
-      states, f, nexts, valid, conds, flag);
+      states, f, nexts, valid, conds, flags);
 }
 
 template <int C>
 void launch_c(const uint32_t* states, int64_t f, int ordered, int skip_ack,
-              uint32_t* nexts, uint8_t* valid, uint8_t* conds, int32_t* flag,
+              uint32_t* nexts, uint8_t* valid, uint8_t* conds, uint8_t* flags,
               cudaStream_t stream) {
   if (ordered) {
-    if (skip_ack) launch<C, true, true>(states, f, nexts, valid, conds, flag, stream);
-    else launch<C, true, false>(states, f, nexts, valid, conds, flag, stream);
+    if (skip_ack) launch<C, true, true>(states, f, nexts, valid, conds, flags, stream);
+    else launch<C, true, false>(states, f, nexts, valid, conds, flags, stream);
   } else {
-    if (skip_ack) launch<C, false, true>(states, f, nexts, valid, conds, flag, stream);
-    else launch<C, false, false>(states, f, nexts, valid, conds, flag, stream);
+    if (skip_ack) launch<C, false, true>(states, f, nexts, valid, conds, flags, stream);
+    else launch<C, false, false>(states, f, nexts, valid, conds, flags, stream);
   }
 }
 
 }  // namespace
 
 // states: f rows of W words; nexts: f * A rows; valid: f * A bytes; conds:
-// f * 2 bytes; flag: one int32, zeroed by the caller and set to 1 if a lane
-// overflowed the packed encoding.
+// f * 2 bytes; flags: f bytes, each state's 1 if one of its lanes
+// overflowed the packed encoding, else 0.
 extern "C" int sr_abd_step(const uint32_t* states, int64_t f, int c,
                            int ordered, int skip_ack, uint32_t* nexts,
-                           uint8_t* valid, uint8_t* conds, int32_t* flag,
+                           uint8_t* valid, uint8_t* conds, uint8_t* flags,
                            cudaStream_t stream) {
   if (f <= 0) return 0;
   switch (c) {
-    case 1: launch_c<1>(states, f, ordered, skip_ack, nexts, valid, conds, flag, stream); break;
-    case 2: launch_c<2>(states, f, ordered, skip_ack, nexts, valid, conds, flag, stream); break;
-    case 3: launch_c<3>(states, f, ordered, skip_ack, nexts, valid, conds, flag, stream); break;
+    case 1: launch_c<1>(states, f, ordered, skip_ack, nexts, valid, conds, flags, stream); break;
+    case 2: launch_c<2>(states, f, ordered, skip_ack, nexts, valid, conds, flags, stream); break;
+    case 3: launch_c<3>(states, f, ordered, skip_ack, nexts, valid, conds, flags, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

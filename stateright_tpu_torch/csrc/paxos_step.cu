@@ -8,8 +8,10 @@
 // successors -- the boundary tests the successor -- so the engine expands
 // it in one phase: every (state, slot) lane's successor row, its validity
 // ANDed with the successor's boundary test, and its flag, which the
-// wrapper reduces to the wave's encoding-overflow flag (the flag is the
-// JAX step's, taken before the boundary).
+// wrapper reduces to each state's and the wave's encoding-overflow flag
+// (the flag is the JAX step's, taken before the boundary).  The device
+// walk (parallel/simulation_gpu.py) runs the JAX step with no boundary:
+// its wrapper passes max_round = 0xFFFFFFFF, which every round passes.
 //
 // Bound: bytes.  Each lane writes its W-word successor, a valid byte and a
 // flag byte; the parent row (4W bytes) is read from memory once and by its

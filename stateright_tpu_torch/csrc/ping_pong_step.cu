@@ -11,8 +11,10 @@
 // last-delivered marker to 1 + e, leaving the envelope in place.  A Drop
 // is valid when the envelope is present and clears its bit.  Either lane
 // is then valid only if the successor is within the boundary (both
-// counters at most max_nat).  Lane 0 of each state also writes the
-// state's six property conditions.
+// counters at most max_nat) -- unless bounded is 0: the device walk
+// (parallel/simulation_gpu.py) takes the JAX step alone and tests the
+// boundary of the state it stands on.  Lane 0 of each state also writes
+// the state's six property conditions.
 //
 // Row: two words, lo | hi << 32 -- counters at bits 0-3 and 4-7, the
 // envelope bitmap from bit 8, then the 5-bit marker.  Every lane's
@@ -34,6 +36,7 @@ constexpr int kProps = 6;
 
 __global__ void ping_pong_kernel(const uint32_t* __restrict__ states,
                                  int64_t f, int max_nat, int lossy,
+                                 int bounded,
                                  uint32_t* __restrict__ nexts,
                                  uint8_t* __restrict__ valid,
                                  uint8_t* __restrict__ conds) {
@@ -76,7 +79,7 @@ __global__ void ping_pong_kernel(const uint32_t* __restrict__ states,
     const bool inside = (next & 0xF) <= m && ((next >> 4) & 0xF) <= m;
     nexts[2 * t] = static_cast<uint32_t>(next);
     nexts[2 * t + 1] = static_cast<uint32_t>(next >> 32);
-    valid[t] = ok && inside ? 1 : 0;
+    valid[t] = ok && (inside || !bounded) ? 1 : 0;
     if (lane == 0) {
       const uint64_t delta = c0 > c1 ? c0 - c1 : c1 - c0;
       const bool at_max = c0 == m || c1 == m;
@@ -96,14 +99,16 @@ __global__ void ping_pong_kernel(const uint32_t* __restrict__ states,
 
 // states: f rows of 2 words; nexts: f * A rows of 2 words; valid: f * A
 // bytes; conds: f * 6 bytes.  A = 2 (max_nat + 2), doubled when lossy.
+// bounded: 1 ANDs each lane's validity with its successor's boundary.
 extern "C" int sr_ping_pong_step(const uint32_t* states, int64_t f,
-                                 int max_nat, int lossy, uint32_t* nexts,
+                                 int max_nat, int lossy, int bounded,
+                                 uint32_t* nexts,
                                  uint8_t* valid, uint8_t* conds,
                                  cudaStream_t stream) {
   if (f <= 0) return 0;
   constexpr int kThreads = 256;
   const int64_t a = 2 * (max_nat + 2) * (lossy ? 2 : 1);
   ping_pong_kernel<<<sr::grid_for(f * a, kThreads), kThreads, 0, stream>>>(
-      states, f, max_nat, lossy, nexts, valid, conds);
+      states, f, max_nat, lossy, bounded, nexts, valid, conds);
   return static_cast<int>(cudaGetLastError());
 }

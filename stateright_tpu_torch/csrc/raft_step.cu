@@ -27,9 +27,10 @@
 // network is the row's slots without the delivered one, merged with the
 // lane's sends: both are sorted, so each code's place is its rank, and the
 // result is the JAX 29-key stable sort's (equal keys are equal words).
-// One overflow word is set by any valid lane that flags: a term past
-// TERM_CAP, a log past LOG_CAP, delivered messages past DELIV_CAP, a
-// buffer past BUF_CAP, or more than 24 envelopes after the merge.  The
+// A state's overflow byte is set by any of its valid lanes that flags: a
+// term past TERM_CAP, a log past LOG_CAP, delivered messages past
+// DELIV_CAP, a buffer past BUF_CAP, or more than 24 envelopes after the
+// merge.  The
 // conds (a state's lane 0 writes them): Election Liveness, Log Liveness,
 // Election Safety, State Machine Safety.
 //
@@ -590,7 +591,7 @@ __global__ void raft_step_kernel(const uint32_t* __restrict__ states, int64_t f,
                                  uint32_t* __restrict__ nexts,
                                  uint8_t* __restrict__ valid,
                                  uint8_t* __restrict__ conds,
-                                 int32_t* __restrict__ flag) {
+                                 uint8_t* __restrict__ flags) {
   const uint64_t fresh[N] = {fresh0, fresh1, fresh2};
   const int64_t total = f * A;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -607,7 +608,7 @@ __global__ void raft_step_kernel(const uint32_t* __restrict__ states, int64_t f,
     }
     const bool overflow = assemble(row, L, nexts + t * W);
     valid[t] = L.valid;
-    if (L.valid && (L.flag || (L.net_flag && overflow))) *flag = 1;
+    if (L.valid && (L.flag || (L.net_flag && overflow))) flags[st] = 1;
     if (lane == 0) conds_of(row, conds + st * 4);
   }
 }
@@ -616,15 +617,16 @@ __global__ void raft_step_kernel(const uint32_t* __restrict__ states, int64_t f,
 
 // states: f rows of W = 58 words whose slots are in the codec's order;
 // fresh0..2: each node's on_start record (lo | hi << 32); nexts: f * 36 rows;
-// valid: f * 36 bytes; conds: f * 4 bytes; flag: one int32, zeroed by the
-// caller and set to 1 if a valid lane overflowed the packed encoding.
+// valid: f * 36 bytes; conds: f * 4 bytes; flags: f bytes, zeroed by the
+// caller, a state's set to 1 if one of its valid lanes overflowed the
+// packed encoding.
 extern "C" int sr_raft_step(const uint32_t* states, int64_t f, int max_crashes,
                             uint64_t fresh0, uint64_t fresh1, uint64_t fresh2,
                             uint32_t* nexts, uint8_t* valid, uint8_t* conds,
-                            int32_t* flag, cudaStream_t stream) {
+                            uint8_t* flags, cudaStream_t stream) {
   if (f <= 0) return 0;
   constexpr int kThreads = 128;
   raft_step_kernel<<<sr::grid_for(f * A, kThreads), kThreads, 0, stream>>>(
-      states, f, max_crashes, fresh0, fresh1, fresh2, nexts, valid, conds, flag);
+      states, f, max_crashes, fresh0, fresh1, fresh2, nexts, valid, conds, flags);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,7 @@
 // its tester record on (the register harness).  Every lane's words are the
 // JAX step's, valid or not; the delivered envelope leaves the slots, the
 // one send joins them in unsigned order, and a send that does not fit
-// raises the overflow flag (one word, set by any lane that overflows).
+// raises the state's overflow flag (one byte a state).
 // The conds: linearizable (the DP) and value chosen (a GetOk with a
 // non-null value in flight).
 //
@@ -151,7 +151,7 @@ __global__ void single_copy_step_kernel(const uint32_t* __restrict__ states,
                                         uint32_t* __restrict__ nexts,
                                         uint8_t* __restrict__ valid,
                                         uint8_t* __restrict__ conds,
-                                        int32_t* __restrict__ flag) {
+                                        uint8_t* __restrict__ flags) {
   using G = Geom<C>;
   constexpr int L = reglin::Dims<C>::L;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -175,13 +175,14 @@ __global__ void single_copy_step_kernel(const uint32_t* __restrict__ states,
       const uint32_t e = code - 1u;
       chosen |= code != 0u && (e >> 19) == T_GETOK && (e & 0x3FFFu) != 0u;
     }
-    if (over) *flag = 1;
+    over = reglin::group_any<L>(over);
     chosen = reglin::group_any<L>(chosen);
     uint32_t tw[C];
 #pragma unroll
     for (int i = 0; i < C; ++i) tw[i] = w[G::TST0 + i];
     const bool lin = reglin::linearizable<C>(tw, r);
     if (r == 0) {
+      flags[st] = over ? 1 : 0;
       conds[2 * st] = lin ? 1 : 0;
       conds[2 * st + 1] = chosen ? 1 : 0;
     }
@@ -191,11 +192,11 @@ __global__ void single_copy_step_kernel(const uint32_t* __restrict__ states,
 }  // namespace
 
 // states: f rows of Geom<c>::W words; nexts: f * M rows; valid: f * M
-// bytes; conds: f * 2 bytes; flag: one int32, zeroed by the caller and set
-// to 1 if a lane overflowed its slots.
+// bytes; conds: f * 2 bytes; flags: f bytes, each state's 1 if one of its
+// lanes overflowed its slots, else 0.
 extern "C" int sr_single_copy_step(const uint32_t* states, int64_t f, int s,
                                    int c, uint32_t* nexts, uint8_t* valid,
-                                   uint8_t* conds, int32_t* flag,
+                                   uint8_t* conds, uint8_t* flags,
                                    cudaStream_t stream) {
   if (f <= 0) return 0;
   if (s < 1 || s > 2) return static_cast<int>(cudaErrorInvalidValue);
@@ -204,7 +205,7 @@ extern "C" int sr_single_copy_step(const uint32_t* states, int64_t f, int s,
   single_copy_step_kernel<C><<<sr::grid_for(f * reglin::Dims<C>::L,          \
                                             kThreads),                       \
                                kThreads, 0, stream>>>(states, f, s, nexts,   \
-                                                      valid, conds, flag)
+                                                      valid, conds, flags)
   switch (c) {
     case 1: { LAUNCH(1); break; }
     case 2: { LAUNCH(2); break; }

@@ -431,6 +431,10 @@ class AbdCompiled(CompiledModel):
     def expand(self, states):
         return abd_step(states, self.c, self.ordered, self.skip_ack)
 
+    def walk_step(self, states, plain=False):
+        fn = abd_step_plain if plain else abd_step
+        return fn(states, self.c, self.ordered, self.skip_ack, flag_rows=True)
+
 
 # --- the plain-torch twin ------------------------------------------------------
 
@@ -750,24 +754,29 @@ def abd_conds_plain(states: torch.Tensor, c: int, ordered: bool) -> torch.Tensor
 
 
 def abd_step_plain(
-    states: torch.Tensor, c: int, ordered: bool, skip_ack: bool
+    states: torch.Tensor, c: int, ordered: bool, skip_ack: bool,
+    flag_rows: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain-torch twin of the K10 kernel: ``int32[F, W] -> (nexts
     int32[F, A, W], valid bool[F, A], conds bool[F, 2], flag bool[])`` --
     :func:`abd_lanes_plain` with its flags OR-ed (the JAX ``step``'s
-    ``any``) and :func:`abd_conds_plain`."""
+    ``any``) and :func:`abd_conds_plain`.  With ``flag_rows`` the flag is
+    each state's, ``bool[F]``: the per-state flag of the JAX ``step``."""
     nexts, valid, flags = abd_lanes_plain(states, c, ordered, skip_ack)
-    return nexts, valid, abd_conds_plain(states, c, ordered), flags.any()
+    rows = flags.any(dim=1)
+    return (nexts, valid, abd_conds_plain(states, c, ordered),
+            rows if flag_rows else rows.any())
 
 
 # --- the kernel's wrapper ----------------------------------------------------
 
 
-def abd_step(states: torch.Tensor, c: int, ordered: bool, skip_ack: bool):
+def abd_step(states: torch.Tensor, c: int, ordered: bool, skip_ack: bool,
+             flag_rows: bool = False):
     """Every Deliver lane's successor and the property conditions of packed
     ABD rows, fused (K10): see :func:`abd_step_plain`."""
     if states.device.type == "cpu":
-        return abd_step_plain(states, c, ordered, skip_ack)
+        return abd_step_plain(states, c, ordered, skip_ack, flag_rows)
     _codec(c, ordered)
     dev = states.device
     cuda.require(states, "states", torch.int32, 2, dev)
@@ -781,7 +790,7 @@ def abd_step(states: torch.Tensor, c: int, ordered: bool, skip_ack: bool):
     nexts = torch.empty((f, a, w), dtype=torch.int32, device=dev)
     valid = torch.empty((f, a), dtype=torch.bool, device=dev)
     conds = torch.empty((f, N_PROPS), dtype=torch.bool, device=dev)
-    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    flags = torch.empty((f,), dtype=torch.bool, device=dev)
     fn = cuda.function(
         "abd_step", "sr_abd_step",
         [cuda.P, cuda.I64, cuda.I32, cuda.I32, cuda.I32, cuda.P, cuda.P,
@@ -790,10 +799,10 @@ def abd_step(states: torch.Tensor, c: int, ordered: bool, skip_ack: bool):
     abd_step.launches += 1
     code = fn(
         cuda.ptr(states), f, c, int(ordered), int(skip_ack), cuda.ptr(nexts),
-        cuda.ptr(valid), cuda.ptr(conds), cuda.ptr(flag), cuda.stream(),
+        cuda.ptr(valid), cuda.ptr(conds), cuda.ptr(flags), cuda.stream(),
     )
     cuda.check(code, "abd_step", "abd_step")
-    return nexts, valid, conds, flag != 0
+    return nexts, valid, conds, flags if flag_rows else flags.any()
 
 
 abd_step.launches = 0

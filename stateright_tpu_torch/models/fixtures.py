@@ -91,6 +91,11 @@ class TrapCounterCompiled(CompiledModel):
         nexts, valid, conds = trap_step(states, *self._consts())
         return nexts, valid, conds, None
 
+    def walk_step(self, states: torch.Tensor, plain: bool = False):
+        nexts, valid, conds = (trap_step_plain if plain else trap_step)(
+            states, *self._consts())
+        return nexts, valid, conds, None
+
     def canon_spec(self):
         """No symmetric records: the empty spec, the identity."""
         from ..parallel.canon import CanonSpec

@@ -192,6 +192,11 @@ class LwwCompiled(CompiledModel):
         nexts, valid, flags, conds = lww_step(states, self.n)
         return nexts, valid, conds, flags.any()
 
+    def walk_step(self, states: torch.Tensor, plain: bool = False):
+        nexts, valid, flags, conds = (lww_step_plain if plain else lww_step)(
+            states, self.n)
+        return nexts, valid, conds, flags
+
 
 # --- the twin (masked int64 over the u32 words) --------------------------------
 

@@ -49,7 +49,7 @@ sentinel is ``0xFFFFFFFF``.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -483,6 +483,17 @@ class PaxosCompiled(CompiledModel):
         nexts, valid, flag = paxos_step(states, self.c, self.max_round)
         return nexts, valid, self.property_conds(states), flag
 
+    def walk_step(self, states: torch.Tensor, plain: bool = False):
+        """The JAX ``step`` of every lane with no boundary (K14) and the
+        conds (K6)."""
+        if plain:
+            nexts, valid, flags = paxos_step_plain(
+                states, self.c, None, flag_rows=True)
+            conds = paxos_conds_plain(states, self.c, self.never_decided)
+            return nexts, valid, conds, flags
+        nexts, valid, flags = paxos_step(states, self.c, None, flag_rows=True)
+        return nexts, valid, self.property_conds(states), flags
+
 
 # --- the twins' lane arithmetic (masked int64, the JAX code line by line) --
 
@@ -764,12 +775,15 @@ def paxos_boundary_plain(rows: torch.Tensor, max_round: int) -> torch.Tensor:
     return inside
 
 
-def paxos_step_plain(states: torch.Tensor, c: int, max_round: int):
+def paxos_step_plain(states: torch.Tensor, c: int, max_round: Optional[int],
+                     flag_rows: bool = False):
     """Plain-torch twin of the K14 kernel: ``int32[F, W] -> (nexts
     int32[F, M, W], valid bool[F, M], flag bool)`` -- the JAX ``step`` of
     every state (``_deliver_lane`` of each slot), each lane's validity
     ANDed with its successor's :func:`paxos_boundary_plain`, and the any
-    of the lanes' encoding-overflow flags, taken before the boundary."""
+    of the lanes' encoding-overflow flags, taken before the boundary.
+    ``max_round=None`` is the JAX ``step`` alone, with no boundary; with
+    ``flag_rows`` the flag is each state's, ``bool[F]``."""
     m = slot_count(c)
     w = state_width(c)
     f = states.shape[0]
@@ -778,8 +792,11 @@ def paxos_step_plain(states: torch.Tensor, c: int, max_round: int):
         _codec(c), u32(states).repeat_interleave(m, dim=0), k
     )
     nexts = i32(rows)
-    valid = valid & paxos_boundary_plain(nexts, max_round)
-    return nexts.view(f, m, w), valid.view(f, m), flags.any()
+    if max_round is not None:
+        valid = valid & paxos_boundary_plain(nexts, max_round)
+    rows_flag = flags.view(f, m).any(dim=1)
+    return (nexts.view(f, m, w), valid.view(f, m),
+            rows_flag if flag_rows else rows_flag.any())
 
 
 def paxos_conds_plain(states: torch.Tensor, c: int, never_decided: bool):
@@ -899,13 +916,15 @@ def paxos_conds(states: torch.Tensor, c: int, never_decided: bool) -> torch.Tens
 paxos_conds.launches = 0
 
 
-def paxos_step(states: torch.Tensor, c: int, max_round: int):
+def paxos_step(states: torch.Tensor, c: int, max_round: Optional[int],
+               flag_rows: bool = False):
     """The single-phase step of packed paxos rows under the ballot bound
-    ``max_round`` (K14): see :func:`paxos_step_plain`."""
-    if not 0 <= max_round <= MAX_ROUND:
+    ``max_round`` (K14), or with no boundary at ``max_round=None``: see
+    :func:`paxos_step_plain`."""
+    if max_round is not None and not 0 <= max_round <= MAX_ROUND:
         raise ValueError(f"max_round {max_round} outside 0..{MAX_ROUND}")
     if states.device.type == "cpu":
-        return paxos_step_plain(states, c, max_round)
+        return paxos_step_plain(states, c, max_round, flag_rows)
     _check_rows(states, c)
     dev = states.device
     f, m = states.shape[0], slot_count(c)
@@ -917,12 +936,15 @@ def paxos_step(states: torch.Tensor, c: int, max_round: int):
         [cuda.P, cuda.I64, cuda.I32, cuda.U32, cuda.P, cuda.P, cuda.P, cuda.P],
     )
     paxos_step.launches += 1
+    # No boundary: every round code // 3 is at most 0xFFFFFFFF.
+    bound = 0xFFFFFFFF if max_round is None else max_round
     code = fn(
-        cuda.ptr(states), f, c, max_round, cuda.ptr(nexts), cuda.ptr(valid),
+        cuda.ptr(states), f, c, bound, cuda.ptr(nexts), cuda.ptr(valid),
         cuda.ptr(flags), cuda.stream(),
     )
     cuda.check(code, "paxos_step", "paxos_step")
-    return nexts, valid, flags.any()
+    rows_flag = flags.any(dim=1)
+    return nexts, valid, rows_flag if flag_rows else rows_flag.any()
 
 
 paxos_step.launches = 0

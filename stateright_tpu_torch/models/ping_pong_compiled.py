@@ -130,6 +130,11 @@ class PingPongCompiled(CompiledModel):
         nexts, valid, conds = ping_pong_step(states, self.max_nat, self.lossy)
         return nexts, valid, conds, None
 
+    def walk_step(self, states: torch.Tensor, plain: bool = False):
+        nexts, valid, conds = (ping_pong_step_plain if plain else ping_pong_step)(
+            states, self.max_nat, self.lossy, bounded=False)
+        return nexts, valid, conds, None
+
 
 def envelope_count(max_nat: int) -> int:
     """E: the possible envelopes, Ping(0..max_nat+1) and Pong(0..max_nat+1)."""
@@ -198,25 +203,30 @@ def _conds(bits: torch.Tensor, max_nat: int) -> torch.Tensor:
     )
 
 
-def ping_pong_step_plain(states: torch.Tensor, max_nat: int, lossy: bool):
+def ping_pong_step_plain(states: torch.Tensor, max_nat: int, lossy: bool,
+                         bounded: bool = True):
     """Plain-torch twin of the K13 kernel (any device): ``int32[F, 2] ->
     (nexts int32[F, A, 2], valid bool[F, A], conds bool[F, 6])``, each
-    lane's validity ANDed with its successor's boundary test."""
+    lane's validity ANDed with its successor's boundary test (unless
+    ``bounded`` is False: the JAX ``step`` alone)."""
     bits = _bits(states)
     nexts, valid = _lanes(bits, max_nat, lossy)
-    return _words(nexts), valid & _inside(nexts, max_nat), _conds(bits, max_nat)
+    if bounded:
+        valid = valid & _inside(nexts, max_nat)
+    return _words(nexts), valid, _conds(bits, max_nat)
 
 
 # --- the kernel's wrapper ---------------------------------------------------------
 
 
-def ping_pong_step(states: torch.Tensor, max_nat: int, lossy: bool):
+def ping_pong_step(states: torch.Tensor, max_nat: int, lossy: bool,
+                   bounded: bool = True):
     """Successors, boundary-gated validity and property conditions of
     packed ping-pong rows (K13): see :func:`ping_pong_step_plain`."""
     if not 0 <= max_nat <= MAX_NAT:
         raise ValueError(f"packed ping_pong supports max_nat <= {MAX_NAT}")
     if states.device.type == "cpu":
-        return ping_pong_step_plain(states, max_nat, lossy)
+        return ping_pong_step_plain(states, max_nat, lossy, bounded)
     dev = states.device
     cuda.require(states, "states", torch.int32, 2, dev)
     if states.shape[1] != 2:
@@ -228,11 +238,12 @@ def ping_pong_step(states: torch.Tensor, max_nat: int, lossy: bool):
     conds = torch.empty((f, N_PROPS), dtype=torch.bool, device=dev)
     fn = cuda.function(
         "ping_pong_step", "sr_ping_pong_step",
-        [cuda.P, cuda.I64, cuda.I32, cuda.I32, cuda.P, cuda.P, cuda.P, cuda.P],
+        [cuda.P, cuda.I64, cuda.I32, cuda.I32, cuda.I32, cuda.P, cuda.P,
+         cuda.P, cuda.P],
     )
     ping_pong_step.launches += 1
     code = fn(
-        cuda.ptr(states), f, max_nat, int(lossy), cuda.ptr(nexts),
+        cuda.ptr(states), f, max_nat, int(lossy), int(bounded), cuda.ptr(nexts),
         cuda.ptr(valid), cuda.ptr(conds), cuda.stream(),
     )
     cuda.check(code, "ping_pong_step", "ping_pong_step")

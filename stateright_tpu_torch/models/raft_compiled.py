@@ -348,6 +348,10 @@ class RaftCompiled(CompiledModel):
     def expand(self, states):
         return raft_step(states, self.max_crashes)
 
+    def walk_step(self, states, plain=False):
+        fn = raft_step_plain if plain else raft_step
+        return fn(states, self.max_crashes, flag_rows=True)
+
 
 N_PROPS = 4  # Election Liveness, Log Liveness, Election Safety, State Machine Safety
 NET0 = 2 * N + 1
@@ -943,27 +947,30 @@ def raft_conds_plain(states: torch.Tensor) -> torch.Tensor:
 
 
 def raft_step_plain(
-    states: torch.Tensor, max_crashes: int
+    states: torch.Tensor, max_crashes: int, flag_rows: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain-torch twin of the K11 kernel: ``int32[F, W] -> (nexts
     int32[F, A, W], valid bool[F, A], conds bool[F, 4], flag bool[])`` --
     :func:`raft_lanes_plain` with the flags of its valid lanes OR-ed (the
-    JAX ``step``'s ``any(flags & valid)``) and :func:`raft_conds_plain`."""
+    JAX ``step``'s ``any(flags & valid)``) and :func:`raft_conds_plain`.
+    With ``flag_rows`` the flag is each state's, ``bool[F]``."""
     nexts, valid, flags = raft_lanes_plain(states, max_crashes)
-    return nexts, valid, raft_conds_plain(states), (flags & valid).any()
+    rows = (flags & valid).any(dim=1)
+    return (nexts, valid, raft_conds_plain(states),
+            rows if flag_rows else rows.any())
 
 
 # --- the kernel's wrapper ----------------------------------------------------
 
 
-def raft_step(states: torch.Tensor, max_crashes: int):
+def raft_step(states: torch.Tensor, max_crashes: int, flag_rows: bool = False):
     """Every lane's successor and the property conditions of packed raft
     rows, fused (K11): see :func:`raft_step_plain`.  The kernel takes rows
     whose slots hold the codec's sorted codes (nonzero codes first, in
     (w0, w1) order, then zero pairs), as every row the engine holds does:
     it merges the sends into them instead of sorting."""
     if states.device.type == "cpu":
-        return raft_step_plain(states, max_crashes)
+        return raft_step_plain(states, max_crashes, flag_rows)
     if max_crashes not in (0, 1):
         raise ValueError(f"packed raft supports max_crashes <= 1, got {max_crashes}")
     dev = states.device
@@ -974,7 +981,7 @@ def raft_step(states: torch.Tensor, max_crashes: int):
     nexts = torch.empty((f, A, W), dtype=torch.int32, device=dev)
     valid = torch.empty((f, A), dtype=torch.bool, device=dev)
     conds = torch.empty((f, N_PROPS), dtype=torch.bool, device=dev)
-    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    flags = torch.zeros((f,), dtype=torch.bool, device=dev)
     fresh = fresh_nodes()
     fn = cuda.function(
         "raft_step", "sr_raft_step",
@@ -984,10 +991,10 @@ def raft_step(states: torch.Tensor, max_crashes: int):
     raft_step.launches += 1
     code = fn(
         cuda.ptr(states), f, max_crashes, *fresh, cuda.ptr(nexts),
-        cuda.ptr(valid), cuda.ptr(conds), cuda.ptr(flag), cuda.stream(),
+        cuda.ptr(valid), cuda.ptr(conds), cuda.ptr(flags), cuda.stream(),
     )
     cuda.check(code, "raft_step", "raft_step")
-    return nexts, valid, conds, flag != 0
+    return nexts, valid, conds, flags if flag_rows else flags.any()
 
 
 raft_step.launches = 0

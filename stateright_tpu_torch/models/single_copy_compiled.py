@@ -220,15 +220,20 @@ class SingleCopyCompiled(CompiledModel):
     def expand(self, states):
         return single_copy_step(states, self.s, self.c)
 
+    def walk_step(self, states, plain=False):
+        fn = single_copy_step_plain if plain else single_copy_step
+        return fn(states, self.s, self.c, flag_rows=True)
+
 
 def single_copy_step_plain(
-    states: torch.Tensor, s: int, c: int
+    states: torch.Tensor, s: int, c: int, flag_rows: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain-torch twin of the K9 kernel: ``int32[F, W] -> (nexts
     int32[F, M, W], valid bool[F, M], conds bool[F, 2], flag bool[])``.
     Every lane's words are the JAX ``_deliver_lane``'s, valid or not; the
     flag is the OR of the lanes' slot-overflow flags (the JAX ``step``'s
-    ``any``), and the conds are the JAX ``property_conds``."""
+    ``any``), and the conds are the JAX ``property_conds``.  With
+    ``flag_rows`` the flag is each state's, ``bool[F]``."""
     rc = _codec(s, c)
     m = slot_count(c)
     f = states.shape[0]
@@ -297,17 +302,19 @@ def single_copy_step_plain(
     lin = device_linearizable_plain(rc, st)
     chosen = ((slots != 0) & (tag == _T_GETOK) & (payload != 0)).any(dim=1)
     conds = torch.stack([lin, chosen], dim=1)
-    return i32(nexts), valid, conds, overflow.any()
+    rows = overflow.view(f, m).any(dim=1)
+    return i32(nexts), valid, conds, rows if flag_rows else rows.any()
 
 
 # --- the kernel's wrapper ----------------------------------------------------
 
 
-def single_copy_step(states: torch.Tensor, s: int, c: int):
+def single_copy_step(states: torch.Tensor, s: int, c: int,
+                     flag_rows: bool = False):
     """Every Deliver lane's successor and the property conditions of packed
     single-copy rows, fused (K9): see :func:`single_copy_step_plain`."""
     if states.device.type == "cpu":
-        return single_copy_step_plain(states, s, c)
+        return single_copy_step_plain(states, s, c, flag_rows)
     _codec(s, c)
     dev = states.device
     cuda.require(states, "states", torch.int32, 2, dev)
@@ -320,7 +327,7 @@ def single_copy_step(states: torch.Tensor, s: int, c: int):
     nexts = torch.empty((f, m, w), dtype=torch.int32, device=dev)
     valid = torch.empty((f, m), dtype=torch.bool, device=dev)
     conds = torch.empty((f, N_PROPS), dtype=torch.bool, device=dev)
-    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    flags = torch.empty((f,), dtype=torch.bool, device=dev)
     fn = cuda.function(
         "single_copy_step", "sr_single_copy_step",
         [cuda.P, cuda.I64, cuda.I32, cuda.I32, cuda.P, cuda.P, cuda.P, cuda.P,
@@ -329,10 +336,10 @@ def single_copy_step(states: torch.Tensor, s: int, c: int):
     single_copy_step.launches += 1
     code = fn(
         cuda.ptr(states), f, s, c, cuda.ptr(nexts), cuda.ptr(valid),
-        cuda.ptr(conds), cuda.ptr(flag), cuda.stream(),
+        cuda.ptr(conds), cuda.ptr(flags), cuda.stream(),
     )
     cuda.check(code, "single_copy_step", "single_copy_step")
-    return nexts, valid, conds, flag != 0
+    return nexts, valid, conds, flags if flag_rows else flags.any()
 
 
 single_copy_step.launches = 0

@@ -207,6 +207,11 @@ class TwoPhaseCompiled(CompiledModel):
         nexts, valid, conds = twophase_step(states, self.n)
         return nexts, valid, conds, None
 
+    def walk_step(self, states, plain=False):
+        nexts, valid, conds = (twophase_step_plain if plain else twophase_step)(
+            states, self.n)
+        return nexts, valid, conds, None
+
     def canon_spec(self):
         """An RM's record is three bit fields -- its state (word0, 2 bits
         at 2i), tm_prepared (word1, bit i) and its Prepared message (word1,

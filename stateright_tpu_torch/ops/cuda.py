@@ -34,6 +34,7 @@ SOURCES = (
     "single_copy_step", "abd_step", "raft_step",
     "prededup", "ping_pong_step", "paxos_step",
     "canon", "lww_step", "fixtures_step",
+    "walk", "fate",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -154,6 +155,23 @@ def ptr(t: torch.Tensor) -> P:
 
 def stream() -> P:
     return P(torch.cuda.current_stream().cuda_stream)
+
+
+def resolve_device(device, what: str) -> torch.device:
+    """An entry point's ``device`` (default ``cuda``) resolved to a
+    concrete device; raises where it names CUDA and no card is present --
+    nothing carries on on the CPU unless the caller asks for
+    ``device="cpu"``."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what}: no CUDA device is available; pass device='cpu' to "
+                "run the plain-torch twins on the CPU"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

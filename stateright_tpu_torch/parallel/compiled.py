@@ -17,6 +17,11 @@ int32 bit-views -- on the engine's device.
   its successor's boundary test, as the JAX ``wave_eval`` does before it
   counts the wave -- plus the encoding-overflow flag, which is what the
   engine calls each wave.  A model with a fused kernel overrides it;
+- ``walk_step(states)``: what the device walk (``simulation_gpu.py``)
+  calls each step -- the JAX ``step`` and ``property_conds`` with NO
+  successor boundary (the walk tests the boundary of the state it stands
+  on) and each state's encoding-overflow flag, ``bool[F]``, or None for a
+  model whose encoding cannot overflow (the JAX ``step_flags``);
 - ``canon_spec()``: the symmetric record block ``symmetry()`` reduces by
   (``canon.py``), or None for a model without one; ``canon_rows(rows[B,
   W])`` overrides it where the declarative spec cannot say enough.
@@ -112,6 +117,18 @@ class CompiledModel:
         inside = self.boundary(nexts.view(f * a, w))
         if inside is not None:
             valid = valid & inside.view(f, a)
+        return nexts, valid, self.property_conds(states), None
+
+    def walk_step(
+        self, states: torch.Tensor, plain: bool = False
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """``(nexts, valid, conds, flag_rows)`` of the JAX ``step`` and
+        ``property_conds`` for the device walk: no successor boundary, and
+        ``flag_rows`` each state's encoding-overflow flag ``bool[F]`` (None
+        for a model whose encoding cannot overflow).  ``plain`` runs the
+        kernels' plain-torch twins on any device (the card's walk is held
+        against them).  A model with a fused kernel overrides it."""
+        nexts, valid = self.step(states)
         return nexts, valid, self.property_conds(states), None
 
     # --- symmetry canonicalization (canon.py) -------------------------------

@@ -8,8 +8,9 @@ inside one device program between stats readbacks; this port reads one
 small stats tensor back per wave, and checks before each wave what the JAX
 program checks in its loop condition.  The flag-4 rules of the sort-rung
 ladder and the sorted fallback are ported below (without their journal
-lines); the step-rung ladder, the density tuner, vitals, the journal, the
-knob cache and checkpoint cadence are not.
+lines), and so are the wall deadline of a builder ``timeout`` and a
+``request_stop``; the step-rung ladder, the density tuner, vitals, the
+journal, the knob cache and checkpoint cadence are not.
 
 The engine adapter (the checker) provides:
 
@@ -21,13 +22,14 @@ The engine adapter (the checker) provides:
 - ``_wl_publish()`` -- copy the carry's counts to the checker surface;
 - ``_wl_grow(flags)`` -- grow the tripped buffers in place and rebuild the
   table from the committed log (raises when a knob cannot grow);
-- ``_wl_remaining() / _wl_depth()`` and the checker attributes
-  ``_options``, ``_properties``, ``_state_count`` and
+- ``_wl_remaining() / _wl_depth()``, ``stop_requested()`` and the checker
+  attributes ``_options``, ``_properties``, ``_state_count`` and
   ``_discovery_slots``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -116,10 +118,19 @@ def relax_dedup_geometry(chunk, dedup_factor, lanes_of, lane_cap,
     return 1, c, "; ".join(notes)
 
 
-def loop_should_break(eng, remaining: int, depth: int) -> bool:
+def past_deadline_or_stopped(eng, deadline: Optional[float]) -> bool:
+    """The wall ``deadline`` (monotonic seconds) has passed, or a stop was
+    requested."""
+    if deadline is not None and time.monotonic() >= deadline:
+        return True
+    return eng.stop_requested()
+
+
+def loop_should_break(eng, remaining: int, depth: int,
+                      deadline: Optional[float] = None) -> bool:
     """The termination test after every committed wave: level drained /
-    target depth / finish_when / target_state_count, in the JAX loop's
-    order."""
+    target depth / finish_when / target_state_count / wall deadline /
+    stop request, in the JAX loop's order."""
     opts = eng._options
     if remaining == 0:
         return True
@@ -132,10 +143,12 @@ def loop_should_break(eng, remaining: int, depth: int) -> bool:
         frozenset(eng._discovery_slots), eng._properties
     ):
         return True
-    return (
+    if (
         opts._target_state_count is not None
         and opts._target_state_count <= eng._state_count
-    )
+    ):
+        return True
+    return past_deadline_or_stopped(eng, deadline)
 
 
 class WaveLoop:
@@ -145,9 +158,10 @@ class WaveLoop:
     def __init__(self, eng):
         self.eng = eng
 
-    def run(self) -> int:
-        """Run to the end of the search; returns the number of waves run
-        (re-runs after growth included)."""
+    def run(self, deadline: Optional[float] = None) -> int:
+        """Run to the end of the search, or to the wall ``deadline``
+        (monotonic seconds) or a stop request; returns the number of waves
+        run (re-runs after growth included)."""
         eng = self.eng
         waves = 0
         eng._wl_publish()
@@ -158,10 +172,20 @@ class WaveLoop:
                 fatal = flags & ~RETRYABLE_FLAGS
                 if fatal:
                     raise RuntimeError(eng._wl_overflow_message(fatal))
+                # A run past its budget (or asked to stop) keeps its
+                # partial result rather than grow.  The flagged wave
+                # committed nothing, but its aborted insert may have
+                # written keys into the table: erase them first, or a
+                # resumed snapshot would treat the wave's states as
+                # visited and drop their subtrees.
+                if past_deadline_or_stopped(eng, deadline):
+                    eng._wl_abort_cleanup()
+                    break
                 eng._wl_grow(flags)
                 continue
             eng._wl_publish()
-            if loop_should_break(eng, eng._wl_remaining(), eng._wl_depth()):
+            if loop_should_break(eng, eng._wl_remaining(), eng._wl_depth(),
+                                 deadline):
                 break
         return waves
 

@@ -67,6 +67,7 @@ import hashlib
 import logging
 import os
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -76,6 +77,7 @@ import torch
 from ..core.checker import Checker
 from ..core.model import Expectation
 from ..core.path import Path
+from ..ops.cuda import resolve_device
 from ..ops.device_fp import device_fp64
 from ..ops.u32 import M32, from_numpy_u32, i32, to_numpy_u32
 from .canon import make_canon
@@ -269,18 +271,7 @@ class GpuChecker(Checker):
         of either engine (``save_snapshot``, JAX npz format), adopting its
         table and log geometry."""
         super().__init__(options.model)
-        if device is None:
-            device = "cuda"
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "spawn_gpu(): no CUDA device is available; pass "
-                    "device='cpu' to run the plain-torch twins on the CPU"
-                )
-            if device.index is None:
-                device = torch.device("cuda", torch.cuda.current_device())
-        self._device = device
+        self._device = resolve_device(device, "spawn_gpu()")
         self._options = options
         self._compiled = compiled or compiled_model_for(options.model)
         # Symmetry: dedup on the fingerprint of the canonical row.  A model
@@ -403,12 +394,14 @@ class GpuChecker(Checker):
 
     def _run(self) -> None:
         try:
+            timeout = self._options._timeout
+            deadline = None if timeout is None else time.monotonic() + timeout
             if self._device.type == "cuda":
                 torch.cuda.set_device(self._device)
             self._carry = (
                 self._resume() if self._resume_from is not None else self._seed()
             )
-            self._waves = WaveLoop(self).run()
+            self._waves = WaveLoop(self).run(deadline)
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
         except BaseException as e:  # propagate at join, like the host engine
@@ -638,6 +631,13 @@ class GpuChecker(Checker):
                 "do not hold for this configuration"
             )
         return f"wavefront engine overflow flags={flags}"
+
+    def _wl_abort_cleanup(self) -> None:
+        """Erase a flagged wave's table writes before a stop or deadline
+        keeps the partial result: growth's rebuild from the committed log
+        prefix, without the growth."""
+        c = self._carry
+        c.table = self._rehash(c.rows, c.tail)
 
     def _wl_grow(self, flags: int) -> None:
         """Grow the tripped buffers in place, then rebuild the table from

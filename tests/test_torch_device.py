@@ -125,6 +125,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "c = TrapCounter().checker().symmetry_fn(lambda s: s).spawn_gpu("
         "device='cpu', capacity=1 << 10, max_frontier=1 << 4).join()\n"
         "assert sorted(c.discoveries()) == ['reaches limit', 'trapped']\n"
+        "import stateright_tpu_torch.parallel.simulation_gpu, stateright_tpu_torch.ensemble\n"
+        "import stateright_tpu_torch.ops.prng, stateright_tpu_torch.runtime.journal\n"
+        "c = TwoPhaseSys(rm_count=3).checker().target_state_count(1)"
+        ".spawn_gpu_simulation(seed=3, walkers=64, max_trace_len=32, device='cpu').join()\n"
+        "assert c.state_count() > 64, c.state_count()\n"
+        "from stateright_tpu_torch.ensemble import run_ensemble\n"
+        "r = run_ensemble(members=16, seed=7, steps=24, fault='skip_ack',"
+        " chaos='{\"default\": {\"drop\": 0.1}}', replay=False, device='cpu')\n"
+        "assert r.states_walked > 16 and r.failing, r.to_dict()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
