@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the nineteen CUDA kernels of ``stateright_tpu_torch/csrc``
+1. build: compile the twenty CUDA kernels of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -150,7 +150,28 @@ Phases, in order; any failure exits non-zero:
     re-executed on the host model to a non-linearizable state; 2**16
     members bit-equal to the twins' sweep; the path's kernels (K18, K19,
     K1, K10) on one real step;
-34. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+34. ``paxos check 3`` through ``spawn_gpu_tiered()`` at phase 6's
+    arguments under a 2 MB budget (a 2**17-slot hot table, K20 merging
+    each wave's new keys against the cold runs): 1,194,428 at depth 28,
+    its row log, parents, ebits and fingerprints equal to phase 6's,
+    spills and cold probes journaled, and K20's two entries against
+    their twins on the run's largest cold wave, replayed from its captured
+    inputs (bit-equal, leaving the fresh mask the run went on with), timed
+    beside ``torch.searchsorted``;
+35. a mid-run checkpoint of that tiered run, written by the
+    ``checkpoint_every_waves`` cadence once the cold tier holds two runs,
+    resumed by a fresh ``spawn_gpu_tiered(resume_from=...)`` to phase 6's
+    counts and fingerprints;
+36. ``2pc check 5`` tiered at 512 slots and 64 states a chunk on the card
+    and on the CPU: logs, the journal's ``spill`` and ``cold_probe``
+    events (less their times) and the snapshot's cold arrays bit-equal;
+37. ``raft check`` through ``spawn_gpu_tiered()`` at phase 20's arguments
+    under a 64 MB budget (2**22 slots, 8 MB probe passes): 12,630,223 /
+    38,569,420 / depth 12, at least four spills, fingerprints equal to
+    phase 20's, ``Election Safety``'s path re-executed, the peak device
+    memory beside phase 20's, and K20 on its largest cold wave as in
+    phase 34;
+38. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -302,6 +323,16 @@ THREEFRY_OPS = 20 * 3 + 6 * 2
 # rows, then randint's own split and its two 32-bit draws.
 DRAW_HASHES = 2 + 2 + 2
 SEED = 20261017
+# The tiered checker: phase 6's and phase 20's spawn arguments under a
+# budget.  2 MB is a 2**17-slot hot table for paxos check 3 (about twenty
+# spills of its 1.2M states), 64 MB a 2**22-slot table for raft check
+# (16 bytes a slot on the card, tiered/engine.py), with 8 MB probe passes.
+TIERED_PAXOS3_ARGS = dict(PAXOS3_GEOMETRY, memory_budget_mb=2)
+TIERED_RAFT_ARGS = dict(RAFT_GEOMETRY, memory_budget_mb=64, cold_chunk=1 << 20)
+TIERED_RM5_ARGS = dict(capacity=512, max_frontier=1 << 6)
+# Integer operations of one step of K20's search: the address add, the
+# 64-bit compare (two words) and the select of the next position.
+COLD_STEP_OPS = 4
 
 KERNELS = {
     # name: (source, the JAX function it replaces)
@@ -351,6 +382,12 @@ KERNELS = {
                     "stateright_tpu/parallel/simulation_tpu.py:230"),
     "fate_mask": ("stateright_tpu_torch/csrc/fate.cu",
                   "stateright_tpu/ensemble/engine.py:80"),
+    # K20's two entries: the new keys' minimum and maximum, and a pass of
+    # the merge-join (with fresh_of, engine.py:265, folded in).
+    "cold_query": ("stateright_tpu_torch/csrc/cold.cu",
+                   "stateright_tpu/tiered/engine.py:223"),
+    "cold_probe": ("stateright_tpu_torch/csrc/cold.cu",
+                   "stateright_tpu/tiered/engine.py:245"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -388,7 +425,12 @@ PATH_KERNELS = {
                  "walk_step", "walk_finish"),
     "ens-abd": ("device_fp64", "abd_step", "walker_keys", "walk_init",
                 "walk_step", "walk_finish", "fate_mask"),
+    # The tiered paths: K20 has its rows here; the in-HBM kernels they
+    # launch too (TIERED_ALSO) have theirs on the in-HBM paths.
+    "tiered-paxos3": ("cold_query", "cold_probe"),
+    "tiered-raft": ("cold_query", "cold_probe"),
 }
+TIERED_ALSO = {"tiered-paxos3": "paxos3", "tiered-raft": "raft"}
 
 
 def log(msg: str) -> None:
@@ -666,12 +708,14 @@ def launch_counted():
     from stateright_tpu_torch.parallel.simulation_gpu import (
         walk_finish, walk_init, walk_step, walker_keys,
     )
+    from stateright_tpu_torch.tiered.cold_join import cold_probe, cold_query
 
     return (device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
             single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
             paxos_step, canonicalize_rows, lww_step, trap_step,
-            walker_keys, walk_init, walk_step, walk_finish, fate_mask)
+            walker_keys, walk_init, walk_step, walk_finish, fate_mask,
+            cold_query, cold_probe)
 
 
 def reset_launches():
@@ -683,7 +727,8 @@ def read_launches(path):
     """The launch counts since the last reset; raises if a kernel of
     ``path`` was launched no time."""
     counts = {fn.__name__: fn.launches for fn in launch_counted()}
-    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    wanted = PATH_KERNELS[path] + PATH_KERNELS.get(TIERED_ALSO.get(path), ())
+    missing = [k for k in wanted if counts[k] == 0]
     if missing:
         raise AssertionError(
             f"kernels never launched on the {path} path: {missing}"
@@ -2356,6 +2401,333 @@ def phase_ens(torch, rows, result):
               codec=_codec(2, True), model_kernel="abd_step")
 
 
+# --- the tiered checker -------------------------------------------------------
+
+
+def run_tiered_paxos3(torch, journal=None, **kw):
+    """``paxos check 3`` through ``spawn_gpu_tiered()`` at
+    ``TIERED_PAXOS3_ARGS``, held to its golden; returns the joined checker
+    and its wall seconds.  ``gpu_profile.py --model tiered-paxos3`` times
+    and traces this same run."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = paxos_model(3).checker().spawn_gpu_tiered(
+        journal=journal, **TIERED_PAXOS3_ARGS, **kw).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.max_depth())
+    if got != GOLDEN_PAXOS3:
+        raise AssertionError(f"tiered paxos check 3 {got} != {GOLDEN_PAXOS3}")
+    return checker, elapsed
+
+
+def run_tiered_raft(torch, journal=None):
+    """``raft check`` through ``spawn_gpu_tiered()`` at
+    ``TIERED_RAFT_ARGS``, held to the JAX engine's count and discovery
+    set; ``gpu_profile.py --model tiered-raft`` times this same run."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = raft_model().checker().target_max_depth(12).spawn_gpu_tiered(
+        journal=journal, **TIERED_RAFT_ARGS).join()
+    elapsed = time.monotonic() - t0
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != GOLDEN_RAFT:
+        raise AssertionError(f"tiered raft check {got} != {GOLDEN_RAFT}")
+    if sorted(checker.discoveries()) != RAFT_FOUND:
+        raise AssertionError(f"tiered raft check found {sorted(checker.discoveries())}")
+    return checker, elapsed
+
+
+class ColdWaveCapture:
+    """While entered, keeps the inputs and the result of the tiered runs'
+    cold filter on its largest wave (the most hot-new keys times cold
+    entries; the last such): the wave's key buffer, origin and new mask
+    before the probes, the query's minimum and maximum, the cold runs, and
+    the fresh mask and count the run went on with."""
+
+    def __enter__(self):
+        from stateright_tpu_torch.tiered.engine import TieredGpuChecker
+
+        self.wave = None
+        best = [-1]
+        orig = self._orig = TieredGpuChecker._cold_filter
+        cap = self
+
+        def capturing(eng, wave):
+            score = wave.n_new * eng._cold.entries
+            take = score >= best[0]
+            if take:
+                saved = dict(
+                    hi=wave.hi.clone(), lo=wave.lo.clone(),
+                    origin=None if wave.u_origin is None else wave.u_origin.clone(),
+                    is_new=wave.is_new.clone(), minmax=wave.extra[:2],
+                    runs=eng._cold.runs, chunk=eng._cold_chunk,
+                    cold_entries=eng._cold.entries,
+                )
+            acct = orig(eng, wave)
+            if take:
+                saved.update(fresh=wave.is_new.clone(), n_fresh=wave.n_new,
+                             acct=acct)
+                best[0] = score
+                cap.wave = saved
+            return acct
+
+        TieredGpuChecker._cold_filter = capturing
+        return self
+
+    def __exit__(self, *exc):
+        from stateright_tpu_torch.tiered.engine import TieredGpuChecker
+
+        TieredGpuChecker._cold_filter = self._orig
+        return False
+
+
+def cold_chunks(torch, wave):
+    """The padded chunks of the captured wave's cold windows, on the card,
+    in the engine's pass order."""
+    import numpy as np
+
+    from stateright_tpu_torch.tiered.cold_join import cold_windows, load_chunk
+
+    lo_key, hi_key = (x & ((1 << 64) - 1) for x in wave["minmax"])
+    chunk = wave["chunk"]
+    out = []
+    for run, a, b in cold_windows(wave["runs"], lo_key, hi_key):
+        for off in range(a, b, chunk):
+            buf = torch.empty((chunk,), dtype=torch.int64, device="cuda")
+            load_chunk(buf, np.asarray(run[off:off + chunk]))
+            out.append(buf)
+    return out
+
+
+def phase_cold_kernels(torch, rows, path, cap):
+    """K20's two entries against their twins on the captured real cold
+    wave of ``path``'s run: the query's minimum and maximum as the run read
+    them, every probe pass bit-equal and leaving the fresh mask the run
+    went on with; the query and the first pass timed (twins, and
+    ``torch.searchsorted`` alone as the library call)."""
+    from stateright_tpu_torch.ops.device_fp import fp64_of
+    from stateright_tpu_torch.tiered.cold_join import (
+        _SIGN, cold_probe, cold_probe_plain, cold_query, cold_query_plain,
+    )
+
+    wave = cap.wave
+    if wave is None:
+        raise AssertionError(f"{path}: no cold wave was captured")
+    row = kernel_row(rows, path)
+    hi, lo, origin, is_new0 = wave["hi"], wave["lo"], wave["origin"], wave["is_new"]
+    n = is_new0.shape[0]
+    n_new = int(is_new0.sum())
+    key_bytes = 8 + (0 if origin is None else 4)
+
+    kq = cold_query(hi, lo, origin, is_new0)
+    pq = cold_query_plain(hi, lo, origin, is_new0)
+    torch.cuda.synchronize()
+    ran = torch.tensor(list(wave["minmax"]), dtype=torch.int64, device="cuda")
+    row("cold_query", max_abs_err(torch, [(kq, pq), (kq, ran)]),
+        time_ms(torch, lambda: cold_query(hi, lo, origin, is_new0), 10),
+        time_ms(torch, lambda: cold_query_plain(hi, lo, origin, is_new0), 2),
+        n + n_new * key_bytes + 16)
+
+    chunks = cold_chunks(torch, wave)
+    if len(chunks) != wave["acct"]["passes"]:
+        raise AssertionError(f"{path}: {len(chunks)} chunks replayed, the run "
+                             f"made {wave['acct']['passes']} passes")
+    k = is_new0.clone()
+    p = is_new0.clone()
+    for ch in chunks:
+        cold_probe(hi, lo, origin, k, ch)
+        cold_probe_plain(hi, lo, origin, p, ch)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [(k, p), (k, wave["fresh"])])
+    if int(k.sum()) != wave["n_fresh"]:
+        err += 1
+    c = chunks[0].shape[0]
+    first = is_new0.clone()
+
+    def fresh():
+        first.copy_(is_new0)
+
+    o = torch.arange(n, device="cuda") if origin is None else origin.long()
+    flipped_q = fp64_of(hi[o], lo[o])[is_new0] ^ _SIGN
+    flipped_c = chunks[0] ^ _SIGN
+    row("cold_probe", err,
+        time_ms(torch, lambda: cold_probe(hi, lo, origin, first, chunks[0]), 10,
+                setup=fresh),
+        time_ms(torch, lambda: cold_probe_plain(hi, lo, origin, first, chunks[0]),
+                2, setup=fresh),
+        2 * n + n_new * key_bytes + 8 * c,
+        library_ms=time_ms(torch, lambda: torch.searchsorted(flipped_c, flipped_q), 10),
+        ops=n_new * COLD_STEP_OPS * (c.bit_length() - 1))
+    log(f"  {path} cold wave: {n} buffer lanes, {n_new} hot-new, "
+        f"{wave['n_fresh']} fresh, {len(chunks)} passes of {c} keys over "
+        f"{len(wave['runs'])} runs ({wave['cold_entries']} cold entries), "
+        f"accounting {wave['acct']}")
+
+
+def journal_events(path, kinds, drop=("t",)):
+    from stateright_tpu_torch.runtime.journal import read_journal
+
+    return [{k: v for k, v in e.items() if k not in drop}
+            for e in read_journal(path) if e["event"] in kinds]
+
+
+def tiered_summary(what, checker, events):
+    spills = [e for e in events if e["event"] == "spill"]
+    probes = [e for e in events if e["event"] == "cold_probe"]
+    m = checker.metrics()
+    log(f"  {what}: capacity={m['capacity']} spills={m.get('spills', 0)} "
+        f"cold_runs={m['cold_runs']} cold_entries={m['cold_entries']} "
+        f"probe passes={m.get('cold_probe_passes_total', 0)} "
+        f"probe bytes={m.get('cold_probe_bytes_total', 0)} "
+        f"cold hits={m.get('cold_hits_total', 0)} "
+        f"cold filter host s={m.get('cold_probe_sec_total', 0.0):.3f} "
+        f"max_frontier={m['max_frontier']} growths={checker._grow_notes[:4]}...")
+    if len(spills) != m.get("spills", 0) or not probes:
+        raise AssertionError(f"{what}: {len(spills)} spill and {len(probes)} "
+                             "cold_probe events journaled")
+    if not sum(e["hits"] for e in probes):
+        raise AssertionError(f"{what}: the cold tier answered no duplicate")
+    return m
+
+
+def phase_tiered_paxos3(torch, gpu, rows, want_logs, want_fps):
+    """Tiered ``paxos check 3`` under a 2 MB budget: the golden, its row
+    log, parents and ebits and its fingerprints equal to phase 6's in-HBM
+    run, spills and cold probes journaled, K20 launched and held against
+    its twins on the run's largest cold wave."""
+    with tempfile.TemporaryDirectory() as tmp, ColdWaveCapture() as cap:
+        journal = os.path.join(tmp, "tiered.jsonl")
+        launches, checker = run_full(
+            torch, gpu, "tiered-paxos3",
+            lambda t: run_tiered_paxos3(t, journal=journal))
+        events = journal_events(journal, ("spill", "cold_probe"))
+    m = tiered_summary("tiered paxos check 3", checker, events)
+    if m["spills"] < 4:
+        raise AssertionError(f"tiered paxos check 3 spilled {m['spills']} times")
+    got = card_logs(checker)
+    if not all(torch.equal(a, b) for a, b in zip(got, want_logs)):
+        raise AssertionError("tiered paxos check 3: logs differ from the in-HBM run's")
+    if not (checker.discovered_fingerprints() == want_fps).all():
+        raise AssertionError("tiered paxos check 3: fingerprints differ")
+    log("  tiered paxos check 3: row log, parents, ebits and fingerprints "
+        "equal to the in-HBM run's")
+    phase_cold_kernels(torch, rows, "tiered-paxos3", cap)
+    return launches
+
+
+def phase_tiered_checkpoint(torch, want, want_fps):
+    """A mid-run checkpoint of tiered ``paxos check 3``, written by the
+    ``checkpoint_every_waves`` cadence once the cold tier holds two runs
+    (the run is stopped there), resumed by a fresh ``spawn_gpu_tiered``
+    to the in-HBM run's counts ``want`` and fingerprints."""
+    import shutil
+
+    from stateright_tpu_torch.tiered.engine import TieredGpuChecker
+
+    orig = TieredGpuChecker._wl_write_checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck.npz")
+        mid = os.path.join(tmp, "mid.npz")
+        journal = os.path.join(tmp, "ck.jsonl")
+
+        def keep_mid(eng):
+            extra = orig(eng)
+            if eng._cold.run_count >= 2 and not os.path.exists(mid):
+                shutil.copy(eng._checkpoint_path, mid)
+                eng.request_stop()
+            return extra
+
+        TieredGpuChecker._wl_write_checkpoint = keep_mid
+        try:
+            cut = paxos_model(3).checker().spawn_gpu_tiered(
+                checkpoint_path=ck, checkpoint_every_waves=4, journal=journal,
+                **TIERED_PAXOS3_ARGS).join()
+        finally:
+            TieredGpuChecker._wl_write_checkpoint = orig
+        cks = journal_events(journal, ("checkpoint",))
+        if not os.path.exists(mid) or not any(not e.get("final") for e in cks):
+            raise AssertionError("no mid-run tiered checkpoint was written")
+        t0 = time.monotonic()
+        resumed = paxos_model(3).checker().spawn_gpu_tiered(
+            resume_from=mid, **TIERED_PAXOS3_ARGS).join()
+        elapsed = time.monotonic() - t0
+    got = (resumed.unique_state_count(), resumed.state_count(), resumed.max_depth())
+    log(f"  checkpoint at unique={cut.unique_state_count()} "
+        f"cold_runs={cut.metrics()['cold_runs']} ({len(cks)} checkpoint "
+        f"events); resumed to unique={got[0]} states={got[1]} depth={got[2]} "
+        f"in {elapsed:.3f}s")
+    if got != want or not (resumed.discovered_fingerprints() == want_fps).all():
+        raise AssertionError(f"resumed tiered paxos check 3 {got} != {want} "
+                             "or its fingerprints differ")
+
+
+def phase_tiered_rm5(torch):
+    """``2pc check 5`` tiered at 512 slots and 64 states a chunk on the card
+    and on the CPU: the golden, and logs, the journal's ``spill`` and
+    ``cold_probe`` events (without their times) and the snapshot's cold
+    arrays bit-equal."""
+    import numpy as np
+
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            journal = os.path.join(tmp, f"{dev}.jsonl")
+            c = TwoPhaseSys(rm_count=5).checker().spawn_gpu_tiered(
+                device=dev, journal=journal, **TIERED_RM5_ARGS).join()
+            path = os.path.join(tmp, f"{dev}.npz")
+            c.save_snapshot(path)
+            with np.load(path) as snap:
+                cold = {k: snap[k].copy() for k in snap.files
+                        if k.startswith("tiered_")}
+            runs[dev] = (c, journal_events(journal, ("spill", "cold_probe"),
+                                           drop=("t", "spill_sec")), cold)
+        (gpu, g_ev, g_cold), (cpu, c_ev, c_cold) = runs["cuda"], runs["cpu"]
+        got = (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth())
+        if got != GOLDEN_RM5:
+            raise AssertionError(f"tiered rm=5 {got} != {GOLDEN_RM5}")
+        assert_same_as_cpu(gpu, cpu, "tiered rm=5", 2)
+    if g_ev != c_ev or not g_ev:
+        raise AssertionError("tiered rm=5: spill/cold_probe events differ "
+                             "between card and CPU")
+    if sorted(g_cold) != sorted(c_cold) or not all(
+        np.array_equal(g_cold[k], c_cold[k]) for k in g_cold
+    ):
+        raise AssertionError("tiered rm=5: the snapshots' cold arrays differ")
+    log(f"  tiered rm=5: {sum(e['event'] == 'spill' for e in g_ev)} spills and "
+        f"{sum(e['event'] == 'cold_probe' for e in g_ev)} cold probes, "
+        "events and cold arrays bit-equal to the CPU run")
+
+
+def phase_tiered_raft(torch, gpu, rows, want_fps, in_hbm_peak):
+    """Tiered ``raft check`` under a 64 MB budget: the golden, at least
+    four spills, fingerprints equal to phase 20's, ``Election Safety``'s
+    path re-executed, the peak device memory beside phase 20's (each above
+    what earlier phases still held), and K20 against its twins on the
+    run's largest cold wave."""
+    with tempfile.TemporaryDirectory() as tmp, ColdWaveCapture() as cap:
+        journal = os.path.join(tmp, "tiered.jsonl")
+        held = torch.cuda.memory_allocated()
+        launches, checker = run_full(
+            torch, gpu, "tiered-raft",
+            lambda t: run_tiered_raft(t, journal=journal),
+            properties_hold=False)
+        peak = torch.cuda.max_memory_allocated() - held
+        events = journal_events(journal, ("spill", "cold_probe"))
+    m = tiered_summary("tiered raft check", checker, events)
+    log(f"  tiered raft check: peak device memory {peak} bytes above what "
+        f"earlier phases held, the in-HBM run's {in_hbm_peak} bytes")
+    if m["spills"] < 4:
+        raise AssertionError(f"tiered raft check spilled {m['spills']} times")
+    if not (checker.discovered_fingerprints() == want_fps).all():
+        raise AssertionError("tiered raft check: fingerprints differ")
+    log("  tiered raft check: fingerprints equal to the in-HBM run's")
+    phase_raft_election_safety(checker)
+    phase_cold_kernels(torch, rows, "tiered-raft", cap)
+    return launches
+
+
 def main() -> int:
     use_one_card()
     try:
@@ -2406,6 +2778,10 @@ def main() -> int:
 
     log("phase 6: paxos check 3 on the card")
     launches["paxos3"], checker = run_full(torch, gpu, "paxos3", run_paxos3)
+    # Held against the tiered runs'.
+    paxos3_fps = checker.discovered_fingerprints()
+    paxos3_counts = (checker.unique_state_count(), checker.state_count(),
+                     checker.max_depth())
 
     log("phase 7: the paxos check 3 path's kernels against their twins on "
         "one of its waves")
@@ -2467,8 +2843,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 20: raft check (depth 12) on the card")
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors
     launches["raft"], checker = run_full(torch, gpu, "raft", run_raft,
                                          properties_hold=False)
+    raft_peak = torch.cuda.max_memory_allocated() - held
+    raft_fps = checker.discovered_fingerprints()  # held against the tiered run's
     phase_raft_election_safety(checker)
     phase_raft_other_chunking(torch, checker)
 
@@ -2506,7 +2885,7 @@ def main() -> int:
     log("phase 25: bounded paxos, single-phase through K14")
     launches["paxos3b"], checker = run_full(torch, gpu, "paxos3b", run_paxos3b)
     phase_bounded_paxos(torch, checker, rows, paxos3_logs)
-    del checker, paxos3_logs
+    del checker
     torch.cuda.empty_cache()
 
     log("phase 26: raft to depth 10 on the sorted path")
@@ -2562,6 +2941,28 @@ def main() -> int:
     launches["ens-abd"], result = run_walk_path(torch, gpu, "ens-abd", run_ens)
     phase_ens(torch, rows, result)
     del _checker, result
+    torch.cuda.empty_cache()
+
+    log("phase 34: tiered paxos check 3 on the card under a 2 MB budget "
+        "(K20), against the in-HBM run")
+    launches["tiered-paxos3"] = phase_tiered_paxos3(
+        torch, gpu, rows, paxos3_logs, paxos3_fps)
+    del paxos3_logs
+    torch.cuda.empty_cache()
+
+    log("phase 35: a mid-run tiered checkpoint of paxos check 3, resumed")
+    phase_tiered_checkpoint(torch, paxos3_counts, paxos3_fps)
+    del paxos3_fps
+    torch.cuda.empty_cache()
+
+    log("phase 36: 2pc check 5 tiered on the card against the CPU run")
+    phase_tiered_rm5(torch)
+
+    log("phase 37: tiered raft check on the card under a 64 MB budget, "
+        "against the in-HBM run")
+    launches["tiered-raft"] = phase_tiered_raft(torch, gpu, rows, raft_fps,
+                                                raft_peak)
+    del raft_fps
     torch.cuda.empty_cache()
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")

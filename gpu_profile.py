@@ -3,7 +3,8 @@
 
     python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o|raft|
                                     pp13|pp11s|paxos3b|sym12|lww2d7|
-                                    sim-rm10|sim-raft|ens-abd]
+                                    sim-rm10|sim-raft|ens-abd|
+                                    tiered-paxos3|tiered-raft]
                            [--runs N] [--trace-dir DIR]
 
 Builds the port's kernels, runs one of ``chip_smoke.py``'s full checks
@@ -23,7 +24,12 @@ through ``spawn_gpu_simulation``, one round of 2**18 walkers at T = 64),
 ``sim-raft`` (raft at depth 12, 2**16 walkers a round to 10M states,
 ``run_sim_raft_wide``, phase 32) or ``ens-abd`` (``run_ensemble`` over
 2**16 ABD members, phase 33), whose rate is states walked per second --
-``--runs`` times
+or one of the tiered checker's: ``tiered-paxos3`` (``paxos check 3``
+under a 2 MB budget, ``run_tiered_paxos3``, phase 34) or ``tiered-raft``
+(``raft check`` under 64 MB, ``run_tiered_raft``, phase 37), for which the
+host's cold filter (windowing, chunk copies, K20's launches and the fresh
+count's readback: the ``cold_probe_sec_total`` metric), the host-to-card
+copies and K20's kernels are shown apart -- ``--runs`` times
 untraced (wall seconds of each, then median and spread), and once more
 under ``torch.profiler``: device time per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
@@ -82,7 +88,8 @@ def main() -> int:
     ap.add_argument("--model", default="rm10",
                     choices=("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o",
                              "raft", "pp13", "pp11s", "paxos3b", "sym12",
-                             "lww2d7", "sim-rm10", "sim-raft", "ens-abd"))
+                             "lww2d7", "sim-rm10", "sim-raft", "ens-abd",
+                             "tiered-paxos3", "tiered-raft"))
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -111,6 +118,8 @@ def main() -> int:
         "sim-rm10": run_sim_rm10_wide,
         "sim-raft": chip_smoke.run_sim_raft_wide,
         "ens-abd": lambda torch: chip_smoke.run_ens(torch, chip_smoke.ENS_WIDE),
+        "tiered-paxos3": chip_smoke.run_tiered_paxos3,
+        "tiered-raft": chip_smoke.run_tiered_raft,
     }[args.model]
     cuda.build()
     card = chip_smoke.gpu_line()
@@ -151,6 +160,20 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     for name, ms in top:
         print(f"  {ms:9.2f} ms  {name[:100]}")
+    tiered = {}
+    if args.model.startswith("tiered-"):
+        m = _checker.metrics()
+        tiered = {
+            "spills": m.get("spills", 0),
+            "cold_probe_passes": m.get("cold_probe_passes_total", 0),
+            "cold_filter_host_s": m.get("cold_probe_sec_total", 0.0),
+            "h2d_copy_ms": sum(v for k, v in by_name.items()
+                               if "HtoD" in k or "Memcpy" in k),
+            "k20_ms": sum(v for k, v in by_name.items()
+                          if "query_kernel" in k or "probe_kernel" in k),
+            "max_frontier": m["max_frontier"],
+        }
+        print(f"tiered: {tiered}")
     print(json.dumps({
         "card": card,
         "model": args.model,
@@ -163,6 +186,7 @@ def main() -> int:
         "device_busy_ms": busy_ms,
         "device_busy_share_of_median": busy_ms / 1e3 / median,
         "device_ms_by_kernel": dict(top),
+        **({"tiered": tiered} if tiered else {}),
     }), flush=True)
     return 0
 

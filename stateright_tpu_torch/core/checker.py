@@ -3,9 +3,10 @@
 Reference: src/checker.rs -- ``CheckerBuilder`` (fluent config + spawn) and
 the ``Checker`` trait (counts, discoveries, join/report, assertion helpers).
 The port's builder carries the options its GPU engines read and spawns
-them with :meth:`CheckerBuilder.spawn_gpu` and
+them with :meth:`CheckerBuilder.spawn_gpu`,
+:meth:`CheckerBuilder.spawn_gpu_tiered` and
 :meth:`CheckerBuilder.spawn_gpu_simulation`, the counterparts of the JAX
-package's ``spawn_tpu`` and ``spawn_tpu_simulation``.
+package's ``spawn_tpu``, ``spawn_tpu_tiered`` and ``spawn_tpu_simulation``.
 """
 
 from __future__ import annotations
@@ -74,6 +75,19 @@ class CheckerBuilder:
 
         return GpuChecker(self, **kwargs)
 
+    def spawn_gpu_tiered(self, **kwargs) -> "Checker":
+        """Spawn the tiered out-of-core wavefront checker
+        (tiered/engine.py): the same wavefront BFS as :meth:`spawn_gpu`
+        under a fixed device budget (``memory_budget_mb``) -- the card's
+        hash table is the hot tier, evicted fingerprints live in host RAM
+        (or on disk, ``cold_dir=``) as sorted runs, and each wave's new
+        keys are merge-joined against those runs on the card (K20) before
+        it commits, so the discovery set is the in-HBM run's.  ``device``
+        defaults to ``cuda`` and raises where there is no card."""
+        from ..tiered.engine import TieredGpuChecker
+
+        return TieredGpuChecker(self, **kwargs)
+
     def spawn_gpu_simulation(self, seed: int, walkers: int = 1024,
                              max_trace_len: Optional[int] = None,
                              device=None) -> "Checker":
@@ -128,6 +142,18 @@ class Checker:
         for h in self.handles():
             h.join()
         return self
+
+    def metrics(self) -> dict:
+        """Observability snapshot: the counts every engine has (the
+        device engines extend it).  Never blocks on a running checker."""
+        return {
+            "engine": type(self).__name__,
+            "done": self.is_done(),
+            "state_count": self.state_count(),
+            "unique_state_count": self.unique_state_count(),
+            "max_depth": self.max_depth(),
+            "table_load_factor": 0.0,
+        }
 
     def request_stop(self) -> None:
         """Ask a running check to stop early (never blocks): the engine

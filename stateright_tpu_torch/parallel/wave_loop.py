@@ -2,15 +2,20 @@
 stop when the search is done.
 
 The counterpart of the quantum loop of ``stateright_tpu/parallel/
-wave_loop.py`` (``FusedWaveLoop``, ``loop_should_break``) and its
-``fingerprints_of_rows``.  The JAX loop runs up to ``waves_per_call`` waves
-inside one device program between stats readbacks; this port reads one
-small stats tensor back per wave, and checks before each wave what the JAX
-program checks in its loop condition.  The flag-4 rules of the sort-rung
-ladder and the sorted fallback are ported below (without their journal
-lines), and so are the wall deadline of a builder ``timeout`` and a
-``request_stop``; the step-rung ladder, the density tuner, vitals, the
-journal, the knob cache and checkpoint cadence are not.
+wave_loop.py`` (``FusedWaveLoop``, ``loop_should_break``, ``finalize_run``,
+``log_grow``, ``CheckpointCadence``) and its ``fingerprints_of_rows``.  The
+JAX loop runs up to ``waves_per_call`` waves inside one device program
+between stats readbacks; this port reads one small stats tensor back per
+wave, and checks before each wave what the JAX program checks in its loop
+condition.  Ported: the flag-4 rules of the sort-rung ladder and the sorted
+fallback, the wall deadline of a builder ``timeout`` and a
+``request_stop``, the optional after-commit rung (the tiered engine's
+spill), the checkpoint cadence, the metrics the loop writes (``waves``,
+``table_occupancy``, ``grows``, ``overflow_retries``) and the journal's
+``geometry``, ``wave``, ``grow``, ``checkpoint`` and ``engine_done``
+events, all from scalars the wave's one readback already holds.  Not
+ported: the step-rung ladder, the density tuner, the vitals histograms,
+the host spans and the knob cache.
 
 The engine adapter (the checker) provides:
 
@@ -18,17 +23,29 @@ The engine adapter (the checker) provides:
   drained, the next level is within ``target_max_depth`` and the device
   mirror of ``finish_when`` does not match yet;
 - ``_wl_wave() -> int`` -- run one wave; it commits iff the returned
-  overflow flags are 0, and leaves the carry exactly as it was otherwise;
+  overflow flags are 0, and leaves the carry exactly as it was otherwise
+  (apart from the table, which an aborted insert may have written);
 - ``_wl_publish()`` -- copy the carry's counts to the checker surface;
 - ``_wl_grow(flags)`` -- grow the tripped buffers in place and rebuild the
   table from the committed log (raises when a knob cannot grow);
+- ``_wl_abort_cleanup()`` -- erase a flagged wave's table writes before a
+  stop or deadline keeps the partial result;
+- ``_wl_after_commit()`` (optional) -- called after every committed wave,
+  before the checkpoint cadence, so the very next checkpoint holds what it
+  changed;
+- ``_wl_occupancy() -> float``, ``_wl_wave_extra() -> dict`` (journal
+  fields of a ``wave`` event), ``_wl_write_checkpoint() -> dict`` (extra
+  fields of a ``checkpoint`` event), ``_wl_geometry() -> dict``;
 - ``_wl_remaining() / _wl_depth()``, ``stop_requested()`` and the checker
-  attributes ``_options``, ``_properties``, ``_state_count`` and
-  ``_discovery_slots``.
+  attributes ``_options``, ``_properties``, ``_state_count``,
+  ``_unique_count``, ``_max_depth``, ``_discovery_slots``, ``_journal``,
+  ``_metrics``, ``_checkpoint_path``, ``_ckpt_every_waves`` and
+  ``_ckpt_every_sec``.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Optional
 
@@ -151,6 +168,52 @@ def loop_should_break(eng, remaining: int, depth: int,
     return past_deadline_or_stopped(eng, deadline)
 
 
+class CheckpointCadence:
+    """Mid-run checkpoint pacing: due every ``every_waves`` waves or
+    ``every_sec`` seconds, whichever the engine was configured with."""
+
+    def __init__(self, every_waves: Optional[int], every_sec: Optional[float]):
+        self.every_waves = every_waves
+        self.every_sec = every_sec
+        self._waves = 0
+        self._last = time.monotonic()
+
+    def due(self, waves_increment: int) -> bool:
+        self._waves += waves_increment
+        if self.every_waves is not None and self._waves >= self.every_waves:
+            return True
+        return (
+            self.every_sec is not None
+            and time.monotonic() - self._last >= self.every_sec
+        )
+
+    def mark(self) -> None:
+        self._waves = 0
+        self._last = time.monotonic()
+
+
+def journal_geometry(eng) -> None:
+    """One ``geometry`` journal event at loop start: the engine's live
+    geometry knobs (``_wl_geometry()``)."""
+    if eng._journal:
+        eng._journal.append("geometry", **eng._wl_geometry())
+
+
+def log_grow(eng, flags: int, grown: str, unique: int, depth: int) -> None:
+    """A growth's warning line, ``grow`` journal event and ``grows``
+    metric.  The tiered engine's spill-instead-of-grow comes through here
+    too, as in the JAX engine."""
+    eng._metrics.inc("grows", 1)
+    logging.getLogger(eng.__class__.__module__).warning(
+        "auto-tune: overflow flags=%d; growing in place (%s) at "
+        "unique=%d depth=%d", flags, grown, unique, depth,
+    )
+    if eng._journal:
+        eng._journal.append(
+            "grow", flags=flags, grown=grown, unique=unique, depth=depth
+        )
+
+
 class WaveLoop:
     """The per-wave host loop, engine-agnostic.  An overflowing wave never
     commits, so growth re-runs the same chunk with no work lost."""
@@ -163,31 +226,81 @@ class WaveLoop:
         (monotonic seconds) or a stop request; returns the number of waves
         run (re-runs after growth included)."""
         eng = self.eng
+        cadence = CheckpointCadence(eng._ckpt_every_waves, eng._ckpt_every_sec)
+        journal_geometry(eng)
+        after_commit = getattr(eng, "_wl_after_commit", None)
         waves = 0
         eng._wl_publish()
         while eng._wl_can_wave():
+            t_call = time.monotonic()
             flags = eng._wl_wave()
+            call_sec = time.monotonic() - t_call
             waves += 1
-            if flags:
-                fatal = flags & ~RETRYABLE_FLAGS
-                if fatal:
-                    raise RuntimeError(eng._wl_overflow_message(fatal))
-                # A run past its budget (or asked to stop) keeps its
-                # partial result rather than grow.  The flagged wave
-                # committed nothing, but its aborted insert may have
-                # written keys into the table: erase them first, or a
-                # resumed snapshot would treat the wave's states as
-                # visited and drop their subtrees.
-                if past_deadline_or_stopped(eng, deadline):
-                    eng._wl_abort_cleanup()
+            if not flags:
+                eng._wl_publish()
+            occupancy = eng._wl_occupancy()
+            eng._metrics.update(waves=waves,
+                                table_occupancy=round(occupancy, 6))
+            if eng._journal:
+                eng._journal.append(
+                    "wave", waves=waves, remaining=eng._wl_remaining(),
+                    unique=eng._unique_count, states=eng._state_count,
+                    depth=eng._wl_depth(), flags=flags,
+                    call_sec=round(call_sec, 4), mono=round(t_call, 6),
+                    occupancy=round(occupancy, 6), **eng._wl_wave_extra(),
+                )
+            if not flags:
+                # The spill rung, at the committed boundary, so the
+                # cadence below persists the post-spill state.
+                if after_commit is not None:
+                    after_commit()
+                if eng._checkpoint_path is not None and cadence.due(1):
+                    t_ck = time.monotonic()
+                    extra = eng._wl_write_checkpoint()
+                    cadence.mark()
+                    if eng._journal:
+                        eng._journal.append(
+                            "checkpoint", path=eng._checkpoint_path,
+                            unique=eng._unique_count, depth=eng._wl_depth(),
+                            write_sec=round(time.monotonic() - t_ck, 4),
+                            **extra,
+                        )
+                if loop_should_break(eng, eng._wl_remaining(), eng._wl_depth(),
+                                     deadline):
                     break
-                eng._wl_grow(flags)
                 continue
-            eng._wl_publish()
-            if loop_should_break(eng, eng._wl_remaining(), eng._wl_depth(),
-                                 deadline):
+            fatal = flags & ~RETRYABLE_FLAGS
+            if fatal:
+                raise RuntimeError(eng._wl_overflow_message(fatal))
+            # A run past its budget (or asked to stop) keeps its partial
+            # result rather than grow.  The flagged wave committed
+            # nothing, but its aborted insert may have written keys into
+            # the table: erase them first, or a resumed snapshot would
+            # treat the wave's states as visited and drop their subtrees.
+            if past_deadline_or_stopped(eng, deadline):
+                eng._wl_abort_cleanup()
                 break
+            eng._wl_grow(flags)
+            eng._metrics.inc("overflow_retries", 1)
         return waves
+
+
+def finalize_run(eng) -> None:
+    """The run's tail: the completion checkpoint (a run with a
+    ``checkpoint_path`` always ends with a resumable snapshot) and the
+    ``engine_done`` journal event."""
+    if eng._checkpoint_path is not None:
+        eng._write_snapshot(eng._checkpoint_path)
+        if eng._journal:
+            eng._journal.append(
+                "checkpoint", path=eng._checkpoint_path,
+                unique=eng._unique_count, depth=eng._max_depth, final=True,
+            )
+    if eng._journal:
+        eng._journal.append(
+            "engine_done", unique=eng._unique_count,
+            states=eng._state_count, depth=eng._max_depth,
+        )
 
 
 def fingerprints_of_rows(rows: torch.Tensor) -> np.ndarray:

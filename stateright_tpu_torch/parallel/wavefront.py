@@ -57,7 +57,13 @@ bit (row log, parents, ebits, counts, discoveries):
 The host reads one small stats tensor per wave and keeps the scalar carry
 (level bounds, tail, counts, depth, discoveries); an overflowing wave
 (flags 1/2/4/8) commits nothing, and growth rebuilds the table from the
-committed log before the same chunk runs again.
+committed log before the same chunk runs again.  A wave runs in phases
+(expand, fingerprint, insert and compact, the readback, the commit), so an
+engine built on this one -- the tiered checker, ``tiered/engine.py`` --
+folds values into the readback and filters the new lanes between the
+readback and the append.  Around the loop sit the JAX engine's surface:
+``metrics()``, ``tuned_kwargs()``, the journal, the checkpoint cadence and
+``auto_tune``.
 """
 
 from __future__ import annotations
@@ -77,9 +83,11 @@ import torch
 from ..core.checker import Checker
 from ..core.model import Expectation
 from ..core.path import Path
+from ..obs.metrics import MetricsRegistry
 from ..ops.cuda import resolve_device
 from ..ops.device_fp import device_fp64
 from ..ops.u32 import M32, from_numpy_u32, i32, to_numpy_u32
+from ..runtime.journal import as_journal
 from .canon import make_canon
 from .compiled import CompiledModel, compiled_model_for, two_phase_capable
 from .hashset import (
@@ -90,8 +98,8 @@ from .wave_common import (
     NO_ID, compact, make_finish_when_device, prop_kinds, wave_eval,
 )
 from .wave_loop import (
-    WaveLoop, clamp_sort_lanes, climb_sort_rung,
-    fall_back_to_sort, fingerprints_of_rows, relax_dedup_geometry,
+    WaveLoop, clamp_sort_lanes, climb_sort_rung, fall_back_to_sort,
+    finalize_run, fingerprints_of_rows, log_grow, relax_dedup_geometry,
     reset_sort_rung_to_full,
 )
 
@@ -175,9 +183,13 @@ def carry_from_snapshot(npz_arrays, device="cpu") -> Carry:
     ``(key_hi, key_lo)`` pair of the same slot, and both engines probe the
     same home slot linearly.  The logs are trimmed or padded to
     ``log_capacity`` positions (the JAX engine keeps an append pad past
-    it).  The state width is read from the snapshot's ``engine_key``."""
+    it).  The state width is read from the snapshot's ``engine_key``; the
+    tiered engine's cold arrays ride beside these and are its own."""
     qcap = int(npz_arrays["log_capacity"])
-    w = int(ast.literal_eval(str(npz_arrays["engine_key"]))[2])
+    key = str(npz_arrays["engine_key"])
+    # The key is a tuple's repr, with an engine's suffix after it
+    # ("+tiered-v1") on a tiered snapshot.
+    w = int(ast.literal_eval(key[: key.rindex(")") + 1])[2])
     rows = np.asarray(npz_arrays["rows"], np.uint32)
     table = HashSet.from_planes(npz_arrays["key_hi"], npz_arrays["key_lo"], device)
     sc = (int(npz_arrays["sc_hi"]) << 32) | int(npz_arrays["sc_lo"])
@@ -221,8 +233,47 @@ def snapshot_arrays(
     }
 
 
+@dataclass
+class Wave:
+    """One wave in flight, filled phase by phase (:meth:`GpuChecker._wl_wave`):
+    the expansion's buffers, the fingerprints, the insert's result, and the
+    scalars of the wave's one readback.  ``extra`` holds what an engine
+    folded into that readback (:meth:`GpuChecker._wave_extra_stats`)."""
+
+    count: int  # states expanded
+    lo_pos: int  # log position of the first
+    size: int  # compaction buffer lanes
+    eb: torch.Tensor = None  # int32[count] eventually-bits after the wave
+    cands: torch.Tensor = None  # int64[P] discovery candidates
+    cand_rows: torch.Tensor = None  # successor rows (two-phase: compacted)
+    v_orig: torch.Tensor = None  # buffer lane -> original lane
+    v_act: torch.Tensor = None  # filled buffer lanes
+    n_valid: torch.Tensor = None  # int64 count of valid lanes
+    step_flag: torch.Tensor = None  # the step kernel's overflow flag
+    valid: torch.Tensor = None  # single-phase: the lanes' validity
+    hi: torch.Tensor = None  # int32 key halves of the buffer lanes
+    lo: torch.Tensor = None
+    is_new: torch.Tensor = None  # bool: the lanes to append
+    u_origin: Optional[torch.Tensor] = None  # sorted path: u lane -> buffer lane
+    probe_ok: torch.Tensor = None
+    dd_overflow: torch.Tensor = None
+    sel: torch.Tensor = None  # K3's compaction of is_new
+    n_new_d: torch.Tensor = None
+    # The readback's scalars.
+    n_new: int = 0
+    generated: int = 0
+    ok: int = 1
+    s_flag: int = 0
+    dd_flag: int = 0
+    extra: tuple = ()
+    cand_ids: tuple = ()
+
+
 class GpuChecker(Checker):
     """Single-GPU wavefront checker behind the standard Checker surface."""
+
+    engine_name = "gpu-wavefront"
+    spawn_name = "spawn_gpu()"
 
     def __init__(
         self,
@@ -236,22 +287,27 @@ class GpuChecker(Checker):
         log_capacity: Optional[int] = None,
         sort_lanes: Optional[int] = None,
         sortless: Optional[bool] = None,
+        auto_tune: bool = True,
+        journal=None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every_waves: Optional[int] = None,
+        checkpoint_every_sec: Optional[float] = None,
     ):
         """``capacity`` sizes the fingerprint table (slots; load is kept at
         or below 50%), ``log_capacity`` the row log (positions = unique
         states; defaults to ``capacity``), ``max_frontier`` the states one
         wave expands and ``dedup_factor`` the compaction buffer
         (``max(min(B, 16K), B / dedup_factor)`` lanes for B = max_frontier
-        * max_actions candidates).  An overflow grows the tripped buffer in
-        place: the table x16 (dragging a defaulted log), the log x2; a
-        compaction-buffer overflow (flag 4) follows the JAX engine's rules
-        in its order -- an explicit claim budget falls back to the sorted
-        path, a rung below the full buffer climbs, the claim path at the
-        full buffer falls back to the sorted path (``sortless=0``), and
-        the sorted path relaxes to ``dedup_factor=1``, halving
-        ``max_frontier`` while the buffer exceeds
-        :func:`max_safe_unique_lanes`.  A buffer already at its ceiling
-        raises instead.
+        * max_actions candidates).  With ``auto_tune`` (the default) an
+        overflow grows the tripped buffer in place: the table x16 (dragging
+        a defaulted log), the log x2; a compaction-buffer overflow (flag 4)
+        follows the JAX engine's rules in its order -- an explicit claim
+        budget falls back to the sorted path, a rung below the full buffer
+        climbs, the claim path at the full buffer falls back to the sorted
+        path (``sortless=0``), and the sorted path relaxes to
+        ``dedup_factor=1``, halving ``max_frontier`` while the buffer
+        exceeds :func:`max_safe_unique_lanes`.  A buffer already at its
+        ceiling, or any overflow with ``auto_tune=False``, raises instead.
 
         ``sortless`` selects the dedup path: the claim election (K4 over
         the compacted batch, new states appended in lane order) or the
@@ -265,13 +321,23 @@ class GpuChecker(Checker):
         engine's at the same arguments; at ``dedup_factor=1`` on the claim
         path the caller's chunk stands (the log does not depend on it).
 
+        ``journal`` (a :class:`~stateright_tpu_torch.runtime.journal.
+        Journal` or a path) streams the run's ``geometry``, ``wave``,
+        ``grow``, ``resume``, ``checkpoint`` and ``engine_done`` events as
+        JSON lines, the JAX engine's schema.  ``checkpoint_path`` enables
+        mid-run snapshots (``save_snapshot`` format, atomic write and
+        rename) every ``checkpoint_every_waves`` committed waves or
+        ``checkpoint_every_sec`` seconds (default 30 when only the path is
+        given), and a completion snapshot at the end; a stopped run
+        resumes from it through ``resume_from``.
+
         ``device`` defaults to ``cuda``; with no card present the spawn
         raises -- it never carries on on the CPU unless the caller asks for
         ``device="cpu"``.  ``resume_from`` continues a run from a snapshot
         of either engine (``save_snapshot``, JAX npz format), adopting its
         table and log geometry."""
         super().__init__(options.model)
-        self._device = resolve_device(device, "spawn_gpu()")
+        self._device = resolve_device(device, self.spawn_name)
         self._options = options
         self._compiled = compiled or compiled_model_for(options.model)
         # Symmetry: dedup on the fingerprint of the canonical row.  A model
@@ -309,6 +375,7 @@ class GpuChecker(Checker):
         self._sortless = (
             (sort_lanes is None) if sortless is None else bool(sortless)
         )
+        self._auto_tune = bool(auto_tune)
         self._resume_from = resume_from
         self._properties = self._model.properties()
         if len(self._properties) > 32:
@@ -327,6 +394,18 @@ class GpuChecker(Checker):
         self._fw_matched = make_finish_when_device(
             options._finish_when, self._properties
         )
+        self._metrics = MetricsRegistry()
+        self._journal = as_journal(journal)
+        self._checkpoint_path = checkpoint_path
+        self._ckpt_every_waves = checkpoint_every_waves
+        self._ckpt_every_sec = checkpoint_every_sec
+        if (
+            checkpoint_path is not None
+            and checkpoint_every_waves is None
+            and checkpoint_every_sec is None
+        ):
+            self._ckpt_every_sec = 30.0
+        self._final_load_factor: Optional[float] = None
         self._discovery_slots: Dict[str, int] = {}
         self._state_count = 0
         self._unique_count = 0
@@ -404,6 +483,7 @@ class GpuChecker(Checker):
             self._waves = WaveLoop(self).run(deadline)
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
+            finalize_run(self)
         except BaseException as e:  # propagate at join, like the host engine
             self._errors.append(e)
         finally:
@@ -433,11 +513,14 @@ class GpuChecker(Checker):
             fcount, ok = (int(x) for x in torch.stack([fcount, ok.long()]).tolist())
             if ok:
                 break
-            if self._grow_knob(1) is None:
+            grown = self._grow_knob(1) if self._auto_tune else None
+            if grown is None:
                 raise RuntimeError(
                     "init-state seeding overflowed the fingerprint table; "
                     "raise spawn_gpu(capacity=...)"
                 )
+            if self._journal:
+                self._journal.append("grow", seed=True, flags=1, grown=grown)
         qcap = max(self._log_capacity, fcount)
         self._log_capacity = qcap
         rows = torch.zeros((qcap * w,), dtype=torch.int32, device=dev)
@@ -453,30 +536,44 @@ class GpuChecker(Checker):
             disc=[NO_ID] * len(self._properties),
         )
 
+    def _check_snapshot(self, arrays) -> None:
+        """Refuse a snapshot this checker cannot resume."""
+        if "capacity" not in arrays:
+            raise ValueError(
+                "snapshot predates the rowlog-v3 format (no persisted "
+                "geometry); re-run the original check"
+            )
+        got = str(arrays["engine_key"])
+        want = self._snapshot_key()
+        if got != want:
+            raise ValueError(
+                "snapshot does not match this checker configuration"
+                f" (snapshot {got}, expected {want})"
+            )
+
     def _resume(self) -> Carry:
         with np.load(self._resume_from, allow_pickle=False) as snap:
-            if "capacity" not in snap.files:
-                raise ValueError(
-                    "snapshot predates the rowlog-v3 format (no persisted "
-                    "geometry); re-run the original check"
-                )
-            got = str(snap["engine_key"])
-            want = snapshot_engine_key(
-                self._compiled, self._properties, self._canon is not None
-            )
-            if got != want:
-                raise ValueError(
-                    "snapshot does not match this checker configuration"
-                    f" (snapshot {got}, expected {want})"
-                )
             arrays = {k: snap[k] for k in snap.files}
+        self._check_snapshot(arrays)
         self._capacity = int(arrays["capacity"])
         self._log_capacity = int(arrays["log_capacity"])
         carry = carry_from_snapshot(arrays, self._device)
         for p, prop in enumerate(self._properties):
             if carry.disc[p] != NO_ID:
                 self._discovery_slots[prop.name] = carry.disc[p]
+        extra = self._restore_extra(arrays)
+        if self._journal:
+            self._journal.append(
+                "resume", path=self._resume_from, unique=carry.unique_count,
+                states=carry.state_count, depth=carry.depth, **extra,
+            )
         return carry
+
+    def _restore_extra(self, arrays) -> dict:
+        """Restore what a subclass keeps beside the carry in a snapshot
+        (:meth:`_snapshot_extra`); returns the ``resume`` event's extra
+        journal fields."""
+        return {}
 
     # --- wave-loop adapter (wave_loop.py) ---------------------------------
 
@@ -507,120 +604,205 @@ class GpuChecker(Checker):
             return False
         return not self._fw_matched([d != NO_ID for d in c.disc])
 
+    def _wl_occupancy(self) -> float:
+        """The table's load as the host tracks it (no device read)."""
+        return self._carry.unique_count / self._capacity
+
+    def _wl_wave_extra(self) -> dict:
+        return {"tail": self._carry.tail}
+
+    def _wl_geometry(self) -> dict:
+        """The ``geometry`` journal event's payload: the live knobs."""
+        return {
+            "engine": self.engine_name,
+            "capacity": self._capacity,
+            "log_capacity": self._log_capacity,
+            "max_frontier": self._max_frontier,
+            "dedup_factor": self._dedup_factor,
+            "sortless": self._sortless,
+            "sort_lanes": self._sort_width(),
+            "u_lanes": self._wl_full_sort_lanes(),
+        }
+
+    def _wl_write_checkpoint(self) -> dict:
+        self._write_snapshot(self._checkpoint_path)
+        return {"tail": self._carry.tail}
+
     def _wl_wave(self) -> int:
-        """Expand one chunk of the current level.  Returns the overflow
+        """Expand one chunk of the current level, in phases: expand,
+        fingerprint, insert and compact, the one readback, then (an engine
+        may filter the new lanes here) the commit.  Returns the overflow
         flags; the carry changes only when they are 0."""
         c = self._carry
-        cm = self._compiled
-        w, a = cm.state_width, cm.max_actions
         count = min(c.level_end - c.level_start, self._max_frontier)
-        lo_pos = c.level_start
-        states = c.rows[lo_pos * w : (lo_pos + count) * w].view(count, w)
-        discovered = sum(1 << p for p, d in enumerate(c.disc) if d != NO_ID)
-        eb_in = c.ebits[lo_pos : lo_pos + count]
         # The compaction buffer: the rung, or the worst case U of a FULL
         # chunk -- sized from max_frontier, as the JAX engine's padded
         # chunk is, so flag 4 fires where it fires there.
-        size = self._sort_width()
-        # The JAX version folds the discovery candidates into the discovery
-        # vector on device; here they come back per property and are folded
-        # first-writer-wins once the wave commits.
-        if self._two_phase:
-            # Screen lane validity, compact the valid lanes, then build
-            # successors only for them (K7, about 5% of the lanes for
-            # paxos) and fingerprint those U rows instead of all F * A
-            # candidates.
-            valid, eb, cands = wave_eval(
-                cm.property_conds(states), cm.step_valid(states), eb_in,
-                lo_pos, self._kinds, discovered,
-            )
-            v_orig, v_act, n_valid = compact_valid_indices(
-                valid.view(-1), sort_lanes=size
-            )
-            cand_rows, lane_flags = cm.step_lane(states, v_orig, n_valid)
-            hi, lo = device_fp64(self._identity(cand_rows))
-            step_flag = lane_flags.any()
-        else:
-            # The model's step applies its boundary to the lanes' validity
-            # (compiled.py), before K8 counts them and tests for terminal
-            # states.
-            nexts, valid, conds, step_flag = cm.expand(states)
-            valid, eb, cands = wave_eval(
-                conds, valid, eb_in, lo_pos, self._kinds, discovered,
-            )
-            cand_rows = nexts.view(count * a, w)
-            hi, lo = device_fp64(self._identity(cand_rows))
-            hi, lo, v_orig, v_act, n_valid = compact_valid(
-                hi, lo, valid.view(-1), sort_lanes=size
-            )
-        if self._sortless:
-            # The claim election: buffer lane j is its own representative
-            # (u_origin is the identity), new states append in lane order.
-            is_new, probe_ok = insert_batch_claim(c.table, hi, lo, v_act)
-            u_origin = None
-            dd_overflow = torch.zeros((), dtype=torch.bool, device=self._device)
-        else:
-            # The sorted fallback: one representative per key in sorted-key
-            # order over the whole buffer, so new states append in that
-            # order (JAX wave_body at dedup_factor=1).
-            is_new, u_origin, _u_act, probe_ok, dd_overflow = (
-                insert_batch_compact(c.table, hi, lo, v_act, dedup_factor=1)
-            )
-        sel, n_new = compact(is_new, is_new.shape[0])
-        if step_flag is None:
-            step_flag = torch.zeros((), dtype=torch.bool, device=self._device)
-        # The wave's one readback.
-        stats = torch.cat([
-            torch.stack([
-                n_new, n_valid, probe_ok.long(), step_flag.long(),
-                dd_overflow.long(),
-            ]),
-            cands,
-        ]).tolist()
-        n_new, generated, ok, s_flag, dd_flag = (int(x) for x in stats[:5])
-        cands = [int(x) for x in stats[5:]]
-
-        flags = 0
-        if not ok or (c.unique_count + n_new) * 2 > self._capacity:
-            flags |= 1
-        if c.tail + n_new > self._log_capacity:
-            flags |= 2
-        if generated > size or dd_flag:
-            flags |= 4
-        if s_flag:
-            flags |= 8
+        wave = Wave(count=count, lo_pos=c.level_start, size=self._sort_width())
+        self._wave_expand(wave)
+        self._wave_fingerprint(wave)
+        self._wave_insert(wave)
+        self._wave_readback(wave)
+        flags = self._wave_flags(wave)
+        if not flags:
+            flags = self._wave_filter(wave)
         if flags:
             # Nothing commits.  The table may hold this wave's keys; growth
             # rebuilds it from the committed log, which erases them.
             return flags
+        self._wave_commit(wave)
+        return 0
 
+    def _wave_expand(self, wave: Wave) -> None:
+        """The model's step and the wave verdicts (K8).  The JAX version
+        folds the discovery candidates into the discovery vector on device;
+        here they come back per property and are folded first-writer-wins
+        once the wave commits."""
+        c = self._carry
+        cm = self._compiled
+        w, a = cm.state_width, cm.max_actions
+        lo_pos, count = wave.lo_pos, wave.count
+        states = c.rows[lo_pos * w : (lo_pos + count) * w].view(count, w)
+        discovered = sum(1 << p for p, d in enumerate(c.disc) if d != NO_ID)
+        eb_in = c.ebits[lo_pos : lo_pos + count]
+        if self._two_phase:
+            # Screen lane validity, compact the valid lanes, then build
+            # successors only for them (K7, about 5% of the lanes for
+            # paxos), to be fingerprinted instead of all F * A candidates.
+            valid, wave.eb, wave.cands = wave_eval(
+                cm.property_conds(states), cm.step_valid(states), eb_in,
+                lo_pos, self._kinds, discovered,
+            )
+            wave.v_orig, wave.v_act, wave.n_valid = compact_valid_indices(
+                valid.view(-1), sort_lanes=wave.size
+            )
+            wave.cand_rows, lane_flags = cm.step_lane(
+                states, wave.v_orig, wave.n_valid
+            )
+            wave.step_flag = lane_flags.any()
+        else:
+            # The model's step applies its boundary to the lanes' validity
+            # (compiled.py), before K8 counts them and tests for terminal
+            # states.
+            nexts, valid, conds, wave.step_flag = cm.expand(states)
+            valid, wave.eb, wave.cands = wave_eval(
+                conds, valid, eb_in, lo_pos, self._kinds, discovered,
+            )
+            wave.cand_rows = nexts.view(count * a, w)
+            wave.valid = valid.view(-1)  # compacted with the keys
+        if wave.step_flag is None:
+            wave.step_flag = torch.zeros((), dtype=torch.bool, device=self._device)
+
+    def _wave_fingerprint(self, wave: Wave) -> None:
+        """K1 (after K15 under symmetry) on the candidates; single-phase
+        waves then compact the valid lanes' keys into the buffer."""
+        hi, lo = device_fp64(self._identity(wave.cand_rows))
+        if self._two_phase:
+            wave.hi, wave.lo = hi, lo
+        else:
+            wave.hi, wave.lo, wave.v_orig, wave.v_act, wave.n_valid = (
+                compact_valid(hi, lo, wave.valid, sort_lanes=wave.size)
+            )
+
+    def _wave_insert(self, wave: Wave) -> None:
+        """Insert the buffer's keys into the table and compact the new
+        lanes (K3)."""
+        c = self._carry
+        if self._sortless:
+            # The claim election: buffer lane j is its own representative
+            # (u_origin is the identity), new states append in lane order.
+            wave.is_new, wave.probe_ok = insert_batch_claim(
+                c.table, wave.hi, wave.lo, wave.v_act
+            )
+            wave.dd_overflow = torch.zeros((), dtype=torch.bool,
+                                           device=self._device)
+        else:
+            # The sorted fallback: one representative per key in sorted-key
+            # order over the whole buffer, so new states append in that
+            # order (JAX wave_body at dedup_factor=1).
+            wave.is_new, wave.u_origin, _u_act, wave.probe_ok, wave.dd_overflow = (
+                insert_batch_compact(c.table, wave.hi, wave.lo, wave.v_act,
+                                     dedup_factor=1)
+            )
+        wave.sel, wave.n_new_d = compact(wave.is_new, wave.is_new.shape[0])
+
+    def _wave_extra_stats(self, wave: Wave) -> List[torch.Tensor]:
+        """Device values an engine folds into the wave's one readback
+        (1-D int64 tensors); they land in ``wave.extra``."""
+        return []
+
+    def _wave_readback(self, wave: Wave) -> None:
+        """The wave's one readback."""
+        extra = self._wave_extra_stats(wave)
+        stats = torch.cat([
+            torch.stack([
+                wave.n_new_d, wave.n_valid, wave.probe_ok.long(),
+                wave.step_flag.long(), wave.dd_overflow.long(),
+            ]),
+            *extra,
+            wave.cands,
+        ]).tolist()
+        (wave.n_new, wave.generated, wave.ok, wave.s_flag,
+         wave.dd_flag) = (int(x) for x in stats[:5])
+        n_extra = 5 + sum(t.numel() for t in extra)
+        wave.extra = tuple(int(x) for x in stats[5:n_extra])
+        wave.cand_ids = tuple(int(x) for x in stats[n_extra:])
+
+    def _wave_flags(self, wave: Wave) -> int:
+        """The overflow flags of the read-back wave."""
+        c = self._carry
+        flags = 0
+        if not wave.ok or (c.unique_count + wave.n_new) * 2 > self._capacity:
+            flags |= 1
+        if c.tail + wave.n_new > self._log_capacity:
+            flags |= 2
+        if wave.generated > wave.size or wave.dd_flag:
+            flags |= 4
+        if wave.s_flag:
+            flags |= 8
+        return flags
+
+    def _wave_filter(self, wave: Wave) -> int:
+        """A stage between the readback and the append of an unflagged
+        wave, which may drop new lanes (``wave.sel``, ``wave.n_new``) and
+        returns further flags; the in-HBM engine has none."""
+        return 0
+
+    def _wave_commit(self, wave: Wave) -> None:
+        """Append the new representatives' rows, parents and ebits as three
+        contiguous block writes at the tail and advance the scalars."""
+        c = self._carry
+        a = self._compiled.max_actions
+        w = self._compiled.state_width
+        n_new = wave.n_new
         if n_new:
-            # Append the new representatives' rows, parents and ebits as
-            # three contiguous block writes at the tail.  ``lanes`` are the
-            # representatives' buffer lanes (through u_origin on the sorted
-            # path).  Two-phase rows are already compacted: buffer lane j
-            # holds original lane v_orig[j]'s successor.
-            lanes = sel[:n_new].long()
-            if u_origin is not None:
-                lanes = u_origin[lanes].long()
-            idxs = v_orig[lanes].long()
+            # ``lanes`` are the representatives' buffer lanes (through
+            # u_origin on the sorted path).  Two-phase rows are already
+            # compacted: buffer lane j holds original lane v_orig[j]'s
+            # successor.
+            lanes = wave.sel[:n_new].long()
+            if wave.u_origin is not None:
+                lanes = wave.u_origin[lanes].long()
+            idxs = wave.v_orig[lanes].long()
             src = idxs // a
             t = c.tail
-            rows_new = cand_rows[lanes] if self._two_phase else cand_rows[idxs]
+            rows_new = (
+                wave.cand_rows[lanes] if self._two_phase
+                else wave.cand_rows[idxs]
+            )
             c.rows[t * w : (t + n_new) * w] = rows_new.reshape(-1)
-            c.parent[t : t + n_new] = i32(src + lo_pos)
-            c.ebits[t : t + n_new] = eb[src]
+            c.parent[t : t + n_new] = i32(src + wave.lo_pos)
+            c.ebits[t : t + n_new] = wave.eb[src]
         c.tail += n_new
         c.unique_count += n_new
-        c.state_count += generated
-        for p, cand in enumerate(cands):
+        c.state_count += wave.generated
+        for p, cand in enumerate(wave.cand_ids):
             if c.disc[p] == NO_ID and cand != NO_ID:
                 c.disc[p] = cand
-        c.level_start += count
+        c.level_start += wave.count
         if c.level_start >= c.level_end:
             c.depth += 1
             c.level_end = c.tail
-        return 0
 
     def _wl_overflow_message(self, flags: int) -> str:
         if flags & 8:
@@ -659,24 +841,27 @@ class GpuChecker(Checker):
                 continue
             if bit == 2 and self._log_capacity > qcap:
                 continue  # the table's growth already dragged the log
-            note = self._grow_knob(bit)
+            note = self._grow_knob(bit) if self._auto_tune else None
             if note is None:
                 raise RuntimeError(msgs[bit])
             grown.append(note)
         self._grow_flags.append(flags)
         self._grow_notes.append("; ".join(grown))
-        logging.getLogger(__name__).warning(
-            "auto-tune: overflow flags=%d; growing in place (%s) at "
-            "unique=%d depth=%d", flags, "; ".join(grown),
-            self._carry.unique_count, self._carry.depth,
-        )
+        c = self._carry
+        log_grow(self, flags, "; ".join(grown), c.unique_count, c.depth)
+        self._resize_logs(qcap)
+        c.table = self._rehash(c.rows, c.tail)
+
+    def _resize_logs(self, qcap: int) -> None:
+        """Resize the row, parent and ebits logs from ``qcap`` positions to
+        the live ``log_capacity``."""
+        if self._log_capacity == qcap:
+            return
         c = self._carry
         w = self._compiled.state_width
-        if self._log_capacity != qcap:
-            c.rows = _sized(c.rows, self._log_capacity * w, 0)
-            c.parent = _sized(c.parent, self._log_capacity, -1)
-            c.ebits = _sized(c.ebits, self._log_capacity, 0)
-        c.table = self._rehash(c.rows, c.tail)
+        c.rows = _sized(c.rows, self._log_capacity * w, 0)
+        c.parent = _sized(c.parent, self._log_capacity, -1)
+        c.ebits = _sized(c.ebits, self._log_capacity, 0)
 
     def _grow_knob(self, flag: int) -> Optional[str]:
         """Adjust the knob named by ``flag``; None if it cannot grow."""
@@ -728,18 +913,24 @@ class GpuChecker(Checker):
         reset_sort_rung_to_full(self)
         return note
 
-    def _rehash(self, rows: torch.Tensor, tail: int) -> HashSet:
-        """A fresh table of the current capacity holding the fingerprints
-        of log positions ``[0, tail)`` (K1 + K4, every position a distinct
-        state)."""
+    def _identity_fingerprints(self, rows: torch.Tensor, start: int, end: int):
+        """K1 (after K15 under symmetry) on log positions ``[start, end)``
+        in blocks of ``_REHASH_ROWS``: yields each block's ``(hi, lo)``."""
         w = self._compiled.state_width
+        for pos in range(start, end, _REHASH_ROWS):
+            n = min(_REHASH_ROWS, end - pos)
+            block = rows[pos * w : (pos + n) * w].view(n, w)
+            yield device_fp64(self._identity(block))
+
+    def _rehash(self, rows: torch.Tensor, tail: int, start: int = 0) -> HashSet:
+        """A fresh table of the current capacity holding the fingerprints
+        of log positions ``[start, tail)`` (K1 + K4, every position a
+        distinct state): the whole committed prefix after growth, the
+        segment since the last spill for the tiered engine."""
         table = HashSet.empty(self._capacity, self._device)
         oks = []
-        for start in range(0, tail, _REHASH_ROWS):
-            n = min(_REHASH_ROWS, tail - start)
-            block = rows[start * w : (start + n) * w].view(n, w)
-            hi, lo = device_fp64(self._identity(block))
-            active = torch.ones((n,), dtype=torch.bool, device=self._device)
+        for hi, lo in self._identity_fingerprints(rows, start, tail):
+            active = torch.ones(hi.shape, dtype=torch.bool, device=self._device)
             oks.append(insert_batch_claim(table, hi, lo, active)[1])
         if oks and not bool(torch.stack(oks).all()):
             raise RuntimeError(
@@ -750,21 +941,31 @@ class GpuChecker(Checker):
 
     # --- results -----------------------------------------------------------
 
-    def save_snapshot(self, path: str) -> None:
-        """Persist the full run state in the JAX engine's npz format, so
-        either engine can resume it (``resume_from``)."""
-        self.join()
+    def _snapshot_key(self) -> str:
+        return snapshot_engine_key(
+            self._compiled, self._properties, self._canon is not None
+        )
+
+    def _snapshot_extra(self) -> dict:
+        """Extra npz fields a subclass persists beside the carry."""
+        return {}
+
+    def _write_snapshot(self, path: str) -> None:
+        """Persist the run state atomically (write, then rename)."""
         arrays = snapshot_arrays(self._carry, self._capacity, self._log_capacity)
         tmp = f"{path}.tmp"
         with open(tmp, "wb") as fh:
             np.savez_compressed(
-                fh,
-                engine_key=snapshot_engine_key(
-                    self._compiled, self._properties, self._canon is not None
-                ),
-                **arrays,
+                fh, engine_key=self._snapshot_key(),
+                **self._snapshot_extra(), **arrays,
             )
         os.replace(tmp, path)
+
+    def save_snapshot(self, path: str) -> None:
+        """Persist the full run state in the JAX engine's npz format, so
+        either engine can resume it (``resume_from``)."""
+        self.join()
+        self._write_snapshot(path)
 
     def discovered_fingerprints(self) -> np.ndarray:
         """Sorted uint64 fingerprints of every discovered unique state:
@@ -784,6 +985,57 @@ class GpuChecker(Checker):
 
     def max_depth(self) -> int:
         return self._max_depth
+
+    def metrics(self) -> dict:
+        """Observability snapshot, the JAX engine's keys where the port has
+        a counterpart (``engine`` is ``"gpu-wavefront"``).  Safe mid-run:
+        it reads the registry the host loop writes from scalars it already
+        read back; a finished checker's first call reads the table's true
+        load factor once and caches it."""
+        out = super().metrics()
+        out.update(
+            engine=self.engine_name,
+            device=str(self._device),
+            capacity=self._capacity,
+            log_capacity=self._log_capacity,
+            max_frontier=self._max_frontier,
+            dedup_factor=self._dedup_factor,
+            sortless=self._sortless,
+            sort_lanes=self._sort_width(),
+            # The pinned rung (0 = the full buffer).
+            sort_lanes_rung=self._sort_lanes or 0,
+        )
+        snap = self._metrics.snapshot()
+        out["table_load_factor"] = snap.get("table_occupancy", 0.0)
+        if self._done.is_set() and self._carry is not None and not self._errors:
+            if self._final_load_factor is None:
+                self._final_load_factor = round(
+                    self._carry.table.load_factor(), 6
+                )
+            out["table_load_factor"] = self._final_load_factor
+        out.update(snap)
+        return out
+
+    def tuned_kwargs(self) -> dict:
+        """Spawn kwargs right-sized to this run's final counts, so a fresh
+        spawn of the same workload runs without growth: the table at least
+        twice the unique count, the log the count plus slack, the chunk,
+        dedup factor and dedup path the run ended with, and the sort rung
+        when one was pinned on the sorted path."""
+        self.join()
+        u = max(1, self._unique_count)
+        return dict(
+            capacity=1 << max(10, (2 * u).bit_length()),
+            log_capacity=u + max(64, u // 64),
+            max_frontier=self._max_frontier,
+            dedup_factor=self._dedup_factor,
+            sortless=int(self._sortless),
+            **(
+                {"sort_lanes": self._sort_width()}
+                if self._sort_lanes is not None and not self._sortless
+                else {}
+            ),
+        )
 
     def table_load_factor(self) -> float:
         """Occupied fraction of the finished run's fingerprint table."""

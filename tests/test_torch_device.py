@@ -134,6 +134,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "r = run_ensemble(members=16, seed=7, steps=24, fault='skip_ack',"
         " chaos='{\"default\": {\"drop\": 0.1}}', replay=False, device='cpu')\n"
         "assert r.states_walked > 16 and r.failing, r.to_dict()\n"
+        "import stateright_tpu_torch.tiered, stateright_tpu_torch.obs.metrics\n"
+        "c = TwoPhaseSys(rm_count=3).checker().spawn_gpu_tiered(device='cpu',"
+        " capacity=256, max_frontier=1 << 6).join()\n"
+        "assert c.unique_state_count() == 288 and c.metrics()['spills'] >= 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -1115,3 +1119,36 @@ def test_cuda_trap_counter_on_the_card():
     assert sorted(sym.discoveries()) == sorted(plain.discoveries())
     free = fx.TrapCounter(trap_at=10**6).checker().spawn_gpu(**geo).join()
     assert free.discoveries() == {}
+
+
+@pytest.mark.cuda
+def test_cuda_tiered_matches_cpu_run(tmp_path):
+    """2pc rm=5 through the tiered checker at 512 slots (spills and cold
+    probes through K20) on the card, bit-equal to its CPU run: logs, the
+    journal's spill and cold-probe events and the snapshot's cold arrays."""
+    from stateright_tpu_torch.runtime.journal import read_journal
+
+    _card()
+    geometry = dict(capacity=512, max_frontier=1 << 6)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        journal = tmp_path / f"{dev}.jsonl"
+        c = TwoPhaseSys(rm_count=5).checker().spawn_gpu_tiered(
+            device=dev, journal=str(journal), **geometry).join()
+        events = [{k: v for k, v in e.items() if k not in ("t", "spill_sec")}
+                  for e in read_journal(str(journal))
+                  if e["event"] in ("spill", "cold_probe")]
+        path = tmp_path / f"{dev}.npz"
+        logs = _logs(c, path)
+        with np.load(path) as snap:
+            cold = [snap[k].copy() for k in sorted(snap.files)
+                    if k.startswith("tiered_")]
+        runs.append((c, events, logs, cold))
+    (gpu, g_ev, g_logs, g_cold), (cpu, c_ev, c_logs, c_cold) = runs
+    assert (gpu.unique_state_count(), gpu.state_count(), gpu.max_depth()) == (
+        8832, 58146, 17
+    )
+    assert g_ev == c_ev and any(e["event"] == "cold_probe" for e in g_ev)
+    for a, b in zip(g_logs + g_cold, c_logs + c_cold):
+        assert np.array_equal(a, b)
+    assert np.array_equal(gpu.discovered_fingerprints(), cpu.discovered_fingerprints())
