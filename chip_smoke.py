@@ -2543,6 +2543,9 @@ def phase_cold_kernels(torch, rows, path, cap):
         err += 1
     c = chunks[0].shape[0]
     first = is_new0.clone()
+    cold_probe_plain(hi, lo, origin, first, chunks[0])
+    # The timed first pass writes one byte a hit, not the whole mask.
+    first_hits = n_new - int(first.sum())
 
     def fresh():
         first.copy_(is_new0)
@@ -2555,11 +2558,12 @@ def phase_cold_kernels(torch, rows, path, cap):
                 setup=fresh),
         time_ms(torch, lambda: cold_probe_plain(hi, lo, origin, first, chunks[0]),
                 2, setup=fresh),
-        2 * n + n_new * key_bytes + 8 * c,
+        n + n_new * key_bytes + first_hits + 8 * c,
         library_ms=time_ms(torch, lambda: torch.searchsorted(flipped_c, flipped_q), 10),
         ops=n_new * COLD_STEP_OPS * (c.bit_length() - 1))
     log(f"  {path} cold wave: {n} buffer lanes, {n_new} hot-new, "
-        f"{wave['n_fresh']} fresh, {len(chunks)} passes of {c} keys over "
+        f"{wave['n_fresh']} fresh, {first_hits} hits in the first pass, "
+        f"{len(chunks)} passes of {c} keys over "
         f"{len(wave['runs'])} runs ({wave['cold_entries']} cold entries), "
         f"accounting {wave['acct']}")
 

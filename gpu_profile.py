@@ -28,8 +28,9 @@ or one of the tiered checker's: ``tiered-paxos3`` (``paxos check 3``
 under a 2 MB budget, ``run_tiered_paxos3``, phase 34) or ``tiered-raft``
 (``raft check`` under 64 MB, ``run_tiered_raft``, phase 37), for which the
 host's cold filter (windowing, chunk copies, K20's launches and the fresh
-count's readback: the ``cold_probe_sec_total`` metric), the host-to-card
-copies and K20's kernels are shown apart -- ``--runs`` times
+count's readback: the ``cold_probe_sec_total`` metric), the copies by
+direction (host to card, card to host, on the card) and K20's kernels
+are shown apart -- ``--runs`` times
 untraced (wall seconds of each, then median and spread), and once more
 under ``torch.profiler``: device time per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
@@ -167,8 +168,12 @@ def main() -> int:
             "spills": m.get("spills", 0),
             "cold_probe_passes": m.get("cold_probe_passes_total", 0),
             "cold_filter_host_s": m.get("cold_probe_sec_total", 0.0),
-            "h2d_copy_ms": sum(v for k, v in by_name.items()
-                               if "HtoD" in k or "Memcpy" in k),
+            # Copies by direction (the profiler's "Memcpy HtoD (...)"
+            # names): HtoD carries the cold chunks, DtoH the readbacks and
+            # the spills' segment fingerprints, DtoD copies on the card.
+            **{f"{d.lower()}_copy_ms": sum(v for k, v in by_name.items()
+                                           if k.startswith("Memcpy " + d))
+               for d in ("HtoD", "DtoH", "DtoD")},
             "k20_ms": sum(v for k, v in by_name.items()
                           if "query_kernel" in k or "probe_kernel" in k),
             "max_frontier": m["max_frontier"],

@@ -645,7 +645,9 @@ class GpuChecker(Checker):
         self._wave_readback(wave)
         flags = self._wave_flags(wave)
         if not flags:
-            flags = self._wave_filter(wave)
+            self._wave_filter(wave)
+            if self._log_full(wave):
+                flags = 2
         if flags:
             # Nothing commits.  The table may hold this wave's keys; growth
             # rebuilds it from the committed log, which erases them.
@@ -748,13 +750,24 @@ class GpuChecker(Checker):
         wave.extra = tuple(int(x) for x in stats[5:n_extra])
         wave.cand_ids = tuple(int(x) for x in stats[n_extra:])
 
+    # An engine whose _wave_filter drops new lanes tests the row log after
+    # the filter only, against the lanes it kept (the JAX tiered engine's
+    # order); the in-HBM engine tests it with the other flags, as JAX's.
+    _filters_new_lanes = False
+
+    def _table_entries(self) -> int:
+        """The keys the table holds, against which flag 1 tests a wave."""
+        return self._carry.unique_count
+
+    def _log_full(self, wave: Wave) -> bool:
+        return self._carry.tail + wave.n_new > self._log_capacity
+
     def _wave_flags(self, wave: Wave) -> int:
         """The overflow flags of the read-back wave."""
-        c = self._carry
         flags = 0
-        if not wave.ok or (c.unique_count + wave.n_new) * 2 > self._capacity:
+        if not wave.ok or (self._table_entries() + wave.n_new) * 2 > self._capacity:
             flags |= 1
-        if c.tail + wave.n_new > self._log_capacity:
+        if not self._filters_new_lanes and self._log_full(wave):
             flags |= 2
         if wave.generated > wave.size or wave.dd_flag:
             flags |= 4
@@ -762,11 +775,10 @@ class GpuChecker(Checker):
             flags |= 8
         return flags
 
-    def _wave_filter(self, wave: Wave) -> int:
+    def _wave_filter(self, wave: Wave) -> None:
         """A stage between the readback and the append of an unflagged
-        wave, which may drop new lanes (``wave.sel``, ``wave.n_new``) and
-        returns further flags; the in-HBM engine has none."""
-        return 0
+        wave, which may drop new lanes (``wave.sel``, ``wave.n_new``); the
+        in-HBM engine has none."""
 
     def _wave_commit(self, wave: Wave) -> None:
         """Append the new representatives' rows, parents and ebits as three
@@ -816,15 +828,29 @@ class GpuChecker(Checker):
 
     def _wl_abort_cleanup(self) -> None:
         """Erase a flagged wave's table writes before a stop or deadline
-        keeps the partial result: growth's rebuild from the committed log
-        prefix, without the growth."""
+        keeps the partial result: growth's rebuild without the growth."""
+        self._reset_table(0)
+
+    def _reset_table(self, flags: int) -> None:
+        """Rebuild the table from the committed log prefix after a flagged
+        wave (``flags``), erasing the keys its aborted insert wrote."""
         c = self._carry
         c.table = self._rehash(c.rows, c.tail)
 
     def _wl_grow(self, flags: int) -> None:
-        """Grow the tripped buffers in place, then rebuild the table from
-        the committed log prefix (erasing the aborted wave's keys)."""
-        msgs = {
+        """Grow the tripped buffers in place, then reset the table."""
+        qcap = self._log_capacity
+        note = "; ".join(self._grow_knobs(flags, qcap))
+        self._grow_flags.append(flags)
+        self._grow_notes.append(note)
+        c = self._carry
+        log_grow(self, flags, note, c.unique_count, c.depth)
+        self._resize_logs(qcap)
+        self._reset_table(flags)
+
+    def _grow_refused(self, flags: int, bit: int) -> str:
+        """The error of a flagged wave whose knob ``bit`` cannot grow."""
+        return {
             1: f"fingerprint table overfull (capacity {self._capacity}); "
                "raise spawn_gpu(capacity=...)",
             2: f"the state row log is full (log_capacity "
@@ -833,8 +859,11 @@ class GpuChecker(Checker):
                "compaction buffer holds; lower spawn_gpu(dedup_factor=...) "
                f"(now {self._dedup_factor}; 1 with no sort_lanes is always "
                "safe)",
-        }
-        qcap = self._log_capacity
+        }[bit]
+
+    def _grow_knobs(self, flags: int, qcap: int) -> List[str]:
+        """Grow the knob of each tripped flag (1, 2, 4, in that order);
+        returns the notes, or raises where a knob cannot grow."""
         grown = []
         for bit in (1, 2, 4):
             if not flags & bit:
@@ -843,14 +872,9 @@ class GpuChecker(Checker):
                 continue  # the table's growth already dragged the log
             note = self._grow_knob(bit) if self._auto_tune else None
             if note is None:
-                raise RuntimeError(msgs[bit])
+                raise RuntimeError(self._grow_refused(flags, bit))
             grown.append(note)
-        self._grow_flags.append(flags)
-        self._grow_notes.append("; ".join(grown))
-        c = self._carry
-        log_grow(self, flags, "; ".join(grown), c.unique_count, c.depth)
-        self._resize_logs(qcap)
-        c.table = self._rehash(c.rows, c.tail)
+        return grown
 
     def _resize_logs(self, qcap: int) -> None:
         """Resize the row, parent and ebits logs from ``qcap`` positions to

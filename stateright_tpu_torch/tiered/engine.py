@@ -35,14 +35,13 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..ops.device_fp import fp64_of
 from ..parallel.wave_common import compact
-from ..parallel.wave_loop import log_grow
 from ..parallel.wavefront import GpuChecker, Wave
 from .cold_join import cold_probe, cold_query, cold_windows, load_chunk
 from .cold_store import ColdStore
@@ -131,7 +130,7 @@ class TieredGpuChecker(GpuChecker):
 
     def _grow_knob(self, flag: int) -> Optional[str]:
         """Flag 1 never grows the table: the budget is a hard cap, and the
-        loop spills instead (:meth:`_wl_grow`).  So a seed-time overflow
+        loop spills instead (:meth:`_grow_knobs`).  So a seed-time overflow
         (the init states alone overfill the table) is an error."""
         if flag == 1:
             return None
@@ -156,21 +155,16 @@ class TieredGpuChecker(GpuChecker):
             return []
         return [cold_query(wave.hi, wave.lo, wave.u_origin, wave.is_new)]
 
-    def _wave_flags(self, wave: Wave) -> int:
-        """Flag 1 counts the hot table's entries since the last spill, not
-        the unique states; flag 2 waits for the cold filter."""
-        flags = 0
-        if not wave.ok or (self._hot_entries + wave.n_new) * 2 > self._capacity:
-            flags |= 1
-        if wave.generated > wave.size or wave.dd_flag:
-            flags |= 4
-        if wave.s_flag:
-            flags |= 8
-        return flags
+    # Flag 2 waits for the cold filter and tests the fresh count.
+    _filters_new_lanes = True
 
-    def _wave_filter(self, wave: Wave) -> int:
-        """The cold filter, when the wave has new keys and cold runs exist,
-        then the row-log flag against the fresh count."""
+    def _table_entries(self) -> int:
+        """Flag 1 counts the hot table's entries since the last spill, not
+        the unique states."""
+        return self._hot_entries
+
+    def _wave_filter(self, wave: Wave) -> None:
+        """The cold filter, when the wave has new keys and cold runs exist."""
         self._wave_hot = wave.n_new
         if wave.n_new and self._cold.run_count:
             t0 = time.monotonic()
@@ -178,9 +172,6 @@ class TieredGpuChecker(GpuChecker):
             # Host wall time of the filter: windowing, chunk copies, K20's
             # launches and the fresh count's readback.
             self._metrics.inc("cold_probe_sec_total", time.monotonic() - t0)
-        if self._carry.tail + wave.n_new > self._log_capacity:
-            return 2
-        return 0
 
     def _cold_filter(self, wave: Wave) -> dict:
         """Merge-join the wave's hot-new keys against every cold run: the
@@ -281,54 +272,41 @@ class TieredGpuChecker(GpuChecker):
             cold_bytes=self._cold.nbytes,
         )
 
-    def _wl_grow(self, flags: int) -> None:
-        """Recover an aborted tiered wave.  Flags 2 and 4 grow as in the
-        base engine; flag 1 spills (the budget pins the capacity), or, with
-        the hot table already empty, halves ``max_frontier`` (down to 8)
-        until one wave's new keys fit.  Either way the hot table is rebuilt:
-        a spill empties it, any other recovery rehashes the committed
-        ``[spill_tail, tail)`` segment, erasing the aborted wave's keys."""
-        c = self._carry
-        qcap = self._log_capacity
-        notes = []
-        for bit in (2, 4):
-            if flags & bit:
-                note = self._grow_knob(bit) if self._auto_tune else None
-                if note is None:
-                    raise RuntimeError(self._wl_overflow_message(flags))
-                notes.append(note)
-        spill = False
+    def _grow_knobs(self, flags: int, qcap: int) -> List[str]:
+        """Flags 2 and 4 grow as in the base engine; flag 1 spills (the
+        budget pins the capacity), or, with the hot table already empty,
+        halves ``max_frontier`` (down to 8) until one wave's new keys fit.
+        Flag 1 recovers whatever ``auto_tune`` says, as in JAX."""
+        notes = super()._grow_knobs(flags & ~1, qcap)
         if flags & 1:
             if self._hot_entries:
-                spill = True
                 notes.append(f"spill (budget pins capacity={self._capacity})")
             else:
                 if self._max_frontier <= 8:
                     raise RuntimeError(self._wl_overflow_message(flags))
                 self._max_frontier //= 2
                 notes.append(f"max_frontier={self._max_frontier}")
-        self._grow_flags.append(flags)
-        self._grow_notes.append("; ".join(notes))
-        log_grow(self, flags, "; ".join(notes), c.unique_count, c.depth)
-        self._resize_logs(qcap)
-        if spill:
+        return notes
+
+    def _grow_refused(self, flags: int, bit: int) -> str:
+        return self._wl_overflow_message(flags)
+
+    def _reset_table(self, flags: int) -> None:
+        """A flag-1 recovery with hot entries spills, which empties the hot
+        table; any other reset rehashes the committed ``[spill_tail,
+        tail)`` segment.  Either way no aborted wave's key, and no cold-hit
+        entry, survives."""
+        if flags & 1 and self._hot_entries:
             self._spill("overflow", self._hot_entries / self._capacity)
-        else:
-            c.table = self._rehash(c.rows, c.tail, self._spill_tail)
-            self._hot_entries = c.tail - self._spill_tail
+            return
+        c = self._carry
+        c.table = self._rehash(c.rows, c.tail, self._spill_tail)
+        self._hot_entries = c.tail - self._spill_tail
 
     def _wl_overflow_message(self, flags: int) -> str:
         if flags & 8:
             return super()._wl_overflow_message(flags)
         return f"tiered engine overflow flags={flags}"
-
-    def _wl_abort_cleanup(self) -> None:
-        """Rebuild the hot table from the committed ``[spill_tail, tail)``
-        segment, so a kept partial result never holds an aborted wave's
-        keys."""
-        c = self._carry
-        c.table = self._rehash(c.rows, c.tail, self._spill_tail)
-        self._hot_entries = c.tail - self._spill_tail
 
     def _wl_occupancy(self) -> float:
         return self._hot_entries / self._capacity
