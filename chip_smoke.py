@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the twenty CUDA kernels of ``stateright_tpu_torch/csrc``
+1. build: compile the twenty-one CUDA sources of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -171,7 +171,23 @@ Phases, in order; any failure exits non-zero:
     phase 20's, ``Election Safety``'s path re-executed, the peak device
     memory beside phase 20's, and K20 on its largest cold wave as in
     phase 34;
-38. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+38. the incremental store (``incremental_check``): GridWalk at bound 511
+    cold and stored (262,144 states), widened to 1,023 by a resume seeded
+    from the stored set (K21 launched; 1,048,576 states, fingerprints and
+    discoveries equal to a cold bound-1,023 run's), and the same
+    request again served from the verdict cache with no kernel launched;
+39. 2pc rm=9 cold and stored, then ``TwoPhaseEdited.build(9)``: the
+    property-only re-check over the stored row log through K2c and K22,
+    with no ``wave`` event and no exploration kernel launched, its counts,
+    discoveries and paths equal to a cold card run of the edited model;
+40. ``paxos check 3`` at ``max_round=1`` cold and stored, then the
+    unbounded check seeded from it: phase 6's 1,194,428 states and
+    fingerprints, bit for bit (each of phases 38-40 prints the cold run's,
+    the store write's and the re-check's seconds);
+41. K21, K2c and K22 against their twins on those paths' inputs (a chunk of
+    the widened GridWalk's log, the first 2**20 rows of the rm=9 log and
+    their conds), bit-equal, timed, K22 beside ``torch.argmax``;
+42. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -334,6 +350,19 @@ TIERED_RM5_ARGS = dict(capacity=512, max_frontier=1 << 6)
 # 64-bit compare (two words) and the select of the next position.
 COLD_STEP_OPS = 4
 
+# The incremental store (phases 38-41).  GridWalk: (bound + 1)**2 states;
+# bound 1,023's widest level is 1,024 states, its seed level 262,144 (16
+# waves of 2**14).  2pc rm=9: about 10.4M states (rm=8 gives 1,745,408 on
+# the CPU, each RM multiplies by about 5.9) in a 2**25-slot table and a
+# 2**24-position log, 2**20 states a wave as at rm=10.  paxos check 3 at
+# max_round=1 seeds the unbounded re-check, which must reach phase 6's set.
+GRID_BOUNDS = (511, 1023)
+GRID_GEOMETRY = dict(capacity=1 << 22, max_frontier=1 << 14, dedup_factor=1)
+RM9 = 9
+RM9_GEOMETRY = dict(capacity=1 << 25, log_capacity=1 << 24, max_frontier=F,
+                    dedup_factor=1)
+PAXOS3_SEED_ROUND = 1
+
 KERNELS = {
     # name: (source, the JAX function it replaces)
     "device_fp64": ("stateright_tpu_torch/csrc/device_fp.cu",
@@ -388,6 +417,12 @@ KERNELS = {
                    "stateright_tpu/tiered/engine.py:223"),
     "cold_probe": ("stateright_tpu_torch/csrc/cold.cu",
                    "stateright_tpu/tiered/engine.py:245"),
+    "grid_walk": ("stateright_tpu_torch/csrc/fixtures_step.cu",
+                  "stateright_tpu/models/fixtures.py:337"),
+    "twophase_conds": ("stateright_tpu_torch/csrc/twophase_step.cu",
+                       "stateright_tpu/models/fixtures.py:518"),
+    "first_hits": ("stateright_tpu_torch/csrc/recheck.cu",
+                   "stateright_tpu/incr/recheck.py:153"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -426,11 +461,22 @@ PATH_KERNELS = {
     "ens-abd": ("device_fp64", "abd_step", "walker_keys", "walk_init",
                 "walk_step", "walk_finish", "fate_mask"),
     # The tiered paths: K20 has its rows here; the in-HBM kernels they
-    # launch too (TIERED_ALSO) have theirs on the in-HBM paths.
+    # launch too (ALSO_LAUNCHED) have theirs on the in-HBM paths.
     "tiered-paxos3": ("cold_query", "cold_probe"),
     "tiered-raft": ("cold_query", "cold_probe"),
+    # The incremental store's re-checks: GridWalk widened (K21 with K1, K3,
+    # K4, K8), the 2pc property-only re-eval (K2c and K22, no wave) and
+    # paxos check 3 widened (the paxos3 path's kernels).
+    "incr-grid": ("grid_walk",),
+    "incr-2pc": ("twophase_conds", "first_hits"),
+    "incr-paxos3": (),
 }
-TIERED_ALSO = {"tiered-paxos3": "paxos3", "tiered-raft": "raft"}
+ALSO_LAUNCHED = {
+    "tiered-paxos3": PATH_KERNELS["paxos3"],
+    "tiered-raft": PATH_KERNELS["raft"],
+    "incr-grid": ("device_fp64", "compact", "insert_batch_claim", "wave_eval"),
+    "incr-paxos3": PATH_KERNELS["paxos3"],
+}
 
 
 def log(msg: str) -> None:
@@ -709,13 +755,16 @@ def launch_counted():
         walk_finish, walk_init, walk_step, walker_keys,
     )
     from stateright_tpu_torch.tiered.cold_join import cold_probe, cold_query
+    from stateright_tpu_torch.models.fixtures import grid_walk
+    from stateright_tpu_torch.models.twophase_compiled import twophase_conds
+    from stateright_tpu_torch.incr.recheck import first_hits
 
     return (device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
             single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
             paxos_step, canonicalize_rows, lww_step, trap_step,
             walker_keys, walk_init, walk_step, walk_finish, fate_mask,
-            cold_query, cold_probe)
+            cold_query, cold_probe, grid_walk, twophase_conds, first_hits)
 
 
 def reset_launches():
@@ -727,7 +776,7 @@ def read_launches(path):
     """The launch counts since the last reset; raises if a kernel of
     ``path`` was launched no time."""
     counts = {fn.__name__: fn.launches for fn in launch_counted()}
-    wanted = PATH_KERNELS[path] + PATH_KERNELS.get(TIERED_ALSO.get(path), ())
+    wanted = PATH_KERNELS[path] + ALSO_LAUNCHED.get(path, ())
     missing = [k for k in wanted if counts[k] == 0]
     if missing:
         raise AssertionError(
@@ -2732,6 +2781,267 @@ def phase_tiered_raft(torch, gpu, rows, want_fps, in_hbm_peak):
     return launches
 
 
+# --- the incremental verification store (incr/) -----------------------------
+
+
+def incr_request(torch, builder, store, journal, geometry):
+    """One ``incremental_check`` request on the card; returns the checker,
+    its ``info`` and the seconds of the request's run (the mode's own work,
+    ``info["sec"]``) and of its store write (the rest of the call)."""
+    from stateright_tpu_torch.incr import incremental_check
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker, info = incremental_check(builder, store, engine_kwargs=geometry,
+                                      journal=journal)
+    torch.cuda.synchronize()
+    total = time.monotonic() - t0
+    return checker, info, info["sec"], total - info["sec"]
+
+
+def wave_count(journal):
+    return len(journal_events(journal, ("wave",)))
+
+
+def path_fps(model, path):
+    return [int(model.fingerprint(s)) for s in path.into_states()]
+
+
+def same_discoveries(what, got, want):
+    """Discovery names and paths (their states' fingerprints) equal."""
+    model = want.model()
+    g, w = got.discoveries(), want.discoveries()
+    if sorted(g) != sorted(w) or any(
+        path_fps(model, g[k]) != path_fps(model, w[k]) for k in w
+    ):
+        raise AssertionError(f"{what}: discoveries or paths differ from the "
+                             "cold run's")
+
+
+def phase_incr_grid(torch, gpu, captured):
+    """GridWalk: bound 511 cold and stored, widened to 1,023 (a resume
+    seeded from the 262,144 stored states, K21 launched), bit-equal to a
+    cold bound-1,023 run in its fingerprints; then the same request again, served from the
+    verdict cache with no kernel launched."""
+    from stateright_tpu_torch.models.fixtures import GridWalk
+
+    lo, hi = GRID_BOUNDS
+    with tempfile.TemporaryDirectory() as tmp:
+        store, journal = os.path.join(tmp, "store"), os.path.join(tmp, "j.jsonl")
+        cold, info, run_s, store_s = incr_request(
+            torch, GridWalk(bound=lo).checker(), store, journal, GRID_GEOMETRY)
+        if info["mode"] != "cold" or cold.unique_state_count() != (lo + 1) ** 2:
+            raise AssertionError(f"GridWalk {lo}: {info['mode']} "
+                                 f"{cold.unique_state_count()}")
+        log(f"  GridWalk {lo} cold: unique={cold.unique_state_count()} "
+            f"depth={cold.max_depth()} cold run {run_s:.3f}s, store write "
+            f"{store_s:.3f}s")
+        del cold
+        reset_launches()
+        wide, info, run_s, store_s = incr_request(
+            torch, GridWalk(bound=hi).checker(), store, journal, GRID_GEOMETRY)
+        launches = read_launches("incr-grid")
+        log(f"  GridWalk {hi} {info['mode']}: seeded={info.get('seeded_states')} "
+            f"unique={wide.unique_state_count()} states={wide.state_count()} "
+            f"depth={wide.max_depth()} waves={wide.waves()} re-check "
+            f"{run_s:.3f}s, store write {store_s:.3f}s; launches {launches}")
+        if (info["mode"], info.get("seeded_states"), wide.unique_state_count()) != (
+            "constant_widening", (lo + 1) ** 2, (hi + 1) ** 2
+        ):
+            raise AssertionError(f"GridWalk {hi}: {info}")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ref = GridWalk(bound=hi).checker().spawn_gpu(**GRID_GEOMETRY).join()
+        cold_s = time.monotonic() - t0
+        log(f"  GridWalk {hi} cold run for comparison: {cold_s:.3f}s, "
+            f"unique={ref.unique_state_count()} depth={ref.max_depth()}")
+        if not (wide.discovered_fingerprints() == ref.discovered_fingerprints()).all():
+            raise AssertionError("GridWalk widening: fingerprints differ from "
+                                 "the cold run's")
+        # A seeded run's log holds the stored states first, so its path to
+        # the corner may differ from the cold run's; it must reach it.
+        corner = wide.discoveries().get("reaches corner")
+        if sorted(wide.discoveries()) != sorted(ref.discoveries()) or (
+            corner is None or corner.last_state() != (hi, hi)
+        ):
+            raise AssertionError("GridWalk widening: discoveries differ")
+        # K21's row: the log's head (the origin's diagonals), its tail (the
+        # box edge and the corner) and the tail's x + 1 neighbours, some
+        # outside the box, so every branch of the kernel is read.
+        q = GRID_GEOMETRY["max_frontier"] // 4
+        log_rows = ref._carry.rows[: ref.unique_state_count()].view(-1, 1)
+        captured["grid"] = (torch.cat([log_rows[:q], log_rows[-2 * q:],
+                                       log_rows[-q:] + 1]).clone(), hi)
+        del wide, ref
+        reset_launches()
+        hit, info, run_s, _ = incr_request(
+            torch, GridWalk(bound=hi).checker(), store, journal, GRID_GEOMETRY)
+        counts = {fn.__name__: fn.launches for fn in launch_counted()}
+        log(f"  GridWalk {hi} again: {info['mode']} in {run_s:.4f}s, "
+            f"{sum(counts.values())} kernel launches")
+        if info["mode"] != "identical" or any(counts.values()):
+            raise AssertionError(f"verdict cache: {info['mode']}, launches {counts}")
+        if hit.unique_state_count() != (hi + 1) ** 2 or sorted(
+            hit.discoveries()) != ["reaches corner"]:
+            raise AssertionError("verdict cache: counts or discoveries differ")
+    return launches
+
+
+def phase_incr_2pc(torch, gpu, captured):
+    """2pc rm=9: the stock model cold and stored, then
+    ``TwoPhaseEdited.build(9)`` re-evaluated over the stored row log (K2c
+    and K22, no wave and no exploration kernel), its discoveries and paths
+    those of a cold card run of the edited model."""
+    from stateright_tpu_torch.models.fixtures import TwoPhaseEdited
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store, journal = os.path.join(tmp, "store"), os.path.join(tmp, "j.jsonl")
+        cold, info, run_s, store_s = incr_request(
+            torch, TwoPhaseSys(rm_count=RM9).checker(), store, journal,
+            RM9_GEOMETRY)
+        log(f"  2pc rm={RM9} cold: unique={cold.unique_state_count()} "
+            f"states={cold.state_count()} depth={cold.max_depth()} "
+            f"waves={cold.waves()} cold run {run_s:.3f}s, store write "
+            f"{store_s:.3f}s")
+        if info["mode"] != "cold":
+            raise AssertionError(f"2pc rm={RM9}: {info}")
+        captured["2pc"] = cold._carry.rows[: 2 * F].view(F, 2).clone()
+        del cold
+        waves = wave_count(journal)
+        reset_launches()
+        edited, info, run_s, store_s = incr_request(
+            torch, TwoPhaseEdited.build(RM9).checker(), store, journal,
+            RM9_GEOMETRY)
+        launches = read_launches("incr-2pc")
+        explore = {k: launches[k] for k in
+                   ("twophase_step", "device_fp64", "insert_batch_claim", "wave_eval")}
+        recheck = journal_events(journal, ("incr_property_recheck",))[-1]
+        log(f"  edited rm={RM9} {info['mode']}: rows={recheck['rows']} "
+            f"chunks={recheck['dispatches']} found={recheck['discoveries']} "
+            f"re-check {run_s:.3f}s, store write {store_s:.3f}s; launches "
+            f"{launches}")
+        if info["mode"] != "property_only" or wave_count(journal) != waves or any(
+            explore.values()
+        ):
+            raise AssertionError(f"property-only re-check: {info['mode']}, "
+                                 f"waves added, or exploration {explore}")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ref = TwoPhaseEdited.build(RM9).checker().spawn_gpu(**RM9_GEOMETRY).join()
+        cold_s = time.monotonic() - t0
+        log(f"  edited rm={RM9} cold run for comparison: {cold_s:.3f}s")
+        got = (edited.unique_state_count(), edited.state_count(), edited.max_depth())
+        want = (ref.unique_state_count(), ref.state_count(), ref.max_depth())
+        if got != want:
+            raise AssertionError(f"property-only counts {got} != cold {want}")
+        same_discoveries("property-only re-check", edited, ref)
+        log(f"  edited rm={RM9}: discoveries {sorted(ref.discoveries())} and "
+            "paths equal to the cold run's")
+    return launches
+
+
+def phase_incr_paxos3(torch, gpu, want_fps):
+    """``paxos check 3`` at ``max_round=1`` cold and stored, then the
+    unbounded check seeded from it: phase 6's 1,194,428 states and its
+    fingerprints, bit for bit."""
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+
+    def model(max_round):
+        return PaxosModelCfg(3, 3, Network.new_unordered_nonduplicating(),
+                             max_round=max_round).into_model()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store, journal = os.path.join(tmp, "store"), os.path.join(tmp, "j.jsonl")
+        cold, info, run_s, store_s = incr_request(
+            torch, model(PAXOS3_SEED_ROUND).checker(), store, journal,
+            PAXOS3_GEOMETRY)
+        log(f"  paxos check 3 max_round={PAXOS3_SEED_ROUND} cold: "
+            f"unique={cold.unique_state_count()} states={cold.state_count()} "
+            f"depth={cold.max_depth()} cold run {run_s:.3f}s, store write "
+            f"{store_s:.3f}s")
+        del cold
+        reset_launches()
+        wide, info, run_s, store_s = incr_request(
+            torch, model(None).checker(), store, journal, PAXOS3_GEOMETRY)
+        launches = read_launches("incr-paxos3")
+        log(f"  paxos check 3 {info['mode']}: seeded={info.get('seeded_states')} "
+            f"unique={wide.unique_state_count()} states={wide.state_count()} "
+            f"depth={wide.max_depth()} waves={wide.waves()} re-check "
+            f"{run_s:.3f}s, store write {store_s:.3f}s")
+        if info["mode"] != "constant_widening" or (
+            wide.unique_state_count() != GOLDEN_PAXOS3[0]
+        ):
+            raise AssertionError(f"paxos widening: {info}")
+        if not (wide.discovered_fingerprints() == want_fps).all():
+            raise AssertionError("paxos widening: fingerprints differ from "
+                                 "phase 6's")
+        log("  paxos check 3 widened: fingerprints equal to phase 6's cold run")
+        wide.assert_properties()
+    return launches
+
+
+def phase_incr_kernels(torch, rows, captured):
+    """K21, K2c and K22 against their twins on the re-check paths' inputs:
+    K21 on the head and tail of the bound-1,023 log (with out-of-box
+    neighbours of the tail), K2c (with the edited
+    model's fourth column) on the first 2**20 rows of the 2pc rm=9 log, K22
+    on those conds with the edited model's property kinds."""
+    from stateright_tpu_torch.incr.recheck import first_hits, first_hits_plain
+    from stateright_tpu_torch.models.fixtures import grid_walk, grid_walk_plain
+    from stateright_tpu_torch.models.twophase_compiled import (
+        twophase_conds, twophase_conds_plain,
+    )
+
+    states, bound = captured.pop("grid")
+    f = states.shape[0]
+    k = grid_walk(states, bound)
+    p = grid_walk_plain(states, bound)
+    torch.cuda.synchronize()
+    for name, col in [("valid", p[1]), ("in bounds", p[2][:, 0]),
+                      ("reaches corner", p[2][:, 1])]:
+        if col.all() or not col.any():
+            raise AssertionError(f"grid_walk's row: {name} takes one value only")
+    row = kernel_row(rows, "incr-grid")
+    row("grid_walk", max_abs_err(torch, zip(k, p)),
+        time_ms(torch, lambda: grid_walk(states, bound), 10),
+        time_ms(torch, lambda: grid_walk_plain(states, bound), 5),
+        f * (4 + 8 + 2 + 2))
+
+    states = captured.pop("2pc")
+    n = states.shape[0]
+    row = kernel_row(rows, "incr-2pc")
+    k = twophase_conds(states, RM9, some_prepared=True)
+    p = twophase_conds_plain(states, RM9, some_prepared=True)
+    stock = twophase_conds(states, RM9)
+    torch.cuda.synchronize()
+    if not torch.equal(stock, twophase_conds_plain(states, RM9)):
+        raise AssertionError("twophase_conds (stock columns) disagrees with its twin")
+    n_props = k.shape[1]
+    row("twophase_conds", max_abs_err(torch, [(k, p)]),
+        time_ms(torch, lambda: twophase_conds(states, RM9, some_prepared=True), 10),
+        time_ms(torch, lambda: twophase_conds_plain(states, RM9, some_prepared=True), 3),
+        n * (8 + n_props))
+    conds = k
+    # abort agreement, commit agreement: sometimes; consistent: always;
+    # some rm prepared: sometimes.
+    always, sometimes = 0b0100, 0b1011
+    start = 3 * n  # a chunk past the first
+    kh = first_hits(conds, n, always, sometimes, start)
+    ph = first_hits_plain(conds, n, always, sometimes, start)
+    torch.cuda.synchronize()
+    bits = torch.tensor([1, 2, 4, 8], device=conds.device)
+    hit = (((always & bits) != 0) & ~conds) | (((sometimes & bits) != 0) & conds)
+    hit_u8 = hit.to(torch.uint8)
+    log(f"  first_hits on {n} rows: {kh.tolist()}")
+    row("first_hits", max_abs_err(torch, [(kh, ph)]),
+        time_ms(torch, lambda: first_hits(conds, n, always, sometimes, start), 10),
+        time_ms(torch, lambda: first_hits_plain(conds, n, always, sometimes, start), 3),
+        n * n_props + n_props * 8,
+        library_ms=time_ms(torch, lambda: torch.argmax(hit_u8, dim=0), 10))
+
+
 def main() -> int:
     use_one_card()
     try:
@@ -2956,7 +3266,6 @@ def main() -> int:
 
     log("phase 35: a mid-run tiered checkpoint of paxos check 3, resumed")
     phase_tiered_checkpoint(torch, paxos3_counts, paxos3_fps)
-    del paxos3_fps
     torch.cuda.empty_cache()
 
     log("phase 36: 2pc check 5 tiered on the card against the CPU run")
@@ -2967,6 +3276,27 @@ def main() -> int:
     launches["tiered-raft"] = phase_tiered_raft(torch, gpu, rows, raft_fps,
                                                 raft_peak)
     del raft_fps
+    torch.cuda.empty_cache()
+
+    captured = {}
+    log("phase 38: GridWalk widened 511 -> 1,023 through incremental_check "
+        "(K21), and the verdict cache")
+    launches["incr-grid"] = phase_incr_grid(torch, gpu, captured)
+    torch.cuda.empty_cache()
+
+    log("phase 39: 2pc rm=9 stored, the edited model re-evaluated over its "
+        "row log (K2c, K22)")
+    launches["incr-2pc"] = phase_incr_2pc(torch, gpu, captured)
+    torch.cuda.empty_cache()
+
+    log("phase 40: paxos check 3 widened from max_round=1")
+    launches["incr-paxos3"] = phase_incr_paxos3(torch, gpu, paxos3_fps)
+    del paxos3_fps
+    torch.cuda.empty_cache()
+
+    log("phase 41: K21, K2c and K22 against their twins on the re-check "
+        "paths' inputs")
+    phase_incr_kernels(torch, rows, captured)
     torch.cuda.empty_cache()
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")

@@ -104,6 +104,30 @@ class CheckerBuilder:
                                     max_trace_len=max_trace_len, device=device)
 
 
+def property_verdicts(checker):
+    """Per-property verdict rows of a finished checker, and the first
+    counterexample-classified discovery in the model's property order (the
+    run's ``violation``): what the incremental store records of a run."""
+    model = checker.model()
+    discoveries = checker.discoveries()
+    props = []
+    violation = None
+    for p in model.properties():
+        found = p.name in discoveries
+        classification = (
+            checker.discovery_classification(p.name) if found else None
+        )
+        if found and classification == "counterexample" and violation is None:
+            violation = p.name
+        props.append({
+            "name": p.name,
+            "expectation": p.expectation.name,
+            "discovered": found,
+            "classification": classification,
+        })
+    return props, violation
+
+
 class Checker:
     """Base checker surface.  Reference: the ``Checker`` trait,
     src/checker.rs:294-578."""

@@ -19,6 +19,16 @@
 // (coalesced stores); the two state words are re-read by the A threads of a
 // state and served from L1.  The lane of action 0 also writes the state's
 // three property conditions.  n is a runtime argument (n <= 12).
+//
+// K2c, sr_twophase_conds: the conditions alone, with no successor rows --
+// what the incremental store's property re-check (incr/recheck.py) and a
+// model whose property_conds differs from K2's fused one launch.  With
+// `some_prepared` set it appends the column "some rm prepared" of
+// stateright_tpu/models/fixtures.py:501 TwoPhaseEdited (an OR over the RMs of
+// (w0 >> 2rm) & 3 == PREPARED).  Bound: bytes -- a row of 8 bytes read (the
+// conds need word0 only, but its 4-byte reads at an 8-byte stride pull whole
+// sectors) and P bytes written a state.  One thread per state in a
+// grid-stride loop.
 #include "sr_common.cuh"
 
 namespace {
@@ -109,7 +119,42 @@ __global__ void twophase_step_kernel(const uint32_t* __restrict__ states,
   }
 }
 
+__global__ void twophase_conds_kernel(const uint32_t* __restrict__ states,
+                                      int64_t f, int n, int some_prepared,
+                                      uint8_t* __restrict__ conds) {
+  const int p = 3 + (some_prepared ? 1 : 0);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       s < f; s += stride) {
+    const uint32_t w0 = states[2 * s];
+    bool committed = false, aborted = false, prepared = false;
+    bool all_committed = true, all_aborted = true;
+    for (int rm = 0; rm < n; ++rm) {
+      const uint32_t rs = (w0 >> (2 * rm)) & 3u;
+      committed |= rs == 2u;
+      aborted |= rs == 3u;
+      prepared |= rs == 1u;
+      all_committed &= rs == 2u;
+      all_aborted &= rs == 3u;
+    }
+    conds[p * s] = all_aborted ? 1 : 0;
+    conds[p * s + 1] = all_committed ? 1 : 0;
+    conds[p * s + 2] = (aborted && committed) ? 0 : 1;
+    if (some_prepared) conds[p * s + 3] = prepared ? 1 : 0;
+  }
+}
+
 }  // namespace
+
+extern "C" int sr_twophase_conds(const uint32_t* states, int64_t f, int n,
+                                 int some_prepared, uint8_t* conds,
+                                 cudaStream_t stream) {
+  if (f <= 0) return 0;
+  constexpr int kThreads = 256;
+  twophase_conds_kernel<<<sr::grid_for(f, kThreads), kThreads, 0, stream>>>(
+      states, f, n, some_prepared, conds);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int sr_twophase_step(const uint32_t* states, int64_t f, int n,
                                 uint32_t* nexts, uint8_t* valid,

@@ -168,6 +168,28 @@ class PaxosCompiled(CompiledModel):
             (S + i, Id(S + i), self.values[i]) for i in range(self.c)
         )
 
+    # --- the incremental store's spec identity (incr/) ---------------------
+
+    def spec_constants(self):
+        """The constants, declared (the wrapped actor model is no
+        dataclass).  ``max_round`` is normalized (None -> MAX_ROUND), so an
+        explicit cap at the encoding's limit hashes as the unbounded
+        default it behaves as."""
+        cfg = self.model.cfg
+        return {
+            "client_count": repr(cfg.client_count),
+            "server_count": repr(cfg.server_count),
+            "network": self.model.init_network.kind,
+            "never_decided": repr(bool(cfg.never_decided)),
+            "max_round": repr(self.max_round),
+        }
+
+    def spec_widens(self, old_constants: dict) -> bool:
+        """Raising ``max_round`` only adds reachable states: every in-bound
+        state keeps its row and transitions and the boundary admits a
+        superset.  Every other constant must be unchanged."""
+        return self.widens_by(old_constants, "max_round")
+
     # --- small-code helpers --------------------------------------------------
 
     def _value_code(self, v) -> int:

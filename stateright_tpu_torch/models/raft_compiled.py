@@ -114,6 +114,21 @@ class RaftCompiled(CompiledModel):
     def cache_key(self):
         return (type(self).__qualname__, self.max_crashes)
 
+    def spec_constants(self):
+        """The constants, declared (the wrapped actor model is no
+        dataclass)."""
+        return {
+            "server_count": repr(N),
+            "max_crashes": repr(self.max_crashes),
+            "network": self.model.init_network.kind,
+        }
+
+    def spec_widens(self, old_constants: dict) -> bool:
+        """Raising the crash budget only adds reachable states (Crash is
+        gated on ``n_crashed < max_crashes``, Recover fires only from
+        crashed states); the other constants must be unchanged."""
+        return self.widens_by(old_constants, "max_crashes")
+
     # --- node record ----------------------------------------------------------
 
     @staticmethod

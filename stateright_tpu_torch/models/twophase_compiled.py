@@ -14,9 +14,13 @@ then per RM TmRcvPrepared / RmPrepare / RmChooseToAbort / RmRcvCommitMsg /
 RmRcvAbortMsg).  2pc's ``next_state`` never returns None, so a lane is
 valid iff its guard holds.
 
-The step and the property conditions are one fused kernel
-(``csrc/twophase_step.cu``) on a CUDA tensor; :func:`twophase_step_plain` is
-its plain-torch twin, run for CPU tensors.
+The step and the property conditions are one fused kernel (K2,
+``csrc/twophase_step.cu``) on a CUDA tensor; :func:`twophase_step_plain` is
+its plain-torch twin, run for CPU tensors.  The conditions alone are K2c
+(:func:`twophase_conds`, the same source), which ``property_conds`` launches;
+a subclass that overrides ``property_conds`` has its conditions taken from
+that override in ``expand`` and ``walk_step`` too, and K2's fused ones only
+where it does not.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 from ..ops import cuda
 from ..ops.u32 import M32, i32, u32
-from ..parallel.compiled import CompiledModel
+from ..parallel.compiled import CompiledModel, fused_conds, override_conds
 from .twophase import (
     ABORTED,
     COMMITTED,
@@ -81,6 +85,53 @@ def twophase_step(
 
 
 twophase_step.launches = 0
+
+
+def twophase_conds_plain(
+    states: torch.Tensor, n: int, some_prepared: bool = False
+) -> torch.Tensor:
+    """Plain-torch twin of K2c (any device): ``int32[F, 2] -> bool[F, P]``,
+    2pc's three conds (``twophase_step_plain``'s), with ``some_prepared``
+    the column "some rm prepared" appended (P = 4)."""
+    w0 = u32(states[:, 0])
+    rs = torch.stack([(w0 >> (2 * rm)) & 3 for rm in range(n)], dim=1)
+    conds = [
+        (rs == ABORTED).all(1),
+        (rs == COMMITTED).all(1),
+        ~((rs == ABORTED).any(1) & (rs == COMMITTED).any(1)),
+    ]
+    if some_prepared:
+        conds.append((rs == PREPARED).any(1))
+    return torch.stack(conds, dim=1)
+
+
+def twophase_conds(
+    states: torch.Tensor, n: int, some_prepared: bool = False
+) -> torch.Tensor:
+    """The property conditions of packed 2pc states alone, no successors
+    (K2c): see :func:`twophase_conds_plain`."""
+    if not 1 <= n <= 12:
+        raise ValueError("packed 2pc encoding supports 1 to 12 RMs")
+    if states.device.type == "cpu":
+        return twophase_conds_plain(states, n, some_prepared)
+    cuda.require(states, "states", torch.int32, 2, states.device)
+    if states.shape[1] != 2:
+        raise ValueError(f"states must be [F, 2], got {tuple(states.shape)}")
+    f = states.shape[0]
+    conds = torch.empty((f, N_PROPS + int(some_prepared)), dtype=torch.bool,
+                        device=states.device)
+    fn = cuda.function(
+        "twophase_step", "sr_twophase_conds",
+        [cuda.P, cuda.I64, cuda.I32, cuda.I32, cuda.P, cuda.P],
+    )
+    twophase_conds.launches += 1
+    code = fn(cuda.ptr(states), f, n, int(some_prepared), cuda.ptr(conds),
+              cuda.stream())
+    cuda.check(code, "twophase_step", "twophase_conds")
+    return conds
+
+
+twophase_conds.launches = 0
 
 
 def twophase_step_plain(
@@ -201,15 +252,19 @@ class TwoPhaseCompiled(CompiledModel):
         return nexts, valid
 
     def property_conds(self, states):
-        return twophase_step(states, self.n)[2]
+        return twophase_conds(states, self.n)
 
     def expand(self, states):
         nexts, valid, conds = twophase_step(states, self.n)
+        if not fused_conds(self, TwoPhaseCompiled):
+            conds = self.property_conds(states)
         return nexts, valid, conds, None
 
     def walk_step(self, states, plain=False):
         nexts, valid, conds = (twophase_step_plain if plain else twophase_step)(
             states, self.n)
+        if not fused_conds(self, TwoPhaseCompiled):
+            conds = override_conds(self, states, plain)
         return nexts, valid, conds, None
 
     def canon_spec(self):

@@ -24,7 +24,10 @@ int32 bit-views -- on the engine's device.
   model whose encoding cannot overflow (the JAX ``step_flags``);
 - ``canon_spec()``: the symmetric record block ``symmetry()`` reduces by
   (``canon.py``), or None for a model without one; ``canon_rows(rows[B,
-  W])`` overrides it where the declarative spec cannot say enough.
+  W])`` overrides it where the declarative spec cannot say enough;
+- ``spec_constants()`` / ``spec_widens(old)``: the model's constants for
+  the incremental store's spec hash, and whether they widen a prior run's
+  (``incr/``).
 
 Two-phase contract (optional; :func:`two_phase_capable`): an unbounded
 model whose lanes are mostly invalid answers validity alone and builds
@@ -148,6 +151,49 @@ class CompiledModel:
         reduction prunes reachable states."""
         raise NotImplementedError
 
+    # --- persistent spec identity (incr/spec_hash.py) -------------------------
+
+    def spec_constants(self) -> Optional[dict]:
+        """The model's constants as a flat name -> repr dict: the
+        ``constants`` component of the incremental store's spec hash (the
+        data the kernels are launched with, apart from their code).  The
+        default reads a dataclass model's fields; any other model returns
+        None (no stable declaration), and the store then refuses every
+        reuse path rather than risk two differently-parameterized models
+        hashing alike."""
+        import dataclasses
+
+        if dataclasses.is_dataclass(self.model):
+            return {
+                f.name: repr(getattr(self.model, f.name))
+                for f in dataclasses.fields(self.model)
+            }
+        return None
+
+    def spec_widens(self, old_constants: dict) -> bool:
+        """Whether this model's constants describe a monotone widening of
+        the reachable set of a prior run at ``old_constants`` (same codec,
+        every old state keeping its row and transitions, the boundary
+        admitting a superset): then the store may seed a re-check from
+        the prior reachable set.  Default False -- a per-model claim,
+        never inferred."""
+        return False
+
+    def widens_by(self, old_constants: dict, key: str) -> bool:
+        """The usual :meth:`spec_widens`: ``old_constants`` names this
+        model's constants, each equal to this model's but the integer
+        ``key``, which is at most this model's."""
+        mine = self.spec_constants()
+        if mine is None or set(old_constants) != set(mine):
+            return False
+        try:
+            old = int(str(old_constants[key]))
+        except (TypeError, ValueError):
+            return False
+        return old <= int(mine[key]) and all(
+            str(old_constants[k]) == mine[k] for k in mine if k != key
+        )
+
 
 def compiled_model_for(model: Model) -> CompiledModel:
     """Resolve the compiled form of ``model`` (its ``compiled()`` method)."""
@@ -158,6 +204,23 @@ def compiled_model_for(model: Model) -> CompiledModel:
             "compiled() returning a CompiledModel to use spawn_gpu()"
         )
     return fn()
+
+
+def fused_conds(cm, owner: type) -> bool:
+    """Whether ``cm``'s property conds are the ones ``owner``'s fused step
+    kernel writes: False where a subclass overrides
+    ``owner.property_conds``, whose ``expand`` and ``walk_step`` must then
+    take their conds from that override."""
+    return type(cm).property_conds is owner.property_conds
+
+
+def override_conds(cm, states: torch.Tensor, plain: bool = False):
+    """The conds of ``cm``'s ``property_conds`` override.  With ``plain``
+    (the walk's plain reference) they come from the override's twins on a
+    CPU copy, so the reference never launches a kernel under test."""
+    if plain and states.device.type != "cpu":
+        return cm.property_conds(states.cpu()).to(states.device)
+    return cm.property_conds(states)
 
 
 def two_phase_capable(cm) -> bool:

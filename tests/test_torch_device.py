@@ -138,6 +138,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "c = TwoPhaseSys(rm_count=3).checker().spawn_gpu_tiered(device='cpu',"
         " capacity=256, max_frontier=1 << 6).join()\n"
         "assert c.unique_state_count() == 288 and c.metrics()['spills'] >= 1\n"
+        "import tempfile, stateright_tpu_torch.incr\n"
+        "from stateright_tpu_torch.incr import incremental_check\n"
+        "from stateright_tpu_torch.models.fixtures import GridWalk\n"
+        "d = tempfile.mkdtemp()\n"
+        "for b, mode in ((4, 'cold'), (7, 'constant_widening'), (7, 'identical')):\n"
+        "    c, info = incremental_check(GridWalk(bound=b).checker(), d,"
+        " engine_kwargs=dict(device='cpu', capacity=1 << 12, max_frontier=1 << 6))\n"
+        "    assert info['mode'] == mode and c.unique_state_count() == (b + 1) ** 2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -1152,3 +1160,109 @@ def test_cuda_tiered_matches_cpu_run(tmp_path):
     for a, b in zip(g_logs + g_cold, c_logs + c_cold):
         assert np.array_equal(a, b)
     assert np.array_equal(gpu.discovered_fingerprints(), cpu.discovered_fingerprints())
+
+
+@pytest.mark.cuda
+def test_cuda_grid_walk_matches_twin():
+    """K21 on packed words with x or y at 0xFFFF (the u32 wrap) and seeded
+    ones, at bounds 0, 4 and 32,767."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    words = np.concatenate([
+        [0, 0xFFFF, 0xFFFF << 16, 0xFFFFFFFF, 4 | (4 << 16), 5, 5 << 16],
+        rng.integers(0, 1 << 32, 100_000),
+    ]).astype(np.uint32).reshape(-1, 1)
+    rows = _t(words, dev)
+    for bound in (0, 4, 32_767):
+        for g, p in zip(fx.grid_walk(rows, bound), fx.grid_walk_plain(rows, bound)):
+            assert torch.equal(g, p)
+
+
+@pytest.mark.cuda
+def test_cuda_twophase_conds_matches_twin():
+    """K2c, with and without the edited model's column, at rm = 1..12."""
+    from stateright_tpu_torch.models.twophase_compiled import (
+        twophase_conds, twophase_conds_plain,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(22)
+    for n in range(1, 13):
+        rows = _t(_random_rows(rng, n, 20_000), dev)
+        for extra in (False, True):
+            assert torch.equal(twophase_conds(rows, n, extra),
+                               twophase_conds_plain(rows, n, extra))
+        nexts, valid, conds = twophase_step(rows, n)
+        assert torch.equal(conds, twophase_conds(rows, n))
+
+
+@pytest.mark.cuda
+def test_cuda_first_hits_matches_twin():
+    """K22 on seeded conds: sparse and dense hits, no hit, a hit at row 0,
+    hits only past ``n``, and a ragged last block."""
+    from stateright_tpu_torch.incr.recheck import NO_SLOT, first_hits, first_hits_plain
+
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    for r, p, rate in ((1 << 20, 4, 1e-6), (1 << 20, 4, 0.5), (1000, 7, 0.01),
+                       (257, 32, 0.0)):
+        conds = torch.rand((r, p), generator=gen, device=dev) < rate
+        always = sum(1 << q for q in range(0, p, 3))
+        sometimes = sum(1 << q for q in range(1, p, 3))
+        conds[:, 0] = True  # an always cond that holds
+        for n, start in ((r, 0), (r // 2, 12_345), (r, (1 << 32) - 1 - r)):
+            got = first_hits(conds, n, always, sometimes, start)
+            assert torch.equal(got, first_hits_plain(conds, n, always, sometimes, start))
+        conds[0, 1] = True
+        assert int(first_hits(conds, r, always, sometimes, 7)[1]) == 7
+        assert int(first_hits(conds, 0, always, sometimes, 0)[1]) == NO_SLOT
+
+
+@pytest.mark.cuda
+def test_cuda_property_only_recheck_rm5(tmp_path):
+    """2pc rm=5 stored on the card, the edited model re-evaluated over its
+    row log (K2c and K22, no wave), equal to a cold card run of the edited
+    model in counts, discoveries and paths."""
+    from stateright_tpu_torch.incr import incremental_check
+    from stateright_tpu_torch.incr.recheck import first_hits
+    from stateright_tpu_torch.models.twophase_compiled import twophase_conds
+    from stateright_tpu_torch.runtime.journal import read_journal
+
+    _card()
+    store, journal = str(tmp_path / "store"), str(tmp_path / "j.jsonl")
+    _, info = incremental_check(TwoPhaseSys(rm_count=5).checker(), store,
+                                engine_kwargs=GEOMETRY, journal=journal)
+    assert info["mode"] == "cold"
+    waves = sum(e["event"] == "wave" for e in read_journal(journal))
+    k2c, k22, k2 = twophase_conds.launches, first_hits.launches, twophase_step.launches
+    edited = fx.TwoPhaseEdited.build(5)
+    ck, info = incremental_check(edited.checker(), store, engine_kwargs=GEOMETRY,
+                                 journal=journal)
+    assert info["mode"] == "property_only"
+    assert sum(e["event"] == "wave" for e in read_journal(journal)) == waves
+    assert twophase_conds.launches > k2c and first_hits.launches > k22
+    assert twophase_step.launches == k2
+    ref = edited.checker().spawn_gpu(**GEOMETRY).join()
+    assert (ck.unique_state_count(), ck.state_count(), ck.max_depth()) == (
+        ref.unique_state_count(), ref.state_count(), ref.max_depth())
+    assert sorted(ck.discoveries()) == sorted(ref.discoveries())
+    for name, path in ref.discoveries().items():
+        assert ck.discoveries()[name].into_states() == path.into_states(), name
+
+
+@pytest.mark.cuda
+def test_cuda_plain_walk_of_an_override_launches_nothing():
+    """The plain walk of a model that overrides ``property_conds`` (the
+    edited 2pc, a sliced trap counter) takes its conds from the override's
+    twins: it launches no kernel, and it equals the card's walk."""
+    from stateright_tpu_torch.models.twophase_compiled import twophase_conds
+
+    dev = _card()
+    rows = _t(_random_rows(np.random.default_rng(3), 5, 4096), dev)
+    cm = fx.TwoPhaseEdited.build(5).compiled()
+    before = (twophase_conds.launches, twophase_step.launches)
+    plain = cm.walk_step(rows, plain=True)
+    assert (twophase_conds.launches, twophase_step.launches) == before
+    for k, p in zip(cm.walk_step(rows)[:3], plain[:3]):
+        assert torch.equal(k, p)
