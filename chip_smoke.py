@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the twenty-one CUDA sources of ``stateright_tpu_torch/csrc``
+1. build: compile the twenty-two CUDA sources of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -187,7 +187,28 @@ Phases, in order; any failure exits non-zero:
 41. K21, K2c and K22 against their twins on those paths' inputs (a chunk of
     the widened GridWalk's log, the first 2**20 rows of the rm=9 log and
     their conds), bit-equal, timed, K22 beside ``torch.argmax``;
-42. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+42. gang-grid: eight GridWalks at bounds 248-255 through ``run_gang`` at
+    the gang worker's width (K = 8, F = 256; the widest diagonal holds 256
+    states), every wave one launch each of K21g, K23 and K1; each member's
+    counts, verdicts, discovery paths and fingerprints equal its solo
+    ``spawn_gpu`` run on the card; the gang's waves and wall seconds beside
+    the members' solo seconds;
+43. gang-cap: eight CapCounters with mixed verdicts (JAX's four, limits to
+    1,000, a cap past 2**31) through K24's gang entry, the ``violation``
+    list exact, each member equal to its solo run (K24's solo entry);
+44. a gang of 5 GridWalks, padded to K = 8: the same launches a wave, each
+    member equal to its solo run;
+45. the eject case: GridWalk(2) and GridWalk(12) at F = 8 -- the second
+    ejected with the JAX package's reason, the first equal to the CPU
+    gang's;
+46. raft to depth 6 with an edited ``property_conds`` (an appended ALWAYS
+    property, "at the init row") bit-equal to the port's CPU run, the
+    override's discovery found: the fused step kernel (K11) carries the
+    override's conds;
+47. K21g, K23, K24 (both entries) and K1 against their twins on the widest
+    real wave of gang-grid and gang-cap, bit-equal, timed, K23 beside
+    ``torch.argmax`` over the precomputed hit columns;
+48. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -362,6 +383,21 @@ RM9 = 9
 RM9_GEOMETRY = dict(capacity=1 << 25, log_capacity=1 << 24, max_frontier=F,
                     dedup_factor=1)
 PAXOS3_SEED_ROUND = 1
+# Gang batching at the gang worker's defaults (stateright_tpu/fleet/
+# worker.py:54-56: gang_max 8, gang_frontier 256).  GridWalk's widest
+# diagonal at bound 255 holds 256 states, so bounds 248-255 just fit F; the
+# capped counters mix JAX's four (tests/test_fleet.py:230) with limits up to
+# 1,000 and a cap past 2**31.  Solo runs for comparison at a geometry that
+# holds 65,536 states.
+GANG_F = 256
+GANG_GRID_BOUNDS = tuple(range(248, 256))
+GANG_CAP_PARAMS = ((4, 10), (12, 8), (6, 6), (9, 20), (1000, 999),
+                   (1000, 2**31 + 7), (700, 700), (0, 0))
+GANG_CAP_VIOLATIONS = [None, "within cap", None, None, "within cap", None,
+                       None, None]
+GANG_OF_5 = (100, 37, 64, 3, 200)
+GANG_SOLO = dict(capacity=1 << 17, max_frontier=1 << 8)
+GOLDEN_EDITED_RAFT_D6 = (4_933, 13_840, 6)  # the stock model's counts
 
 KERNELS = {
     # name: (source, the JAX function it replaces)
@@ -423,6 +459,14 @@ KERNELS = {
                        "stateright_tpu/models/fixtures.py:518"),
     "first_hits": ("stateright_tpu_torch/csrc/recheck.cu",
                    "stateright_tpu/incr/recheck.py:153"),
+    "grid_walk_gang": ("stateright_tpu_torch/csrc/fixtures_step.cu",
+                       "stateright_tpu/models/fixtures.py:386"),
+    "cap_counter": ("stateright_tpu_torch/csrc/fixtures_step.cu",
+                    "stateright_tpu/models/fixtures.py:456"),
+    "cap_counter_gang": ("stateright_tpu_torch/csrc/fixtures_step.cu",
+                         "stateright_tpu/models/fixtures.py:484"),
+    "gang_eval": ("stateright_tpu_torch/csrc/gang.cu",
+                  "stateright_tpu/fleet/gang.py:216"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -470,12 +514,18 @@ PATH_KERNELS = {
     "incr-grid": ("grid_walk",),
     "incr-2pc": ("twophase_conds", "first_hits"),
     "incr-paxos3": (),
+    # The gang waves: the family's gang kernel, K23 and K1, nothing else;
+    # cap-solo is gang-cap's members run solo through K24's solo entry.
+    "gang-grid": ("grid_walk_gang", "gang_eval", "device_fp64"),
+    "gang-cap": ("cap_counter_gang", "gang_eval", "device_fp64"),
+    "cap-solo": ("cap_counter",),
 }
 ALSO_LAUNCHED = {
     "tiered-paxos3": PATH_KERNELS["paxos3"],
     "tiered-raft": PATH_KERNELS["raft"],
     "incr-grid": ("device_fp64", "compact", "insert_batch_claim", "wave_eval"),
     "incr-paxos3": PATH_KERNELS["paxos3"],
+    "cap-solo": ("device_fp64", "compact", "insert_batch_claim", "wave_eval"),
 }
 
 
@@ -758,13 +808,18 @@ def launch_counted():
     from stateright_tpu_torch.models.fixtures import grid_walk
     from stateright_tpu_torch.models.twophase_compiled import twophase_conds
     from stateright_tpu_torch.incr.recheck import first_hits
+    from stateright_tpu_torch.models.fixtures import (
+        cap_counter, cap_counter_gang, grid_walk_gang,
+    )
+    from stateright_tpu_torch.fleet.gang import gang_eval
 
     return (device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
             single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
             paxos_step, canonicalize_rows, lww_step, trap_step,
             walker_keys, walk_init, walk_step, walk_finish, fate_mask,
-            cold_query, cold_probe, grid_walk, twophase_conds, first_hits)
+            cold_query, cold_probe, grid_walk, twophase_conds, first_hits,
+            grid_walk_gang, cap_counter, cap_counter_gang, gang_eval)
 
 
 def reset_launches():
@@ -3042,6 +3097,351 @@ def phase_incr_kernels(torch, rows, captured):
         library_ms=time_ms(torch, lambda: torch.argmax(hit_u8, dim=0), 10))
 
 
+
+# --- gang batching (fleet/gang.py) -------------------------------------------
+
+
+def gang_members(models):
+    return [{"tag": i, "model": m, "cm": m.compiled(),
+             "consts": m.compiled().gang_constants()}
+            for i, m in enumerate(models)]
+
+
+class GangWaveCapture:
+    """Keeps copies of the inputs of two waves a gang runs, to replay its
+    kernels against their twins: the widest (the most active lanes), and
+    the first of the waves whose outputs vary most -- the most cond columns
+    taking both values over the active lanes, plus one where ``first``
+    holds both a hit and a miss (for a gang of walks, the wave that reaches
+    the smallest bound's corner)."""
+
+    def __init__(self):
+        from stateright_tpu_torch.fleet import gang
+
+        self._cls = gang._Wave
+        self._run = gang._Wave.run
+        self.best = None
+        self.varied = None
+
+    @staticmethod
+    def _copy(wave, **extra):
+        return dict(always=wave.always, consts=wave.consts.clone(), **extra,
+                    **{k: v.clone() for k, v in wave.host_in.items()})
+
+    def __enter__(self):
+        cap = self
+
+        def run(wave):
+            out = cap._run(wave)  # reads host_in, writes host_out only
+            active = wave.host_in["active"].numpy()
+            n = int(active.sum())
+            if cap.best is None or n > cap.best["n"]:
+                cap.best = cap._copy(wave, n=n)
+            conds = out["conds"][active]
+            first = out["first"][active.any(1)]
+            score = int(sum(conds[:, q].any() and not conds[:, q].all()
+                            for q in range(conds.shape[1])))
+            score += int((first >= 0).any() and (first < 0).any())
+            if cap.varied is None or score > cap.varied["score"]:
+                cap.varied = cap._copy(wave, n=n, score=score)
+            return out
+
+        self._cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run = self._run
+
+
+def phase_gang(torch, gpu, path, models, solo_path=None):
+    """``run_gang`` on the card at F = ``GANG_F``: every wave one launch each
+    of the family's gang kernel, K23 and K1 (and K1 once to seed), nothing
+    else; each member's summary and fingerprints equal its solo
+    ``spawn_gpu`` run's on the card.  Returns the gang's launches, the solo
+    runs' (read as ``solo_path``), the results and the captured waves."""
+    import numpy as np
+    from stateright_tpu_torch.fleet import run_gang
+    from stateright_tpu_torch.serve.portfolio import checker_summary
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with GangWaveCapture() as cap:
+        t0 = time.monotonic()
+        results, waves = run_gang(gang_members(models), max_frontier=GANG_F)
+        torch.cuda.synchronize()
+        gang_s = time.monotonic() - t0
+    launches = read_launches(path)
+    family = PATH_KERNELS[path][0]
+    want = {family: waves, "gang_eval": waves, "device_fp64": waves + 1}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+    solos, solo_s = [], []
+    reset_launches()
+    for m in models:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        solos.append(m.checker().spawn_gpu(**GANG_SOLO).join())
+        solo_s.append(time.monotonic() - t0)
+    solo_launches = read_launches(solo_path) if solo_path else None
+    for (tag, c, reason), solo in zip(results, solos):
+        if c is None:
+            raise AssertionError(f"{path}: member {tag} ejected: {reason}")
+        if checker_summary(c) != checker_summary(solo) or not np.array_equal(
+                c.discovered_fingerprints(), solo.discovered_fingerprints()):
+            raise AssertionError(f"{path}: member {tag} differs from its solo run")
+    log(f"  {path}: K={len(models)} waves={waves} gang wall {gang_s:.4f}s; "
+        f"members' solo runs {sum(solo_s):.4f}s in all "
+        f"({', '.join(f'{x:.4f}' for x in solo_s)}); card={gpu!r}")
+    log(f"  {path} members: " + "; ".join(
+        f"{c.unique_state_count()}/{c.state_count()}/{c.max_depth()} "
+        f"{sorted(c.discoveries())}" for _t, c, _r in results))
+    log(f"  {path} launches: {got}; solo runs: {solo_launches}")
+    return launches, solo_launches, results, cap
+
+
+def phase_gang_grid(torch, gpu, captured):
+    from stateright_tpu_torch.models.fixtures import GridWalk
+
+    launches, _solo, results, waves = phase_gang(
+        torch, gpu, "gang-grid", [GridWalk(bound=b) for b in GANG_GRID_BOUNDS])
+    for (_t, c, _r), b in zip(results, GANG_GRID_BOUNDS):
+        if c.unique_state_count() != (b + 1) ** 2:
+            raise AssertionError(f"GridWalk({b}): {c.unique_state_count()} states")
+    captured["gang-grid"] = waves
+    return launches
+
+
+def phase_gang_cap(torch, gpu, captured):
+    from stateright_tpu_torch.models.fixtures import CapCounter
+    from stateright_tpu_torch.serve.portfolio import checker_summary
+
+    launches, solo, results, waves = phase_gang(
+        torch, gpu, "gang-cap",
+        [CapCounter(limit=lim, cap=cap) for lim, cap in GANG_CAP_PARAMS],
+        solo_path="cap-solo")
+    violations = [checker_summary(c)["violation"] for _t, c, _r in results]
+    log(f"  gang-cap violations: {violations}")
+    if violations != GANG_CAP_VIOLATIONS:
+        raise AssertionError(f"gang-cap violations {violations}")
+    captured["gang-cap"] = waves
+    return launches, solo
+
+
+def phase_gang_of_5(torch, gpu):
+    """A gang of 5, padded to K = 8: one launch each a wave as at K = 8."""
+    from stateright_tpu_torch.models.fixtures import GridWalk
+
+    phase_gang(torch, gpu, "gang-grid", [GridWalk(bound=b) for b in GANG_OF_5])
+
+
+def phase_gang_eject():
+    """GridWalk(2) and GridWalk(12) at F = 8: the second is ejected with the
+    JAX package's reason, the first completes as on the CPU."""
+    import numpy as np
+    from stateright_tpu_torch.fleet import run_gang
+    from stateright_tpu_torch.models.fixtures import GridWalk
+    from stateright_tpu_torch.serve.portfolio import checker_summary
+
+    models = [GridWalk(bound=2), GridWalk(bound=12)]
+    (small, big), waves = run_gang(gang_members(models), max_frontier=8)
+    (csmall, cbig), cwaves = run_gang(gang_members(models), max_frontier=8,
+                                      device="cpu")
+    log(f"  eject: waves={waves}, GridWalk(2) "
+        f"{small[1] and small[1].unique_state_count()}, GridWalk(12) "
+        f"ejected: {big[2]!r}")
+    if big[1] is not None or big[2] != "frontier overgrew gang geometry (9 > 8)":
+        raise AssertionError(f"eject: {big}")
+    if waves != cwaves or big[2] != cbig[2] or checker_summary(small[1]) != \
+            checker_summary(csmall[1]) or not np.array_equal(
+                small[1].discovered_fingerprints(),
+                csmall[1].discovered_fingerprints()):
+        raise AssertionError("eject: the card's gang differs from the CPU's")
+    if small[1].unique_state_count() != 9:
+        raise AssertionError("eject: GridWalk(2) did not complete at 9 states")
+
+
+def edited_raft(torch):
+    """Raft with one property appended, "at the init row" (ALWAYS: the
+    packed row equals the init state's), through a compiled subclass that
+    overrides ``property_conds``: the fused K11's conds must give way to the
+    override's."""
+    from stateright_tpu_torch.core.model import Expectation
+    from stateright_tpu_torch.ops.u32 import from_numpy_u32
+
+    model = raft_model()
+    codec = model.compiled()
+    init_row = codec.init_packed()[0]
+
+    class Edited(type(codec)):
+        def property_conds(self, states):
+            conds = super().property_conds(states)
+            same = (states == from_numpy_u32(init_row, states.device)).all(1)
+            return torch.cat([conds, same[:, None]], dim=1)
+
+    model.property(Expectation.ALWAYS, "at the init row",
+                   lambda _m, s: bool((codec.encode(s) == init_row).all()))
+    model.compiled = lambda: Edited(model)
+    return model
+
+
+def phase_edited_raft(torch):
+    from stateright_tpu_torch.models.raft_compiled import W
+
+    gpu = card_and_cpu(
+        "edited raft to depth 6",
+        lambda: edited_raft(torch).checker().target_max_depth(6),
+        GOLDEN_EDITED_RAFT_D6, W, capacity=1 << 15, max_frontier=1 << 8)
+    found = sorted(gpu.discoveries())
+    log(f"  edited raft found {found}")
+    if "at the init row" not in found or len(
+            gpu.discoveries()["at the init row"]) != 2:
+        raise AssertionError(f"edited raft: the override's discovery {found}")
+
+
+# Cond columns that hold on every state by definition: CapCounter's
+# "non-negative" (n >= 0 of a u32).
+GANG_CONSTANT_CONDS = {"gang-cap": {0}}
+
+
+def replay_varied_wave(torch, path, kernel, plain, w):
+    """The family kernel, K23 and K1 bit-equal to their twins on ``path``'s
+    most varied wave, after checking that the wave can tell them apart:
+    every cond column not constant by definition takes both values over the
+    active lanes and, for the walks, over the wave's candidate successors
+    (where "in bounds" fails: a frontier lies inside its box), and K23's
+    ``first`` holds a hit and a miss among the live jobs."""
+    from stateright_tpu_torch.fleet.gang import gang_eval, gang_eval_plain
+    from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
+
+    dev = torch.device("cuda", 0)
+    states, consts = w["frontier"].to(dev), w["consts"]
+    active, undisc = w["active"].to(dev), w["undisc"].to(dev)
+    k, f, _w = states.shape
+    got, want = kernel(states, consts), plain(states, consts)
+    nexts, valid, conds = got
+    a, p = valid.shape[2], conds.shape[2]
+    seen = [conds[active]]
+    if path == "gang-grid":
+        succ = nexts.view(k, f * a, 1)
+        got2, want2 = kernel(succ, consts), plain(succ, consts)
+        err = max_abs_err(torch, zip(got2, want2))
+        lanes = active.unsqueeze(-1).expand(k, f, a).reshape(k, f * a)
+        seen.append(got2[2][lanes])
+    else:
+        err = 0
+    err = max(err, max_abs_err(torch, zip(got, want)))
+    seen = torch.cat(seen)
+    varies = [bool(seen[:, q].any()) and not bool(seen[:, q].all())
+              for q in range(p)]
+    gated = valid.clone()
+    k23 = gang_eval(conds, gated, active, undisc, w["always"])
+    p23 = gang_eval_plain(conds, valid, active, undisc, w["always"])
+    first = k23[2][active.any(1)]
+    flat = nexts.view(k * f * a, -1)
+    k1, p1 = device_fp64(flat), device_fp64_plain(flat)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(torch, zip(k23, p23)),
+              max_abs_err(torch, zip(k1, p1)))
+    log(f"  {path}'s most varied wave: K={k} F={f} active={w['n']} "
+        f"valid={int(valid[active].sum())} conds vary {varies} first "
+        f"{k23[2].tolist()} max_abs_err={err}")
+    constant = GANG_CONSTANT_CONDS.get(path, set())
+    if not all(v for q, v in enumerate(varies) if q not in constant):
+        raise AssertionError(f"{path}: a cond column is constant on the "
+                             f"replayed wave: {varies}")
+    if not (bool((first >= 0).any()) and bool((first < 0).any())):
+        raise AssertionError(f"{path}: K23's first lacks a hit or a miss")
+    if not (bool(valid[active].any()) and not bool(valid[active].all())):
+        raise AssertionError(f"{path}: validity is constant on the wave")
+    if err:
+        raise AssertionError(f"{path}: a kernel disagrees with its twin on "
+                             f"the most varied wave")
+
+
+def phase_gang_kernels(torch, rows, captured):
+    """K21g, K24 (gang and solo), K23 and K1 against their twins on the
+    widest real wave of gang-grid and gang-cap, timed; K23 beside
+    ``torch.argmax`` over the precomputed hit columns.  Then each family
+    kernel, K23 and K1 again on the gang's most varied wave
+    (:func:`replay_varied_wave`)."""
+    from stateright_tpu_torch.fleet.gang import gang_eval, gang_eval_plain
+    from stateright_tpu_torch.models.fixtures import (
+        cap_counter, cap_counter_gang, cap_counter_gang_plain, cap_counter_plain,
+        grid_walk_gang, grid_walk_gang_plain,
+    )
+    from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
+
+    dev = torch.device("cuda", 0)
+    for path, kernel, plain in (
+        ("gang-grid", grid_walk_gang, grid_walk_gang_plain),
+        ("gang-cap", cap_counter_gang, cap_counter_gang_plain),
+    ):
+        waves = captured.pop(path)
+        replay_varied_wave(torch, path, kernel, plain, waves.varied)
+        w = waves.best
+        states, consts = w["frontier"].to(dev), w["consts"]
+        active, undisc = w["active"].to(dev), w["undisc"].to(dev)
+        k, f, _w = states.shape
+        c = consts.shape[1]
+        row = kernel_row(rows, path)
+        got = kernel(states, consts)
+        want = plain(states, consts)
+        torch.cuda.synchronize()
+        nexts, valid, conds = got
+        a, p = valid.shape[2], conds.shape[2]
+        log(f"  {path}'s widest wave: K={k} F={f} active={w['n']} "
+            f"valid={int(valid[active].sum())}")
+        row(PATH_KERNELS[path][0], max_abs_err(torch, zip(got, want)),
+            time_ms(torch, lambda: kernel(states, consts), 10),
+            time_ms(torch, lambda: plain(states, consts), 5),
+            k * f * (4 + 4 * a + a + p) + k * c * 4)
+
+        gated = valid.clone()
+
+        def fresh():
+            gated.copy_(valid)
+
+        k23 = gang_eval(conds, gated, active, undisc, w["always"])
+        p23 = gang_eval_plain(conds, valid, active, undisc, w["always"])
+        torch.cuda.synchronize()
+        bits = torch.tensor([(w["always"] >> q) & 1 for q in range(p)],
+                            dtype=torch.bool, device=dev)
+        hit = (active.unsqueeze(-1) & torch.where(bits, ~conds, conds)).to(torch.uint8)
+        log(f"  gang_eval [{path}]: generated {k23[1].tolist()} first "
+            f"{k23[2].tolist()}")
+        row("gang_eval", max_abs_err(torch, zip(k23, p23)),
+            time_ms(torch, lambda: gang_eval(conds, gated, active, undisc,
+                                             w["always"]), 10, setup=fresh),
+            time_ms(torch, lambda: gang_eval_plain(conds, valid, active, undisc,
+                                                   w["always"]), 5),
+            k * f * (p + 2 * a + 1) + k * (p + 4 + 4 * p),
+            library_ms=time_ms(torch, lambda: torch.argmax(hit, dim=1), 10))
+
+        flat = nexts.view(k * f * a, -1)
+        k1 = device_fp64(flat)
+        p1 = device_fp64_plain(flat)
+        torch.cuda.synchronize()
+        row("device_fp64", max_abs_err(torch, zip(k1, p1)),
+            time_ms(torch, lambda: device_fp64(flat), 10),
+            time_ms(torch, lambda: device_fp64_plain(flat), 5),
+            flat.shape[0] * (4 * flat.shape[1] + 8))
+
+        if path == "gang-cap":
+            # K24's solo entry on the wave's rows at each member's constants.
+            flat_states = states.view(k * f, 1)
+            row = kernel_row(rows, "cap-solo")
+            errs = []
+            for limit, cap in GANG_CAP_PARAMS:
+                got = cap_counter(flat_states, limit, cap)
+                want = cap_counter_plain(flat_states, limit, cap)
+                errs.append(max_abs_err(torch, zip(got, want)))
+            limit, cap = GANG_CAP_PARAMS[5]
+            row("cap_counter", max(errs),
+                time_ms(torch, lambda: cap_counter(flat_states, limit, cap), 10),
+                time_ms(torch, lambda: cap_counter_plain(flat_states, limit, cap), 5),
+                k * f * (4 + 4 + 1 + 3))
+
 def main() -> int:
     use_one_card()
     try:
@@ -3297,6 +3697,28 @@ def main() -> int:
     log("phase 41: K21, K2c and K22 against their twins on the re-check "
         "paths' inputs")
     phase_incr_kernels(torch, rows, captured)
+    torch.cuda.empty_cache()
+
+    log("phase 42: gang-grid, eight GridWalks at bounds 248-255 in one "
+        "gang (K21g, K23, K1)")
+    launches["gang-grid"] = phase_gang_grid(torch, gpu, captured)
+
+    log("phase 43: gang-cap, eight CapCounters with mixed verdicts (K24)")
+    launches["gang-cap"], launches["cap-solo"] = phase_gang_cap(
+        torch, gpu, captured)
+
+    log("phase 44: a gang of 5 GridWalks, padded to 8")
+    phase_gang_of_5(torch, gpu)
+
+    log("phase 45: a gang member ejected at F = 8")
+    phase_gang_eject()
+
+    log("phase 46: raft to depth 6 with an edited property_conds")
+    phase_edited_raft(torch)
+
+    log("phase 47: K21g, K23, K24 and K1 against their twins on the gangs' "
+        "widest waves")
+    phase_gang_kernels(torch, rows, captured)
     torch.cuda.empty_cache()
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")

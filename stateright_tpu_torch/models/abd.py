@@ -270,3 +270,21 @@ class AbdModelCfg:
 
         model.compiled = _compiled
         return model
+
+
+def cli_spec():
+    """This module's workload spec (resolved by ``serve/workloads.py``)."""
+    from ..cli import CliSpec
+
+    return CliSpec(
+        name="ABD linearizable register",
+        build=lambda n, net: AbdModelCfg(
+            client_count=n, server_count=2, network=net
+        ).into_model(),
+        default_n=2,
+        n_meta="CLIENT_COUNT",
+        default_network="unordered_nonduplicating",
+        gpu=True,
+        gpu_kwargs=dict(capacity=1 << 13, max_frontier=1 << 8),
+        ensemble=True,
+    )

@@ -46,7 +46,7 @@ from ..actor.model import ActorModelState
 from ..actor.register import Get, GetOk, Internal, Put, PutOk
 from ..ops import cuda
 from ..ops.u32 import M32, i32, shl32, u32
-from ..parallel.compiled import CompiledModel
+from ..parallel.compiled import CompiledModel, fused_conds, override_conds
 from ..semantics import LinearizabilityTester, Register
 from .abd import (
     NULL_VALUE,
@@ -422,18 +422,27 @@ class AbdCompiled(CompiledModel):
     # --- device side ----------------------------------------------------------
 
     def step(self, states):
-        nexts, valid, _conds, _flag = self.expand(states)
+        nexts, valid, _conds, _flag = abd_step(
+            states, self.c, self.ordered, self.skip_ack)
         return nexts, valid
 
     def property_conds(self, states):
-        return self.expand(states)[2]
+        return abd_step(states, self.c, self.ordered, self.skip_ack)[2]
 
     def expand(self, states):
-        return abd_step(states, self.c, self.ordered, self.skip_ack)
+        nexts, valid, conds, flag = abd_step(
+            states, self.c, self.ordered, self.skip_ack)
+        if not fused_conds(self, AbdCompiled):
+            conds = self.property_conds(states)
+        return nexts, valid, conds, flag
 
     def walk_step(self, states, plain=False):
         fn = abd_step_plain if plain else abd_step
-        return fn(states, self.c, self.ordered, self.skip_ack, flag_rows=True)
+        nexts, valid, conds, flags = fn(
+            states, self.c, self.ordered, self.skip_ack, flag_rows=True)
+        if not fused_conds(self, AbdCompiled):
+            conds = override_conds(self, states, plain)
+        return nexts, valid, conds, flags
 
 
 # --- the plain-torch twin ------------------------------------------------------

@@ -1,7 +1,9 @@
 """Fixture models: the trap counter (kernel K17), the engine's fixture for
 eventually properties and the identity canonicalization; GridWalk (K21) and
 the edited two-phase commit (K2c), the incremental store's fixtures for its
-constant-widening and property-only modes (``incr/``).
+constant-widening and property-only modes (``incr/``); GridWalk's gang entry
+(K21g) and the capped counter (K24), the gang wave's families
+(``fleet/gang.py``).
 
 The counterpart of ``TrapCounter`` and ``TrapCounterCompiled`` in
 ``stateright_tpu/models/fixtures.py``.  The states 0, 1, ..., ``limit``
@@ -12,9 +14,10 @@ clears mid-path); "reaches limit" has a counterexample ending in the trap;
 canonicalization is the identity: a run under ``symmetry()`` must equal
 the plain run.
 
-:func:`trap_step` and :func:`grid_walk` launch ``csrc/fixtures_step.cu`` on
-a CUDA tensor and run their twins, :func:`trap_step_plain` and
-:func:`grid_walk_plain`, on a CPU tensor.
+:func:`trap_step`, :func:`grid_walk`, :func:`grid_walk_gang`,
+:func:`cap_counter` and :func:`cap_counter_gang` launch
+``csrc/fixtures_step.cu`` on a CUDA tensor and run their ``*_plain`` twins on
+a CPU tensor.
 """
 
 from __future__ import annotations
@@ -118,6 +121,24 @@ class TrapCounterCompiled(CompiledModel):
             "trap_at": repr(self.model.trap_at),
         }
 
+
+
+def cli_spec():
+    """The workload spec of :class:`TrapCounter`: the smallest workload with
+    a known violation and a compiled form ("reaches limit" has a
+    counterexample ending in the trap)."""
+    from ..cli import CliSpec
+
+    return CliSpec(
+        name="trap counter",
+        # limit must clear trap_at=2, or the trap edge is unreachable and
+        # the fixture stops violating.
+        build=lambda n: TrapCounter(limit=max(n, 3)),
+        default_n=5,
+        n_meta="LIMIT",
+        gpu=True,
+        gpu_kwargs=dict(capacity=1 << 10, max_frontier=1 << 6),
+    )
 
 def trap_step_plain(states: torch.Tensor, limit: int, trap_at: int,
                     trap_state: int):
@@ -247,6 +268,37 @@ class GridWalkCompiled(CompiledModel):
         and the box admits a superset."""
         return self.widens_by(old_constants, "bound")
 
+    # --- gang batching (fleet/gang.py): the codec does not depend on the
+    # bound, so walks of every bound share one launch, the bound a job's
+    # constant.
+
+    def gang_key(self):
+        return ("GridWalk", self.state_width, self.max_actions, 2)
+
+    def gang_constants(self):
+        return np.array([self.model.bound], np.uint32)
+
+    def gang_step(self, states, consts):
+        """The two candidate successors, every lane valid (the boundary
+        prunes them)."""
+        nexts, valid, _conds = grid_walk_gang(states, consts)
+        return nexts, torch.ones_like(valid)
+
+    def gang_boundary(self, states, consts):
+        """K21g's "in bounds" cond of each row: the box test under its
+        job's bound."""
+        return grid_walk_gang(states, consts)[2][..., 0]
+
+    def gang_property_conds(self, states, consts):
+        return grid_walk_gang(states, consts)[2]
+
+    def gang_expand(self, states, consts, out=None):
+        if fused_conds(self, GridWalkCompiled, "gang_property_conds"):
+            return grid_walk_gang(states, consts, out=out)
+        nexts, valid, _conds = grid_walk_gang(states, consts)
+        return _copy_out(out, (nexts, valid,
+                               self.gang_property_conds(states, consts)))
+
 
 def grid_box_plain(rows: torch.Tensor, bound: int) -> torch.Tensor:
     """``int32[N, 1] -> bool[N]``: x and y of each packed row within
@@ -296,6 +348,261 @@ def grid_walk(states: torch.Tensor, bound: int):
 
 
 grid_walk.launches = 0
+
+
+def _outputs(out, shapes, device):
+    """The ``(nexts, valid, conds)`` a kernel writes: ``out`` (the gang
+    wave's readback buffer) checked against ``shapes``, or new tensors."""
+    dtypes = (torch.int32, torch.bool, torch.bool)
+    if out is None:
+        return tuple(torch.empty(s, dtype=d, device=device)
+                     for s, d in zip(shapes, dtypes))
+    for t, s, d, name in zip(out, shapes, dtypes, ("nexts", "valid", "conds")):
+        cuda.require(t, name, d, len(s), device)
+        if tuple(t.shape) != s:
+            raise ValueError(f"{name} must be {s}, got {tuple(t.shape)}")
+    return tuple(out)
+
+
+def _copy_out(out, got):
+    """A twin's results, written into ``out`` where the caller gave one."""
+    if out is None:
+        return got
+    for t, g in zip(out, got):
+        t.copy_(g)
+    return tuple(out)
+
+
+def _gang_rows(states: torch.Tensor, consts: torch.Tensor, c: int):
+    """Check a gang launch's inputs: ``int32[K, F, 1]`` rows and
+    ``int32[K, c]`` constants on one device."""
+    dev = states.device
+    cuda.require(states, "states", torch.int32, 3, dev)
+    cuda.require(consts, "consts", torch.int32, 2, dev)
+    k, f, w = states.shape
+    if w != 1 or tuple(consts.shape) != (k, c):
+        raise ValueError(f"states must be [K, F, 1] and consts [K, {c}], got "
+                         f"{tuple(states.shape)} and {tuple(consts.shape)}")
+    return k, f
+
+
+def grid_gang_box_plain(rows: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
+    """``(int32[K, N, 1], int32[K, 1]) -> bool[K, N]``: each packed row within
+    its job's bound (the JAX ``GridWalkCompiled.gang_boundary``)."""
+    w = u32(rows[..., 0])
+    b = u32(consts[:, :1])
+    return ((w & 0xFFFF) <= b) & ((w >> 16) <= b)
+
+
+def grid_walk_gang_plain(states: torch.Tensor, consts: torch.Tensor):
+    """Plain-torch twin of K21g (any device): ``(int32[K, F, 1], int32[K, 1])
+    -> (nexts int32[K, F, 2, 1], valid bool[K, F, 2], conds bool[K, F, 2])``
+    -- K21's lanes, validity and conds for job ``j`` under the bound
+    ``consts[j, 0]``."""
+    k, f, _w = states.shape
+    w = u32(states[..., 0])
+    nexts = torch.stack([(w + 1) & M32, (w + (1 << 16)) & M32], dim=2)
+    valid = grid_gang_box_plain(nexts.view(k, f * 2, 1), consts).view(k, f, 2)
+    b = u32(consts[:, :1])
+    x, y = w & 0xFFFF, w >> 16
+    conds = torch.stack([(x <= b) & (y <= b), (x == b) & (y == b)], dim=2)
+    return i32(nexts).unsqueeze(-1), valid, conds
+
+
+def grid_walk_gang(states: torch.Tensor, consts: torch.Tensor, out=None):
+    """K21 for a gang of walks in one launch (K21g): see
+    :func:`grid_walk_gang_plain`.  ``out`` is an optional ``(nexts, valid,
+    conds)`` to write into."""
+    if states.device.type == "cpu":
+        return _copy_out(out, grid_walk_gang_plain(states, consts))
+    k, f = _gang_rows(states, consts, 1)
+    nexts, valid, conds = _outputs(out, ((k, f, 2, 1), (k, f, 2), (k, f, 2)),
+                                   states.device)
+    fn = cuda.function(
+        "fixtures_step", "sr_grid_walk_gang",
+        [cuda.P, cuda.P, cuda.I64, cuda.I64, cuda.P, cuda.P, cuda.P, cuda.P],
+    )
+    grid_walk_gang.launches += 1
+    code = fn(cuda.ptr(states), cuda.ptr(consts), k, f, cuda.ptr(nexts),
+              cuda.ptr(valid), cuda.ptr(conds), cuda.stream())
+    cuda.check(code, "fixtures_step", "grid_walk_gang")
+    return nexts, valid, conds
+
+
+grid_walk_gang.launches = 0
+
+
+@dataclass(frozen=True)
+class CapCounter(Model):
+    """Counter 0 -> 1 -> ... -> ``limit`` with an ALWAYS cap property: the
+    gang wave's violation fixture.  "within cap" fails exactly when ``limit >
+    cap``, so one gang mixes violating and clean members, each with its own
+    verdict.  "counts up" never fails, so every state stays awaited and a
+    completed run is exhaustive whether or not the cap property was
+    discovered: the gang's fingerprint parity with solo runs does not depend
+    on when a discovery lands."""
+
+    limit: int = 6
+    cap: int = 10
+
+    def init_states(self):
+        return [0]
+
+    def actions(self, state, actions):
+        if state < self.limit:
+            actions.append("inc")
+
+    def next_state(self, state, action):
+        return state + 1
+
+    def properties(self):
+        return [
+            Property.always("counts up", lambda _m, s: s >= 0),
+            Property.always("within cap", lambda m, s: s <= m.cap),
+            Property.sometimes("reaches limit", lambda m, s: s == m.limit),
+        ]
+
+    def compiled(self):
+        return CapCounterCompiled(self)
+
+
+class CapCounterCompiled(CompiledModel):
+    """K24: the solo entry carries ``step``, ``property_conds`` and
+    ``expand``; the gang entry reads ``consts[j] = [limit, cap]``, so every
+    capped counter shares one gang launch."""
+
+    state_width = 1
+    max_actions = 1
+
+    def __init__(self, model: CapCounter):
+        for v in (model.limit, model.cap):
+            if not 0 <= v <= M32:
+                raise ValueError("the capped counter packs its constants in u32 words")
+        self.model = model
+
+    def encode(self, state):
+        return np.array([state], np.uint32)
+
+    def decode(self, words):
+        return int(words[0])
+
+    def step(self, states):
+        nexts, valid, _conds = cap_counter(states, self.model.limit, self.model.cap)
+        return nexts, valid
+
+    def property_conds(self, states):
+        return cap_counter(states, self.model.limit, self.model.cap)[2]
+
+    def expand(self, states):
+        nexts, valid, conds = cap_counter(states, self.model.limit, self.model.cap)
+        if not fused_conds(self, CapCounterCompiled):
+            conds = self.property_conds(states)
+        return nexts, valid, conds, None
+
+    def walk_step(self, states, plain=False):
+        nexts, valid, conds = (cap_counter_plain if plain else cap_counter)(
+            states, self.model.limit, self.model.cap)
+        if not fused_conds(self, CapCounterCompiled):
+            conds = override_conds(self, states, plain)
+        return nexts, valid, conds, None
+
+    def gang_key(self):
+        return ("CapCounter", self.state_width, self.max_actions, 3)
+
+    def gang_constants(self):
+        return np.array([self.model.limit, self.model.cap], np.uint32)
+
+    def gang_step(self, states, consts):
+        nexts, valid, _conds = cap_counter_gang(states, consts)
+        return nexts, valid
+
+    def gang_property_conds(self, states, consts):
+        return cap_counter_gang(states, consts)[2]
+
+    def gang_expand(self, states, consts, out=None):
+        if fused_conds(self, CapCounterCompiled, "gang_property_conds"):
+            return cap_counter_gang(states, consts, out=out)
+        nexts, valid, _conds = cap_counter_gang(states, consts)
+        return _copy_out(out, (nexts, valid,
+                               self.gang_property_conds(states, consts)))
+
+
+def _cap_lanes(n: torch.Tensor, limit, cap):
+    """K24's lane, validity and conds of u32 counters ``n`` (int64) under
+    ``limit`` and ``cap`` (ints, or int64 tensors broadcasting with ``n``)."""
+    nexts = ((n + 1) & M32).unsqueeze(-1)
+    valid = (n < limit).unsqueeze(-1)
+    conds = torch.stack([torch.ones_like(n, dtype=torch.bool), n <= cap,
+                         n == limit], dim=-1)
+    return i32(nexts).unsqueeze(-1), valid, conds
+
+
+def cap_counter_plain(states: torch.Tensor, limit: int, cap: int):
+    """Plain-torch twin of K24's solo entry (any device): ``int32[F, 1] ->
+    (nexts int32[F, 1, 1], valid bool[F, 1], conds bool[F, 3])`` -- the lane
+    ``n + 1`` (u32 wrap-around), valid iff ``n < limit``, and the conds
+    "counts up" (``n >= 0``, always true in u32), "within cap" (``n <=
+    cap``), "reaches limit" (``n == limit``), every comparison unsigned."""
+    return _cap_lanes(u32(states[:, 0]), limit, cap)
+
+
+def cap_counter(states: torch.Tensor, limit: int, cap: int):
+    """Successors, validity and property conditions of packed capped-counter
+    rows (K24, solo): see :func:`cap_counter_plain`."""
+    for v in (limit, cap):
+        if not 0 <= v <= M32:
+            raise ValueError("limit and cap are packed in u32 words")
+    if states.device.type == "cpu":
+        return cap_counter_plain(states, limit, cap)
+    dev = states.device
+    cuda.require(states, "states", torch.int32, 2, dev)
+    if states.shape[1] != 1:
+        raise ValueError(f"states must be [F, 1], got {tuple(states.shape)}")
+    f = states.shape[0]
+    nexts, valid, conds = _outputs(None, ((f, 1, 1), (f, 1), (f, 3)), dev)
+    fn = cuda.function(
+        "fixtures_step", "sr_cap_counter",
+        [cuda.P, cuda.I64, cuda.U32, cuda.U32, cuda.P, cuda.P, cuda.P, cuda.P],
+    )
+    cap_counter.launches += 1
+    code = fn(cuda.ptr(states), f, limit, cap, cuda.ptr(nexts), cuda.ptr(valid),
+              cuda.ptr(conds), cuda.stream())
+    cuda.check(code, "fixtures_step", "cap_counter")
+    return nexts, valid, conds
+
+
+cap_counter.launches = 0
+
+
+def cap_counter_gang_plain(states: torch.Tensor, consts: torch.Tensor):
+    """Plain-torch twin of K24's gang entry (any device): ``(int32[K, F, 1],
+    int32[K, 2]) -> (nexts int32[K, F, 1, 1], valid bool[K, F, 1], conds
+    bool[K, F, 3])``, job ``j`` under ``[limit, cap] = consts[j]``."""
+    c = u32(consts)
+    return _cap_lanes(u32(states[..., 0]), c[:, :1], c[:, 1:2])
+
+
+def cap_counter_gang(states: torch.Tensor, consts: torch.Tensor, out=None):
+    """K24 for a gang of counters in one launch: see
+    :func:`cap_counter_gang_plain`.  ``out`` is an optional ``(nexts, valid,
+    conds)`` to write into."""
+    if states.device.type == "cpu":
+        return _copy_out(out, cap_counter_gang_plain(states, consts))
+    k, f = _gang_rows(states, consts, 2)
+    nexts, valid, conds = _outputs(out, ((k, f, 1, 1), (k, f, 1), (k, f, 3)),
+                                   states.device)
+    fn = cuda.function(
+        "fixtures_step", "sr_cap_counter_gang",
+        [cuda.P, cuda.P, cuda.I64, cuda.I64, cuda.P, cuda.P, cuda.P, cuda.P],
+    )
+    cap_counter_gang.launches += 1
+    code = fn(cuda.ptr(states), cuda.ptr(consts), k, f, cuda.ptr(nexts),
+              cuda.ptr(valid), cuda.ptr(conds), cuda.stream())
+    cuda.check(code, "fixtures_step", "cap_counter_gang")
+    return nexts, valid, conds
+
+
+cap_counter_gang.launches = 0
 
 
 class TwoPhaseEdited:

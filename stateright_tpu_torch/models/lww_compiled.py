@@ -36,7 +36,7 @@ from ..actor import Envelope, Id, Network
 from ..actor.model import ActorModelState
 from ..ops import cuda
 from ..ops.u32 import M32, i32, u32
-from ..parallel.compiled import CompiledModel
+from ..parallel.compiled import CompiledModel, fused_conds, override_conds
 from .lww_register import LwwActorState, LwwRegister, SetTime, SetValue, VALUES
 
 CLOCK_BASE = 1000 - 31  # offset code 0..63 covers clocks 969..1032
@@ -190,11 +190,15 @@ class LwwCompiled(CompiledModel):
 
     def expand(self, states: torch.Tensor):
         nexts, valid, flags, conds = lww_step(states, self.n)
+        if not fused_conds(self, LwwCompiled):
+            conds = self.property_conds(states)
         return nexts, valid, conds, flags.any()
 
     def walk_step(self, states: torch.Tensor, plain: bool = False):
         nexts, valid, flags, conds = (lww_step_plain if plain else lww_step)(
             states, self.n)
+        if not fused_conds(self, LwwCompiled):
+            conds = override_conds(self, states, plain)
         return nexts, valid, conds, flags
 
 

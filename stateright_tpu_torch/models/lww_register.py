@@ -127,3 +127,22 @@ def build_model(num_actors: int = 2) -> ActorModel:
     ).property(
         Expectation.ALWAYS, "eventually consistent", eventually_consistent
     )
+
+
+def cli_spec():
+    """This module's workload spec (resolved by ``serve/workloads.py``)."""
+    from ..cli import CliSpec
+
+    return CliSpec(
+        name="LWW-register CRDT",
+        build=lambda n: build_model(num_actors=n),
+        default_n=2,
+        n_meta="ACTOR_COUNT",
+        # The reference's check bounds depth at 8
+        # (examples/lww-register.rs:194-196); the device run bounds tighter
+        # to fit its default table.
+        target_max_depth=8,
+        gpu=True,
+        gpu_kwargs=dict(capacity=1 << 16, max_frontier=1 << 9),
+        gpu_target_max_depth=6,
+    )

@@ -258,3 +258,20 @@ class PaxosModelCfg:
 
         model.compiled = _compiled
         return model
+
+
+def cli_spec():
+    """This module's workload spec (resolved by ``serve/workloads.py``)."""
+    from ..cli import CliSpec
+
+    return CliSpec(
+        name="Single Decree Paxos",
+        build=lambda n, net: PaxosModelCfg(
+            client_count=n, server_count=3, network=net
+        ).into_model(),
+        default_n=2,
+        n_meta="CLIENT_COUNT",
+        default_network="unordered_nonduplicating",
+        gpu=True,
+        gpu_kwargs=dict(capacity=1 << 23, max_frontier=1 << 13),
+    )

@@ -113,3 +113,19 @@ class PingPongCfg:
 
         model.compiled = _compiled
         return model
+
+
+def cli_spec():
+    """This module's workload spec (resolved by ``serve/workloads.py``)."""
+    from ..cli import CliSpec
+
+    return CliSpec(
+        name="ping_pong",
+        build=lambda n: PingPongCfg(
+            maintains_history=False, max_nat=n
+        ).into_model(),
+        default_n=5,
+        n_meta="MAX_NAT",
+        gpu=True,
+        gpu_kwargs=dict(capacity=1 << 16, max_frontier=1 << 10),
+    )

@@ -34,7 +34,7 @@ from ..actor import Envelope, Id, Network
 from ..actor.model import ActorModelState
 from ..ops import cuda
 from ..ops.u32 import M32, i32, u32
-from ..parallel.compiled import CompiledModel
+from ..parallel.compiled import CompiledModel, fused_conds, override_conds
 from .ping_pong import Ping, Pong
 
 _C0_SHIFT, _C1_SHIFT, _ENV_SHIFT = 0, 4, 8
@@ -124,15 +124,19 @@ class PingPongCompiled(CompiledModel):
         return _inside(_bits(states), self.max_nat)
 
     def property_conds(self, states: torch.Tensor) -> torch.Tensor:
-        return _conds(_bits(states), self.max_nat)
+        return ping_pong_step(states, self.max_nat, self.lossy, bounded=False)[2]
 
     def expand(self, states: torch.Tensor):
         nexts, valid, conds = ping_pong_step(states, self.max_nat, self.lossy)
+        if not fused_conds(self, PingPongCompiled):
+            conds = self.property_conds(states)
         return nexts, valid, conds, None
 
     def walk_step(self, states: torch.Tensor, plain: bool = False):
         nexts, valid, conds = (ping_pong_step_plain if plain else ping_pong_step)(
             states, self.max_nat, self.lossy, bounded=False)
+        if not fused_conds(self, PingPongCompiled):
+            conds = override_conds(self, states, plain)
         return nexts, valid, conds, None
 
 

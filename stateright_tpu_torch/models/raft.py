@@ -439,3 +439,21 @@ class RaftModelCfg:
         )
         return model
 
+
+def cli_spec():
+    """This module's workload spec (resolved by ``serve/workloads.py``)."""
+    from ..cli import CliSpec
+
+    return CliSpec(
+        name="raft",
+        build=lambda n, net: RaftModelCfg(
+            server_count=n, network=net
+        ).into_model(),
+        default_n=3,
+        n_meta="SERVER_COUNT",
+        default_network="unordered_nonduplicating",
+        target_max_depth=12,
+        gpu=True,
+        gpu_kwargs=dict(capacity=1 << 20, max_frontier=1 << 10),
+        gpu_target_max_depth=9,
+    )

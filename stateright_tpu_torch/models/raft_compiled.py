@@ -43,7 +43,7 @@ from ..actor import Envelope, Id, Network
 from ..actor.model import ActorModelState
 from ..ops import cuda
 from ..ops.u32 import M32, i32, u32
-from ..parallel.compiled import CompiledModel
+from ..parallel.compiled import CompiledModel, fused_conds, override_conds
 from .raft import (
     Broadcast,
     CANDIDATE,
@@ -354,18 +354,24 @@ class RaftCompiled(CompiledModel):
     # --- device side ----------------------------------------------------------
 
     def step(self, states):
-        nexts, valid, _conds, _flag = self.expand(states)
+        nexts, valid, _conds, _flag = raft_step(states, self.max_crashes)
         return nexts, valid
 
     def property_conds(self, states):
-        return self.expand(states)[2]
+        return raft_step(states, self.max_crashes)[2]
 
     def expand(self, states):
-        return raft_step(states, self.max_crashes)
+        nexts, valid, conds, flag = raft_step(states, self.max_crashes)
+        if not fused_conds(self, RaftCompiled):
+            conds = self.property_conds(states)
+        return nexts, valid, conds, flag
 
     def walk_step(self, states, plain=False):
         fn = raft_step_plain if plain else raft_step
-        return fn(states, self.max_crashes, flag_rows=True)
+        nexts, valid, conds, flags = fn(states, self.max_crashes, flag_rows=True)
+        if not fused_conds(self, RaftCompiled):
+            conds = override_conds(self, states, plain)
+        return nexts, valid, conds, flags
 
 
 N_PROPS = 4  # Election Liveness, Log Liveness, Election Safety, State Machine Safety

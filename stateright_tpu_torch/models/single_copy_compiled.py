@@ -37,7 +37,7 @@ from ..actor.model import ActorModelState
 from ..actor.register import Get, GetOk, Put, PutOk
 from ..ops import cuda
 from ..ops.u32 import M32, i32, u32
-from ..parallel.compiled import CompiledModel
+from ..parallel.compiled import CompiledModel, fused_conds, override_conds
 from ..semantics import LinearizabilityTester, Register
 from .register_compiled_common import (
     RegisterClientCodec,
@@ -218,11 +218,17 @@ class SingleCopyCompiled(CompiledModel):
         return single_copy_step(states, self.s, self.c)[2]
 
     def expand(self, states):
-        return single_copy_step(states, self.s, self.c)
+        nexts, valid, conds, flag = single_copy_step(states, self.s, self.c)
+        if not fused_conds(self, SingleCopyCompiled):
+            conds = self.property_conds(states)
+        return nexts, valid, conds, flag
 
     def walk_step(self, states, plain=False):
         fn = single_copy_step_plain if plain else single_copy_step
-        return fn(states, self.s, self.c, flag_rows=True)
+        nexts, valid, conds, flags = fn(states, self.s, self.c, flag_rows=True)
+        if not fused_conds(self, SingleCopyCompiled):
+            conds = override_conds(self, states, plain)
+        return nexts, valid, conds, flags
 
 
 def single_copy_step_plain(

@@ -95,3 +95,20 @@ class SingleCopyModelCfg:
 
         model.compiled = _compiled
         return model
+
+
+def cli_spec():
+    """This module's workload spec (resolved by ``serve/workloads.py``)."""
+    from ..cli import CliSpec
+
+    return CliSpec(
+        name="single-copy register",
+        build=lambda n, net: SingleCopyModelCfg(
+            client_count=n, server_count=1, network=net
+        ).into_model(),
+        default_n=2,
+        n_meta="CLIENT_COUNT",
+        default_network="unordered_nonduplicating",
+        gpu=True,
+        gpu_kwargs=dict(capacity=1 << 12, max_frontier=1 << 7),
+    )

@@ -130,3 +130,17 @@ class TwoPhaseSys(Model):
             ),
         ]
 
+
+def cli_spec():
+    """This module's workload spec (resolved by ``serve/workloads.py``)."""
+    from ..cli import CliSpec
+
+    return CliSpec(
+        name="two-phase commit",
+        build=lambda n: TwoPhaseSys(rm_count=n),
+        default_n=3,
+        n_meta="RM_COUNT",
+        symmetry=True,
+        gpu=True,
+        gpu_kwargs=dict(capacity=1 << 20, max_frontier=1 << 13),
+    )

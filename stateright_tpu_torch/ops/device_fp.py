@@ -25,14 +25,20 @@ from .fingerprint import SEED_HI, SEED_LO
 from .u32 import M32, fmix32, i32, mix32, u32
 
 
-def device_fp64(words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def device_fp64(words: torch.Tensor, out=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fingerprint packed rows ``int32[N, W]`` -> ``(hi, lo)`` int32[N],
     never both zero, never both all-ones.  Bit-identical to
     ``fp64_words(row)`` for every row.  Each row's words must be
     contiguous; rows may lie further apart (a column prefix of a wider
-    row log)."""
+    row log).  ``out``: an ``(hi, lo)`` pair of contiguous int32[N] tensors
+    to write into (the gang wave's readback buffer) instead of new ones."""
     if words.device.type == "cpu":
-        return device_fp64_plain(words)
+        hi, lo = device_fp64_plain(words)
+        if out is None:
+            return hi, lo
+        out[0].copy_(hi)
+        out[1].copy_(lo)
+        return out
     if words.dim() != 2 or words.dtype != torch.int32:
         raise ValueError(
             f"words must be int32[N, W], got {words.dtype} {tuple(words.shape)}"
@@ -41,8 +47,15 @@ def device_fp64(words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     stride = words.stride(0) if n > 1 else w
     if (w > 1 and words.stride(1) != 1) or stride < w:
         raise ValueError("each row's words must be contiguous, rows not overlapping")
-    hi = torch.empty((n,), dtype=torch.int32, device=words.device)
-    lo = torch.empty((n,), dtype=torch.int32, device=words.device)
+    if out is None:
+        hi = torch.empty((n,), dtype=torch.int32, device=words.device)
+        lo = torch.empty((n,), dtype=torch.int32, device=words.device)
+    else:
+        hi, lo = out
+        for t, name in ((hi, "hi"), (lo, "lo")):
+            cuda.require(t, name, torch.int32, 1, words.device)
+            if t.shape[0] != n:
+                raise ValueError(f"{name} must hold {n} fingerprints")
     fn = cuda.function(
         "device_fp", "sr_device_fp64",
         [cuda.P, cuda.I64, cuda.I32, cuda.I64, cuda.P, cuda.P, cuda.P],

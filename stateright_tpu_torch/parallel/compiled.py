@@ -27,7 +27,10 @@ int32 bit-views -- on the engine's device.
   W])`` overrides it where the declarative spec cannot say enough;
 - ``spec_constants()`` / ``spec_widens(old)``: the model's constants for
   the incremental store's spec hash, and whether they widen a prior run's
-  (``incr/``).
+  (``incr/``);
+- ``gang_key()`` and the ``gang_*`` hooks: a family of models that the gang
+  wave (``fleet/gang.py``) runs K at a time in one dispatch, each job's
+  constants a row of a ``consts int32[K, C]`` input.
 
 Two-phase contract (optional; :func:`two_phase_capable`): an unbounded
 model whose lanes are mostly invalid answers validity alone and builds
@@ -179,6 +182,58 @@ class CompiledModel:
         never inferred."""
         return False
 
+    # --- gang batching (fleet/gang.py) ----------------------------------------
+
+    def gang_key(self) -> Optional[tuple]:
+        """The family under which compiled models may be gang-batched: K
+        jobs whose compiled models share a key run as one dispatch a wave
+        over a leading jobs axis (``fleet/gang.py``).  Equal keys must launch
+        identical kernels through the ``gang_*`` hooks, each instance's
+        constants passed as data (never baked into the launch), so the key
+        pins codec widths, action arity, property count and the hooks' code
+        (the type).  None (the default): not gang-capable, the job runs
+        solo."""
+        return None
+
+    def gang_constants(self) -> np.ndarray:
+        """The model's constants as one uint32 vector: its row of the gang
+        wave's ``consts`` input, the same length for every member of a
+        family."""
+        raise NotImplementedError
+
+    def gang_step(self, states: torch.Tensor, consts: torch.Tensor):
+        """:meth:`step` with the constants as data: ``(int32[K, F, W],
+        int32[K, C]) -> (int32[K, F, A, W], bool[K, F, A])``, job ``j`` under
+        ``consts[j]``.  Must equal ``step`` whenever ``consts[j]`` is the
+        model's :meth:`gang_constants` -- the gang's parity with solo runs
+        rests on it."""
+        raise NotImplementedError
+
+    def gang_property_conds(self, states: torch.Tensor,
+                            consts: torch.Tensor) -> torch.Tensor:
+        """:meth:`property_conds` with the constants as data: ``bool[K, F,
+        P]``."""
+        raise NotImplementedError
+
+    def gang_boundary(self, states: torch.Tensor,
+                      consts: torch.Tensor) -> Optional[torch.Tensor]:
+        """:meth:`boundary` with the constants as data: ``(int32[K, N, W],
+        int32[K, C]) -> bool[K, N]``; None (the default) for an unbounded
+        model -- and it must match ``boundary``, or a gang explores another
+        space than the solo run."""
+        return None
+
+    def gang_expand(self, states: torch.Tensor, consts: torch.Tensor, out=None):
+        """What the gang wave launches: ``(nexts int32[K, F, A, W], valid
+        bool[K, F, A], conds bool[K, F, P])``, the successors of
+        :meth:`gang_step`, their validity ANDed with :meth:`gang_boundary`
+        and the conds of :meth:`gang_property_conds`, written into ``out``
+        (the wave's readback buffer) where it is given.  A gang-capable
+        family overrides it with its fused gang kernel, and takes its conds
+        from a subclass's ``gang_property_conds`` override instead of the
+        kernel's (:func:`fused_conds`)."""
+        raise NotImplementedError
+
     def widens_by(self, old_constants: dict, key: str) -> bool:
         """The usual :meth:`spec_widens`: ``old_constants`` names this
         model's constants, each equal to this model's but the integer
@@ -206,12 +261,12 @@ def compiled_model_for(model: Model) -> CompiledModel:
     return fn()
 
 
-def fused_conds(cm, owner: type) -> bool:
+def fused_conds(cm, owner: type, hook: str = "property_conds") -> bool:
     """Whether ``cm``'s property conds are the ones ``owner``'s fused step
-    kernel writes: False where a subclass overrides
-    ``owner.property_conds``, whose ``expand`` and ``walk_step`` must then
-    take their conds from that override."""
-    return type(cm).property_conds is owner.property_conds
+    kernel writes: False where a subclass overrides ``owner``'s ``hook``
+    (``property_conds``, or ``gang_property_conds`` for a gang kernel), whose
+    fused entry points must then take their conds from that override."""
+    return getattr(type(cm), hook) is getattr(owner, hook)
 
 
 def override_conds(cm, states: torch.Tensor, plain: bool = False):

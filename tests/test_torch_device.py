@@ -146,6 +146,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    c, info = incremental_check(GridWalk(bound=b).checker(), d,"
         " engine_kwargs=dict(device='cpu', capacity=1 << 12, max_frontier=1 << 6))\n"
         "    assert info['mode'] == mode and c.unique_state_count() == (b + 1) ** 2\n"
+        "from stateright_tpu_torch.fleet import gang_eligibility, run_gang\n"
+        "from stateright_tpu_torch.serve import workloads\n"
+        "from stateright_tpu_torch.serve.jobs import JobSpec\n"
+        "ms = [GridWalk(bound=b) for b in (2, 3)]\n"
+        "r, w = run_gang([{'tag': i, 'model': m, 'cm': m.compiled(), 'consts':"
+        " m.compiled().gang_constants()} for i, m in enumerate(ms)], device='cpu')\n"
+        "assert [c.unique_state_count() for _, c, _ in r] == [9, 16], r\n"
+        "assert gang_eligibility(JobSpec.from_dict({'workload': 'grid_walk'}))[0]\n"
+        "for name in workloads.workload_names():\n"
+        "    workloads.build_model(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -1266,3 +1276,101 @@ def test_cuda_plain_walk_of_an_override_launches_nothing():
     assert (twophase_conds.launches, twophase_step.launches) == before
     for k, p in zip(cm.walk_step(rows)[:3], plain[:3]):
         assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_cuda_gang_kernels_match_twins():
+    """K21g, K24 (solo and gang) and K23 against their twins on the card,
+    on fuzzed rows, bounds and constants past 2**31, a padded batch."""
+    from stateright_tpu_torch.fleet.gang import gang_eval, gang_eval_plain
+
+    dev = _card()
+    rng = np.random.default_rng(11)
+    k, f = 8, 1000
+    rows = rng.integers(0, 2**32, size=(k, f, 1), dtype=np.uint64).astype(np.uint32)
+    rows[:, : f // 2, 0] &= 0x00FF_00FF
+    bounds = np.array([[0], [4], [255], [32767], [100], [7], [0], [0]], np.uint32)
+    caps = rng.integers(0, 2**32, size=(k, 2), dtype=np.uint64).astype(np.uint32)
+    caps[:, 0] = rows[:, 3, 0]  # some state at its job's limit
+    for kernel, plain, consts in (
+        (fx.grid_walk_gang, fx.grid_walk_gang_plain, bounds),
+        (fx.cap_counter_gang, fx.cap_counter_gang_plain, caps),
+    ):
+        s, c = _t(rows, dev), _t(consts, dev)
+        for a, b in zip(kernel(s, c), plain(s.cpu(), c.cpu())):
+            assert torch.equal(a.cpu(), b)
+    flat = _t(rows.reshape(-1, 1), dev)
+    for limit, cap in ((0, 0), (2**31, 2**31 + 1), (2**32 - 1, 5)):
+        for a, b in zip(fx.cap_counter(flat, limit, cap),
+                        fx.cap_counter_plain(flat.cpu(), limit, cap)):
+            assert torch.equal(a.cpu(), b)
+    _n, valid, conds = fx.grid_walk_gang_plain(_t(rows, "cpu"), _t(bounds, "cpu"))
+    active = torch.from_numpy(
+        np.arange(f)[None, :] < np.array([f, 999, 3, 500, 0, 0, 1, 0])[:, None])
+    undisc = torch.from_numpy(rng.integers(0, 2, size=(k, 2)).astype(bool))
+    want = gang_eval_plain(conds, valid.clone(), active, undisc, 0b01)
+    got = gang_eval(conds.to(dev), valid.to(dev), active.to(dev),
+                    undisc.to(dev), 0b01)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_gang_hooks_launch_their_kernels():
+    """GridWalk's and CapCounter's gang hooks on the card: each one launch
+    of K21g or K24 (no twin), equal to the twins on the CPU copy."""
+    dev = _card()
+    rng = np.random.default_rng(12)
+    rows = rng.integers(0, 2**32, size=(4, 300, 1), dtype=np.uint64).astype(np.uint32)
+    rows[:, :150, 0] &= 0x00FF_00FF
+    for cm, kernel, plain, consts in (
+        (fx.GridWalk(bound=0).compiled(), fx.grid_walk_gang,
+         fx.grid_walk_gang_plain, np.array([[0], [4], [200], [65535]], np.uint32)),
+        (fx.CapCounter().compiled(), fx.cap_counter_gang,
+         fx.cap_counter_gang_plain,
+         np.array([[3, 2], [2**31, 2**31 + 1], [7, 7], [0, 0]], np.uint32)),
+    ):
+        s, c = _t(rows, dev), _t(consts, dev)
+        nexts, valid, conds = plain(s.cpu(), c.cpu())
+        before = kernel.launches
+        step = cm.gang_step(s, c)
+        got_conds = cm.gang_property_conds(s, c)
+        inside = cm.gang_boundary(s, c)
+        expand = cm.gang_expand(s, c)
+        assert kernel.launches - before == (4 if inside is not None else 3)
+        assert torch.equal(step[0].cpu(), nexts)
+        assert torch.equal(got_conds.cpu(), conds)
+        for a, b in zip(expand, (nexts, valid, conds)):
+            assert torch.equal(a.cpu(), b)
+        if inside is None:
+            assert torch.equal(step[1].cpu(), valid)
+        else:
+            assert bool(step[1].all())
+            assert torch.equal(inside.cpu(), conds[..., 0])
+
+
+@pytest.mark.cuda
+def test_cuda_gang_matches_cpu_gang_in_fixed_launches():
+    """A gang of 5 GridWalks on the card: each member bit-equal to the CPU
+    gang's, and every wave one launch each of K21g, K23 and K1."""
+    from stateright_tpu_torch.fleet import run_gang
+    from stateright_tpu_torch.fleet.gang import gang_eval
+
+    _card()
+    models = [fx.GridWalk(bound=b) for b in (2, 3, 5, 6, 8)]
+    members = [{"tag": i, "model": m, "cm": m.compiled(),
+                "consts": m.compiled().gang_constants()}
+               for i, m in enumerate(models)]
+    counters = (fx.grid_walk_gang, gang_eval, device_fp64)
+    before = [fn.launches for fn in counters]
+    card, waves = run_gang(members)
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    assert launched == [waves, waves, waves + 1]
+    cpu, cpu_waves = run_gang(members, device="cpu")
+    assert waves == cpu_waves
+    for (_t1, a, _r1), (_t2, b, _r2) in zip(card, cpu):
+        assert (a.unique_state_count(), a.state_count(), a.max_depth()) == (
+            b.unique_state_count(), b.state_count(), b.max_depth())
+        assert np.array_equal(a.discovered_fingerprints(),
+                              b.discovered_fingerprints())
+        assert sorted(a.discoveries()) == sorted(b.discoveries())
