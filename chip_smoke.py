@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the twenty-two CUDA sources of ``stateright_tpu_torch/csrc``
+1. build: compile the twenty-three CUDA sources of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -208,10 +208,31 @@ Phases, in order; any failure exits non-zero:
 47. K21g, K23, K24 (both entries) and K1 against their twins on the widest
     real wave of gang-grid and gang-cap, bit-equal, timed, K23 beside
     ``torch.argmax`` over the precomputed hit columns;
-48. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+48. traced mode (``trace=True``): ``2pc check 10`` at full width, its
+    counts, row log, parents, ebits and fingerprints equal to phase 4's
+    untraced run; its summary (breakdown, modeled bytes,
+    ``hbm_util_frac``, ``bottleneck_phase``) printed against the card's
+    peak, which must not be the estimated fallback; no wave and no phase
+    above 1.05 of the peak, every wave's breakdown at least 0.9 of its
+    call time (the share of the waves' wall span the phases cover is
+    printed); K25 (the append) against its twin and the torch glue it
+    replaced on the run's widest commit (the claim path), bit-equal to
+    what the run appended;
+49. traced ``paxos check 3``: the same checks against phase 6's run, K25
+    on its widest commit (the two-phase path);
+50. traced tiered ``paxos check 3`` under phase 34's budget: the same
+    checks against phase 6's fingerprints, ``cold_probe`` in every traced
+    wave's breakdown;
+51. a visitor on ``2pc check 5``: 8,832 visits, one a state;
+52. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
+
+Phase 23 also holds K25 against its twin on the run's widest sorted-path
+commit, and every replayed insert (phases 2, 7, 11, 14, 18, 21-23, 25-30)
+logs K4's probe figures (its longest chain and the slots it read) beside
+its twin's lockstep rounds and slots.
 
 The launch counts of each path are set to 0 just before it and read just
 after; a kernel of the path launched no time fails the run.  The script
@@ -467,14 +488,16 @@ KERNELS = {
                          "stateright_tpu/models/fixtures.py:484"),
     "gang_eval": ("stateright_tpu_torch/csrc/gang.cu",
                   "stateright_tpu/fleet/gang.py:216"),
+    "append_block": ("stateright_tpu_torch/csrc/append.cu",
+                     "stateright_tpu/parallel/wavefront.py:1666"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
     "rm10": ("device_fp64", "twophase_step", "compact", "insert_batch_claim",
-             "wave_eval"),
+             "wave_eval", "append_block"),
     "paxos3": ("device_fp64", "compact", "insert_batch_claim",
                "paxos_step_valid", "paxos_conds", "paxos_step_lane",
-               "wave_eval"),
+               "wave_eval", "append_block"),
     "paxos6": ("device_fp64", "compact", "insert_batch_claim",
                "paxos_step_valid", "paxos_conds", "paxos_step_lane",
                "wave_eval"),
@@ -487,7 +510,7 @@ PATH_KERNELS = {
     "pp13": ("device_fp64", "ping_pong_step", "compact", "insert_batch_claim",
              "wave_eval"),
     "pp11s": ("device_fp64", "ping_pong_step", "compact", "insert_batch_claim",
-              "wave_eval", "prededup"),
+              "wave_eval", "prededup", "append_block"),
     "paxos3b": ("device_fp64", "compact", "insert_batch_claim", "paxos_step",
                 "paxos_conds", "wave_eval"),
     "raft10s": ("device_fp64", "raft_step", "compact", "insert_batch_claim",
@@ -529,7 +552,12 @@ ALSO_LAUNCHED = {
 }
 
 
+T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        msg += f" [t={time.monotonic() - T0:.1f}s]"
     print(msg, flush=True)
 
 
@@ -812,8 +840,9 @@ def launch_counted():
         cap_counter, cap_counter_gang, grid_walk_gang,
     )
     from stateright_tpu_torch.fleet.gang import gang_eval
+    from stateright_tpu_torch.parallel.append import append_block
 
-    return (device_fp64, twophase_step, compact, insert_batch_claim,
+    return (append_block, device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
             single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
             paxos_step, canonicalize_rows, lww_step, trap_step,
@@ -1167,7 +1196,284 @@ def check_insert(torch, row, table, hi, lo, active):
         time_ms(torch, lambda: insert_batch_claim_plain(table.keys, hi, lo, active),
                 2, setup=restore),
         nbytes)
+    # The traced wave's probe figures on the same batch: K4's longest chain
+    # and slots read, beside the twin's lockstep rounds and slots.
+    restore()
+    _new, _ok, p_probe = insert_batch_claim_plain(table.keys, hi, lo, active,
+                                                  with_rounds=True)
+    restore()
+    _new, _ok, k_probe = insert_batch_claim(table, hi, lo, active, with_rounds=True)
+    (chain, k_slots), (rounds, p_slots) = k_probe.tolist(), p_probe.tolist()
+    log(f"  insert_batch_claim probe figures: K4 longest chain {chain} slots, "
+        f"{k_slots} slots read; twin {rounds} lockstep rounds, {p_slots} "
+        "slots read")
+    if n_active and not (1 <= chain and n_active <= k_slots):
+        raise AssertionError("K4's probe figures do not count its probes")
     return k_new
+
+
+class AppendCapture:
+    """While entered, keeps the inputs of the wave commit (K25) with the
+    most new states among those ``want`` accepts (the last such), and where
+    the run put them: K3's compaction of the new mask, the sorted path's
+    origin, the buffer's candidate lanes, the candidate rows, the wave's
+    eventually-bits, its first log position, the tail and the count."""
+
+    def __init__(self, want=lambda wave: True):
+        self.want = want
+        self.wave = None
+
+    def __enter__(self):
+        from stateright_tpu_torch.parallel.wavefront import GpuChecker
+
+        orig = self._orig = GpuChecker._wave_commit
+        cap = self
+
+        def capturing(eng, wave):
+            if wave.n_new and cap.want(wave) and (
+                cap.wave is None or wave.n_new >= cap.wave["n_new"]
+            ):
+                cap.wave = dict(
+                    sel=wave.sel.clone(),
+                    origin=None if wave.u_origin is None else wave.u_origin.clone(),
+                    v_orig=wave.v_orig.clone(), cand_rows=wave.cand_rows.clone(),
+                    eb=wave.eb.clone(), lo_pos=wave.lo_pos, tail=eng._carry.tail,
+                    n_new=wave.n_new, a=eng._compiled.max_actions,
+                    two_phase=eng._two_phase,
+                )
+            return orig(eng, wave)
+
+        GpuChecker._wave_commit = capturing
+        return self
+
+    def __exit__(self, *exc):
+        from stateright_tpu_torch.parallel.wavefront import GpuChecker
+
+        GpuChecker._wave_commit = self._orig
+
+
+def phase_append_kernel(torch, rows, path, checker, cap):
+    """K25 against its twin on the captured commit (:class:`AppendCapture`),
+    both writing a scratch block, bit-equal to each other and to what the
+    run appended at that tail; timed beside the twin and beside the torch
+    glue it replaced (the lane gathers, ``index_select`` into the block,
+    the parents' cast and the ebits' ``index_select``).  Bound: each new
+    state's index words read once (2, or 3 through the sorted path's
+    origin), its row read and written once, its parent and ebits written
+    and its parent's eventually-bits read once."""
+    from stateright_tpu_torch.parallel.append import append_block, append_block_plain
+
+    wv = cap.wave
+    if wv is None:
+        raise AssertionError(f"{path}: no commit was captured")
+    n, a, two_phase = wv["n_new"], wv["a"], wv["two_phase"]
+    sel, origin, v_orig = wv["sel"], wv["origin"], wv["v_orig"]
+    cand_rows, eb, lo_pos = wv["cand_rows"], wv["eb"], wv["lo_pos"]
+    w = cand_rows.shape[1]
+    dev = cand_rows.device
+
+    def block():
+        return (torch.zeros((n * w,), dtype=torch.int32, device=dev),
+                torch.zeros((n,), dtype=torch.int32, device=dev),
+                torch.zeros((n,), dtype=torch.int32, device=dev))
+
+    args = (sel, origin, v_orig, cand_rows, eb, lo_pos, 0, n, a, two_phase)
+    k, p, g = block(), block(), block()
+    append_block(*k, *args)
+    append_block_plain(*p, *args)
+
+    def glue():
+        lanes = sel[:n].long()
+        if origin is not None:
+            lanes = origin[lanes].long()
+        idx = v_orig[lanes].long()
+        src = idx // a
+        torch.index_select(cand_rows, 0, lanes if two_phase else idx,
+                           out=g[0].view(n, w))
+        g[1].copy_(src + lo_pos)
+        torch.index_select(eb, 0, src, out=g[2])
+
+    glue()
+    torch.cuda.synchronize()
+    c, t = checker._carry, wv["tail"]
+    ran = (c.rows[t * w : (t + n) * w], c.parent[t : t + n], c.ebits[t : t + n])
+    if not all(torch.equal(x, y) for x, y in zip(k, ran)):
+        raise AssertionError(f"{path}: K25 does not write what the run appended")
+    err = max_abs_err(torch, list(zip(k, p)) + list(zip(k, g)))
+    log(f"  append_block [{path}]: the widest commit, {n} new states of "
+        f"{w} words at tail {t} ({'two-phase' if two_phase else 'single-phase'}"
+        f"{', sorted path' if origin is not None else ''}), bit-equal to the "
+        "twin, the glue and the run's log")
+    row = kernel_row(rows, path)
+    row("append_block", err,
+        time_ms(torch, lambda: append_block(*k, *args), 10),
+        time_ms(torch, lambda: append_block_plain(*p, *args), 10),
+        n * (4 * (2 if origin is None else 3) + 8 * w + 12),
+        library_ms=time_ms(torch, glue, 10))
+
+
+def device_fps(torch, checker):
+    """The run's identity fingerprints as a sorted int64 tensor on the card
+    (the set behind ``discovered_fingerprints()``, without the host copy)."""
+    from stateright_tpu_torch.ops.device_fp import device_fp64, fp64_of
+
+    c = checker._carry
+    w = checker._compiled.state_width
+    hi, lo = device_fp64(checker._identity(c.rows[: c.tail * w].view(c.tail, w)))
+    return torch.sort(fp64_of(hi, lo)).values
+
+
+def traced_checks(what, checker, journal):
+    """A traced run's summary, printed; fails on the estimated peak, on any
+    wave or phase above 1.05 of the peak and on a wave whose breakdown
+    covers under 0.9 of its call time.  Also prints the share of the
+    traced waves' wall span (their journal ``mono`` stamps) the phases
+    cover: the rest is the loop's host work between waves."""
+    from stateright_tpu_torch.runtime.journal import read_journal
+
+    s = checker.trace_summary()
+    log(f"  {what} trace_summary: {json.dumps(s)}")
+    if s["hbm_peak_estimated"]:
+        raise AssertionError(f"{what}: the peak is the estimated fallback "
+                             f"({s['device_kind']!r})")
+    peak = s["hbm_peak_bytes_per_sec"]
+    waves = [e for e in read_journal(journal)
+             if e["event"] == "wave" and "wave_breakdown" in e]
+    if len(waves) != s["traced_waves"] or not waves:
+        raise AssertionError(f"{what}: {len(waves)} traced wave events for "
+                             f"{s['traced_waves']} traced waves")
+    worst = (0.0, None)
+    for w in waves:
+        bd = w["wave_breakdown"]
+        if sum(bd.values()) < 0.9 * w["call_sec"]:
+            raise AssertionError(f"{what}: wave {w['waves']}'s breakdown covers "
+                                 f"{sum(bd.values())} of {w['call_sec']} s")
+        utils = {"wave": w["hbm_util_frac"]}
+        utils.update({ph: b / (bd[ph] * peak) for ph, b in w["bytes"].items()
+                      if bd.get(ph)})
+        for ph, u in utils.items():
+            if u > worst[0]:
+                worst = (u, f"wave {w['waves']} {ph}")
+    total = {ph: s["bytes"][ph] / (s["wave_breakdown"][ph] * peak)
+             for ph in s["bytes"] if s["wave_breakdown"].get(ph)}
+    span = waves[-1]["mono"] - waves[0]["mono"] + waves[-1]["call_sec"]
+    cover = sum(w["call_sec"] for w in waves) / span
+    log(f"  {what}: {len(waves)} traced waves; run hbm_util_frac by phase "
+        f"{ {k: round(v, 4) for k, v in total.items()} }; the highest of any "
+        f"wave or phase {worst[0]:.4f} ({worst[1]}); phases cover {cover:.4f} "
+        f"of the traced waves' wall span")
+    if worst[0] > 1.05 or max(total.values(), default=0) > 1.05:
+        raise AssertionError(f"{what}: hbm_util_frac {worst[0]} above 1.05")
+    return s
+
+
+def same_logs(torch, what, got, want):
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: row log, parents or ebits differ from "
+                             "the untraced run's")
+
+
+def phase_traced_rm10(torch, gpu, rows, want_counts, want_logs, want_fps):
+    """Traced ``2pc check 10`` at phase 4's geometry: phase 4's counts, logs
+    and fingerprints, the summary's checks, K25 on its widest commit."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    with tempfile.TemporaryDirectory() as tmp, AppendCapture() as cap:
+        journal = os.path.join(tmp, "rm10.jsonl")
+
+        def run(torch):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            checker = TwoPhaseSys(rm_count=RM).checker().spawn_gpu(
+                capacity=CAPACITY, log_capacity=LOG_CAPACITY, max_frontier=F,
+                dedup_factor=1, trace=True, journal=journal,
+            ).join()
+            return checker, time.monotonic() - t0
+
+        _launches, checker = run_full(torch, gpu, "rm10", run)
+        traced_checks("traced 2pc check 10", checker, journal)
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != want_counts:
+        raise AssertionError(f"traced rm=10 counts {got} != untraced {want_counts}")
+    same_logs(torch, "traced rm=10", card_logs(checker), want_logs)
+    if not torch.equal(device_fps(torch, checker), want_fps):
+        raise AssertionError("traced rm=10 fingerprints differ from the untraced run's")
+    log("  traced 2pc check 10: counts, row log, parents, ebits and "
+        "fingerprints equal to phase 4's untraced run")
+    phase_append_kernel(torch, rows, "rm10", checker, cap)
+
+
+def phase_traced_paxos3(torch, gpu, rows, want_counts, want_logs, want_fps):
+    """Traced ``paxos check 3`` at phase 6's geometry, held to phase 6's run;
+    K25 on its widest commit (two-phase)."""
+    with tempfile.TemporaryDirectory() as tmp, AppendCapture() as cap:
+        journal = os.path.join(tmp, "paxos3.jsonl")
+
+        def run(torch):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            checker = paxos_model(3).checker().spawn_gpu(
+                trace=True, journal=journal, **PAXOS3_GEOMETRY).join()
+            return checker, time.monotonic() - t0
+
+        _launches, checker = run_full(torch, gpu, "paxos3", run)
+        traced_checks("traced paxos check 3", checker, journal)
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != want_counts:
+        raise AssertionError(f"traced paxos3 counts {got} != untraced {want_counts}")
+    same_logs(torch, "traced paxos3", card_logs(checker), want_logs)
+    if not (checker.discovered_fingerprints() == want_fps).all():
+        raise AssertionError("traced paxos3 fingerprints differ from the untraced run's")
+    log("  traced paxos check 3: counts, row log, parents, ebits and "
+        "fingerprints equal to phase 6's untraced run")
+    phase_append_kernel(torch, rows, "paxos3", checker, cap)
+
+
+def phase_traced_tiered_paxos3(torch, gpu, want_counts, want_fps):
+    """Traced tiered ``paxos check 3`` under phase 34's budget: phase 6's
+    counts and fingerprints, ``cold_probe`` in every traced wave."""
+    from stateright_tpu_torch.runtime.journal import read_journal
+
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = os.path.join(tmp, "tiered.jsonl")
+        _launches, checker = run_full(
+            torch, gpu, "tiered-paxos3",
+            lambda t: run_tiered_paxos3(t, journal=journal, trace=True))
+        s = traced_checks("traced tiered paxos check 3", checker, journal)
+        waves = [e for e in read_journal(journal)
+                 if e["event"] == "wave" and "wave_breakdown" in e]
+        spills = sum(1 for e in read_journal(journal) if e["event"] == "spill")
+    if not all("cold_probe" in w["wave_breakdown"] for w in waves) or not spills:
+        raise AssertionError("traced tiered paxos3: a traced wave has no "
+                             "cold_probe phase, or nothing spilled")
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    if got != want_counts or not (checker.discovered_fingerprints() == want_fps).all():
+        raise AssertionError("traced tiered paxos3 differs from the in-HBM run")
+    log(f"  traced tiered paxos check 3: {spills} spills, cold_probe "
+        f"{s['wave_breakdown']['cold_probe']} s over {len(waves)} waves; counts "
+        "and fingerprints equal to phase 6's")
+
+
+def phase_visitor_rm5(torch):
+    """A visitor on ``2pc check 5``: each of its 8,832 states visited once
+    (the traced readback of every expanded chunk)."""
+    from stateright_tpu_torch.core.visitor import StateRecorder
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=5)
+    rec, states = StateRecorder.new_with_accessor()
+    t0 = time.monotonic()
+    checker = model.checker().visitor(rec).spawn_gpu(
+        capacity=1 << 14, max_frontier=1 << 9).join()
+    elapsed = time.monotonic() - t0
+    fps = {model.fingerprint(s) for s in states()}
+    if len(states()) != len(fps) or len(fps) != GOLDEN_RM5[0] or not (
+        checker.metrics()["trace"]
+    ):
+        raise AssertionError(f"visitor: {len(states())} visits of {len(fps)} "
+                             f"states, not {GOLDEN_RM5[0]} once each")
+    log(f"  visitor on 2pc check 5: {len(fps)} states visited once each in "
+        f"{elapsed:.3f} s (traced: {checker.trace_summary()['traced_waves']} waves)")
 
 
 def measure_compact(torch, mask, size):
@@ -3484,7 +3790,13 @@ def main() -> int:
     phase_rm5(torch)
 
     log("phase 4: 2pc check 10 on the card")
-    launches = {"rm10": run_full(torch, gpu, "rm10", run_rm10)[0]}
+    launches = {}
+    launches["rm10"], checker = run_full(torch, gpu, "rm10", run_rm10)
+    # Held against the traced run's (phase 48).
+    rm10_counts = (checker.unique_state_count(), checker.state_count(),
+                   checker.max_depth())
+    rm10_logs, rm10_fps = card_logs(checker), device_fps(torch, checker)
+    del checker
     torch.cuda.empty_cache()
 
     log("phase 5: paxos check 2 on the card")
@@ -3584,11 +3896,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 23: lossy ping-pong at max_nat 11 through the sorted fallback, "
-        "and its kernels against their twins on one of its waves")
-    launches["pp11s"], checker = run_full(torch, gpu, "pp11s", run_pp11s,
-                                          properties_hold=False)
+        "and its kernels (K25 on its widest sorted commit) against their "
+        "twins on one of its waves")
+    with AppendCapture(want=lambda wave: wave.u_origin is not None) as cap:
+        launches["pp11s"], checker = run_full(torch, gpu, "pp11s", run_pp11s,
+                                              properties_hold=False)
     log(f"  pp11s growths: {checker._grow_notes}")
     phase_ping_pong_kernels(torch, checker, rows, "pp11s", PP11S_GEOMETRY)
+    phase_append_kernel(torch, rows, "pp11s", checker, cap)
+    del cap
     del checker
     torch.cuda.empty_cache()
     phase_prededup_fuzz(torch)
@@ -3661,7 +3977,6 @@ def main() -> int:
         "(K20), against the in-HBM run")
     launches["tiered-paxos3"] = phase_tiered_paxos3(
         torch, gpu, rows, paxos3_logs, paxos3_fps)
-    del paxos3_logs
     torch.cuda.empty_cache()
 
     log("phase 35: a mid-run tiered checkpoint of paxos check 3, resumed")
@@ -3691,7 +4006,6 @@ def main() -> int:
 
     log("phase 40: paxos check 3 widened from max_round=1")
     launches["incr-paxos3"] = phase_incr_paxos3(torch, gpu, paxos3_fps)
-    del paxos3_fps
     torch.cuda.empty_cache()
 
     log("phase 41: K21, K2c and K22 against their twins on the re-check "
@@ -3720,6 +4034,26 @@ def main() -> int:
         "widest waves")
     phase_gang_kernels(torch, rows, captured)
     torch.cuda.empty_cache()
+
+    log("phase 48: traced 2pc check 10 against phase 4's run, and K25 on "
+        "its widest commit")
+    phase_traced_rm10(torch, gpu, rows, rm10_counts, rm10_logs, rm10_fps)
+    del rm10_logs, rm10_fps
+    torch.cuda.empty_cache()
+
+    log("phase 49: traced paxos check 3 against phase 6's run, and K25 on "
+        "its widest commit")
+    phase_traced_paxos3(torch, gpu, rows, paxos3_counts, paxos3_logs, paxos3_fps)
+    del paxos3_logs
+    torch.cuda.empty_cache()
+
+    log("phase 50: traced tiered paxos check 3, with its cold_probe phase")
+    phase_traced_tiered_paxos3(torch, gpu, paxos3_counts, paxos3_fps)
+    del paxos3_fps
+    torch.cuda.empty_cache()
+
+    log("phase 51: a visitor on 2pc check 5")
+    phase_visitor_rm5(torch)
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []

@@ -19,6 +19,7 @@ from .has_discoveries import HasDiscoveries
 from .model import Expectation, Model
 from .path import Path
 from .report import ReportData, ReportDiscovery, Reporter
+from .visitor import as_visitor
 
 
 class CheckerBuilder:
@@ -29,6 +30,7 @@ class CheckerBuilder:
         self._finish_when: HasDiscoveries = HasDiscoveries.ALL
         self._symmetry = None
         self._timeout: Optional[float] = None
+        self._visitor = None
 
     def symmetry(self) -> "CheckerBuilder":
         """Reduce by symmetry (src/checker.rs:222-227): ``spawn_gpu``
@@ -57,6 +59,17 @@ class CheckerBuilder:
         self._target_max_depth = depth if depth > 0 else None
         return self
 
+    def visitor(self, visitor) -> "CheckerBuilder":
+        """Visit every expanded state (a :class:`~.visitor.CheckerVisitor`
+        or a callable taking a ``Path``).  :meth:`spawn_gpu` feeds it at
+        wave granularity through its traced readback, so a visitor forces
+        ``trace=True``: each state the search expands is visited once, as
+        a single-state path, in BFS level order across waves and log order
+        within a wave.  :meth:`spawn_gpu_tiered` refuses a visitor, as the
+        JAX engine's tiered spawn does."""
+        self._visitor = as_visitor(visitor)
+        return self
+
     def timeout(self, seconds: float) -> "CheckerBuilder":
         """Stop the check after ``seconds`` of wall time, keeping its
         counts and discoveries (checked between waves, or between walk
@@ -70,7 +83,10 @@ class CheckerBuilder:
         evaluation run on the card in hand-written kernels.  ``device``
         defaults to ``cuda``; with no card present the spawn raises -- pass
         ``device="cpu"`` explicitly to run the plain-torch twins.  Under
-        :meth:`symmetry` the table holds canonical fingerprints."""
+        :meth:`symmetry` the table holds canonical fingerprints.
+        ``trace=True`` times each phase of every wave and charges it
+        modeled bytes against the card's peak bandwidth (``obs/``;
+        ``trace_summary()``); a :meth:`visitor` forces it on."""
         from ..parallel.wavefront import GpuChecker
 
         return GpuChecker(self, **kwargs)

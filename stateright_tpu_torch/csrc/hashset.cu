@@ -28,6 +28,13 @@
 // A first-come CAS alone would elect a nondeterministic representative and
 // break row-log, parent and ebit equality with the JAX engine; the epoch tag
 // replaces the JAX version's O(capacity) claim-plane reset per call.
+// On request (a traced wave), the insert also reports its probe figures
+// into probe_stats, beside the wave's other readback values: [0] the
+// longest probe chain, in slots read by one lane (an atomicMax), and [1]
+// the slots all lanes read (an atomicAdd), each reduced over a warp by
+// shuffles first.  The JAX version's figure is its count of lockstep claim
+// rounds; a lane here that loses a CAS re-reads nothing, so the longest
+// chain can be lower than that count.
 #include "sr_common.cuh"
 
 namespace {
@@ -46,9 +53,11 @@ __global__ void insert_kernel(unsigned long long* __restrict__ keys,
                               const uint8_t* __restrict__ active, int64_t n,
                               unsigned long long epoch_tag,
                               uint32_t* __restrict__ slot_out,
-                              int* __restrict__ probe_ok) {
+                              int* __restrict__ probe_ok,
+                              unsigned long long* __restrict__ probe_stats) {
   const uint64_t mask = capacity - 1;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  unsigned long long longest = 0, slots = 0;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     if (!active[i]) {
@@ -59,7 +68,8 @@ __global__ void insert_kernel(unsigned long long* __restrict__ keys,
         (static_cast<unsigned long long>(hi[i]) << 32) | lo[i];
     uint64_t s = home_slot(hi[i], lo[i], mask);
     uint32_t found = kNoSlot;
-    for (uint64_t probes = 0; probes < capacity; ++probes) {
+    uint64_t probes = 0;
+    for (; probes < capacity; ++probes) {
       // A stale read can only show 0 for a slot that is already taken (keys
       // never leave a slot during a call); the CAS below settles it.
       unsigned long long cur = keys[s];
@@ -79,6 +89,22 @@ __global__ void insert_kernel(unsigned long long* __restrict__ keys,
     }
     slot_out[i] = found;
     if (found == kNoSlot) *probe_ok = 0;
+    const unsigned long long read =
+        found == kNoSlot ? capacity : static_cast<unsigned long long>(probes) + 1;
+    longest = read > longest ? read : longest;
+    slots += read;
+  }
+  if (probe_stats != nullptr) {  // uniform over the grid
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const unsigned long long m = __shfl_down_sync(0xffffffffu, longest, d);
+      longest = m > longest ? m : longest;
+      slots += __shfl_down_sync(0xffffffffu, slots, d);
+    }
+    if ((threadIdx.x & 31) == 0 && slots) {
+      atomicMax(&probe_stats[0], longest);
+      atomicAdd(&probe_stats[1], slots);
+    }
   }
 }
 
@@ -117,14 +143,16 @@ __global__ void mark_kernel(const unsigned long long* __restrict__ meta,
 // keys, meta: capacity 64-bit words (capacity a power of two <= 2^32);
 // hi, lo: n key words; active: n bytes; slot_out: n words of scratch (the
 // key's slot, 0xFFFFFFFF for inactive or unplaced lanes); is_new: n bytes;
-// probe_ok: one int the caller sets to 1.  epoch >= 1, distinct per call on
-// one meta plane, increasing.
+// probe_ok: one int the caller sets to 1; probe_stats: two zeroed 64-bit
+// words (longest chain, slots read), or null.  epoch >= 1, distinct per
+// call on one meta plane, increasing.  Blocks are whole warps.
 extern "C" int sr_insert_claim(unsigned long long* keys,
                                unsigned long long* meta, uint64_t capacity,
                                const uint32_t* hi, const uint32_t* lo,
                                const uint8_t* active, int64_t n,
                                uint32_t epoch, uint32_t* slot_out,
                                uint8_t* is_new, int* probe_ok,
+                               unsigned long long* probe_stats,
                                cudaStream_t stream) {
   if (n <= 0) return 0;
   constexpr int kThreads = 256;
@@ -132,7 +160,7 @@ extern "C" int sr_insert_claim(unsigned long long* keys,
   const unsigned long long tag = static_cast<unsigned long long>(epoch) << 32;
   insert_kernel<<<grid, kThreads, 0, stream>>>(keys, meta, capacity, hi, lo,
                                                active, n, tag, slot_out,
-                                               probe_ok);
+                                               probe_ok, probe_stats);
   elect_kernel<<<grid, kThreads, 0, stream>>>(meta, slot_out, n, tag);
   mark_kernel<<<grid, kThreads, 0, stream>>>(meta, slot_out, n, tag, is_new);
   return static_cast<int>(cudaGetLastError());

@@ -34,7 +34,7 @@ SOURCES = (
     "single_copy_step", "abd_step", "raft_step",
     "prededup", "ping_pong_step", "paxos_step",
     "canon", "lww_step", "fixtures_step",
-    "walk", "fate", "cold", "recheck", "gang",
+    "walk", "fate", "cold", "recheck", "gang", "append",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

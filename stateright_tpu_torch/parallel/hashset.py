@@ -231,8 +231,9 @@ def _sorted_runs_plain(hi, lo, active):
 
 
 def insert_batch_claim(
-    table: HashSet, hi: torch.Tensor, lo: torch.Tensor, active: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    table: HashSet, hi: torch.Tensor, lo: torch.Tensor, active: torch.Tensor,
+    with_rounds: bool = False,
+):
     """Sortless insert-if-absent of a key batch, IN PLACE.
 
     ``hi``/``lo``: int32[B] fingerprint halves; ``active``: bool[B].
@@ -241,9 +242,18 @@ def insert_batch_claim(
     the representative the JAX ``insert_batch_claim`` elects, so parents,
     ebits and row-log order stay bit-identical to the JAX engine.
     ``probe_ok`` is False when some lane probed the whole table without
-    finding its key or a free slot (a full table)."""
+    finding its key or a free slot (a full table).
+
+    ``with_rounds=True`` appends the insert's probe figures, an int64[2]
+    device tensor (the traced wave's byte model reads them,
+    ``obs/roofline.py``): ``[0]`` the twin's count of lockstep claim
+    rounds -- the JAX ``with_rounds`` count -- or K4's longest probe
+    chain in slots, and ``[1]`` the table slots the lanes read."""
     if hi.device.type == "cpu":
-        return insert_batch_claim_plain(table.keys, hi, lo, active)
+        new, ok, probe = insert_batch_claim_plain(
+            table.keys, hi, lo, active, with_rounds=True
+        )
+        return (new, ok, probe) if with_rounds else (new, ok)
     dev = hi.device
     n = hi.shape[0]
     cuda.require(table.keys, "table.keys", torch.int64, 1, dev)
@@ -261,34 +271,42 @@ def insert_batch_claim(
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     is_new = torch.empty((n,), dtype=torch.bool, device=dev)
     ok = torch.ones((), dtype=torch.int32, device=dev)
+    probe = torch.zeros((2,), dtype=torch.int64, device=dev) if with_rounds else None
     fn = cuda.function(
         "hashset", "sr_insert_claim",
         [cuda.P, cuda.P, cuda.U64, cuda.P, cuda.P, cuda.P, cuda.I64,
-         cuda.U32, cuda.P, cuda.P, cuda.P, cuda.P],
+         cuda.U32, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P],
     )
     insert_batch_claim.launches += 1
     code = fn(
         cuda.ptr(table.keys), cuda.ptr(table.meta), table.capacity,
         cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, table.epoch,
-        cuda.ptr(slot), cuda.ptr(is_new), cuda.ptr(ok), cuda.stream(),
+        cuda.ptr(slot), cuda.ptr(is_new), cuda.ptr(ok),
+        cuda.P(None) if probe is None else cuda.ptr(probe), cuda.stream(),
     )
     cuda.check(code, "hashset", "insert_batch_claim")
-    return is_new, ok != 0
+    return (is_new, ok != 0, probe) if with_rounds else (is_new, ok != 0)
 
 
 insert_batch_claim.launches = 0
 
 
 def insert_batch_claim_plain(
-    keys: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, active: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    keys: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, active: torch.Tensor,
+    with_rounds: bool = False,
+):
     """Plain-torch twin of the K4 kernel (any device), IN PLACE on ``keys``:
     the JAX ``_probe_rounds(elect=True)`` round by round.  Each round every
     unresolved lane reads its slot; its key there -> done (a duplicate);
     empty -> the lanes that want the slot scatter-``amin`` their lane id
     into a claim plane, and the winner writes its key; another key -> probe
     on.  Equal keys move in lockstep, so each key's winner is its lowest
-    lane, and a same-key loser finds the key on the next round."""
+    lane, and a same-key loser finds the key on the next round.  With
+    ``with_rounds`` it also returns ``[rounds, slots read]`` (int64[2]):
+    its round count is the JAX ``_probe_rounds`` count (main and straggler
+    rounds together: the straggler rounds continue the same lanes from
+    the same slots), and a lane that re-reads its slot after a lost claim
+    counts that read."""
     cap = keys.shape[0]
     dev = keys.device
     n = hi.shape[0]
@@ -297,8 +315,9 @@ def insert_batch_claim_plain(
     lane = torch.nonzero(active).flatten()
     slot = home_slot(hi[lane], lo[lane], cap)
     claim = torch.full((cap,), _I64_MAX, dtype=torch.int64, device=dev)
-    rounds = 0
+    rounds = slots = 0
     while lane.numel() and rounds < 4 * cap:
+        slots += lane.numel()
         cur = keys[slot]
         k = key[lane]
         present = cur == k
@@ -312,11 +331,15 @@ def insert_batch_claim_plain(
         slot = torch.where(advance, (slot + 1) & (cap - 1), slot)
         lane, slot = lane[undone], slot[undone]
         rounds += 1
-    return new, torch.tensor(lane.numel() == 0, device=dev)
+    ok = torch.tensor(lane.numel() == 0, device=dev)
+    if not with_rounds:
+        return new, ok
+    return new, ok, torch.tensor([rounds, slots], dtype=torch.int64, device=dev)
 
 
 def insert_batch_compact(table: HashSet, hi, lo, active,
-                         dedup_factor: int = 4, sort_lanes=None):
+                         dedup_factor: int = 4, sort_lanes=None,
+                         with_rounds: bool = False):
     """Sorted insert-if-absent, IN PLACE, in the compact form: the JAX
     ``insert_batch_compact`` -- :func:`prededup`, then K4 on the
     representatives, which are distinct keys, so each absent one is new.
@@ -327,12 +350,15 @@ def insert_batch_compact(table: HashSet, hi, lo, active,
     probed the whole table, and the distinct-key overflow of
     :func:`prededup`.  The JAX version also returns each key's slot; the
     engine never reads it, and on this path slots may differ (see the
-    module docstring)."""
+    module docstring).  ``with_rounds=True`` appends K4's probe figures
+    (:func:`insert_batch_claim`)."""
     u_hi, u_lo, u_origin, u_active, overflow = prededup(
         hi, lo, active, dedup_factor, sort_lanes
     )
-    u_new, probe_ok = insert_batch_claim(table, u_hi, u_lo, u_active)
-    return u_new, u_origin, u_active, probe_ok, overflow
+    u_new, probe_ok, *probe = insert_batch_claim(
+        table, u_hi, u_lo, u_active, with_rounds=with_rounds
+    )
+    return (u_new, u_origin, u_active, probe_ok, overflow, *probe)
 
 
 def insert_batch(table: HashSet, hi, lo, active, dedup_factor: int = 4):

@@ -3,19 +3,30 @@ stop when the search is done.
 
 The counterpart of the quantum loop of ``stateright_tpu/parallel/
 wave_loop.py`` (``FusedWaveLoop``, ``loop_should_break``, ``finalize_run``,
-``log_grow``, ``CheckpointCadence``) and its ``fingerprints_of_rows``.  The
-JAX loop runs up to ``waves_per_call`` waves inside one device program
-between stats readbacks; this port reads one small stats tensor back per
-wave, and checks before each wave what the JAX program checks in its loop
-condition.  Ported: the flag-4 rules of the sort-rung ladder and the sorted
-fallback, the wall deadline of a builder ``timeout`` and a
-``request_stop``, the optional after-commit rung (the tiered engine's
-spill), the checkpoint cadence, the metrics the loop writes (``waves``,
-``table_occupancy``, ``grows``, ``overflow_retries``) and the journal's
-``geometry``, ``wave``, ``grow``, ``checkpoint`` and ``engine_done``
-events, all from scalars the wave's one readback already holds.  Not
-ported: the step-rung ladder, the density tuner, the vitals histograms,
-the host spans and the knob cache.
+``log_grow``, ``CheckpointCadence``, ``LoopVitals``) and its
+``fingerprints_of_rows``.  The JAX loop runs up to ``waves_per_call`` waves
+inside one device program between stats readbacks; this port reads one
+small stats tensor back per wave, and checks before each wave what the JAX
+program checks in its loop condition.  Ported: the flag-4 rules of the
+sort-rung ladder and the sorted fallback, the wall deadline of a builder
+``timeout`` and a ``request_stop``, the optional after-commit rung (the
+tiered engine's spill), the checkpoint cadence, the metrics the loop
+writes (``waves``, ``table_occupancy``, ``grows``, ``overflow_retries``,
+the always-on vitals and their histograms), the host spans
+(``obs/timeline.py``), and the journal's ``geometry``, ``wave`` (with its
+``density``), ``grow``, ``checkpoint``, ``host_span`` and ``engine_done``
+events, all from scalars the wave's one readback already holds.
+
+Traced mode (``spawn_gpu(trace=True)``, the JAX engine's
+``_check_once_traced``) is a branch of the same loop, so growth, the
+deadline and ``request_stop`` cannot drift between the two: the engine
+times each phase of its wave itself and hands back the wave's record
+(``_wl_trace_phases``, the ``wave_breakdown``/``bytes``/``hbm_util_frac``
+fields of ``_wl_wave_extra``); the loop then accounts the wave's
+``readback`` phase as host time instead of the gap between waves, runs no
+host spans, and skips the mid-run checkpoint cadence, as the JAX traced
+loop does.  Not ported: the step-rung ladder, the density tuner (the JAX
+loop's ``retune`` span times it) and the knob cache.
 
 The engine adapter (the checker) provides:
 
@@ -35,7 +46,11 @@ The engine adapter (the checker) provides:
   changed;
 - ``_wl_occupancy() -> float``, ``_wl_wave_extra() -> dict`` (journal
   fields of a ``wave`` event), ``_wl_write_checkpoint() -> dict`` (extra
-  fields of a ``checkpoint`` event), ``_wl_geometry() -> dict``;
+  fields of a ``checkpoint`` event), ``_wl_geometry() -> dict``,
+  ``_wl_cand_lanes() -> int`` (the density's denominator),
+  ``_wl_host_spans() -> list`` (in-wave host spans, drained) and
+  ``_wl_trace_phases() -> dict | None`` (the last wave's phase seconds
+  when it was traced and committed);
 - ``_wl_remaining() / _wl_depth()``, ``stop_requested()`` and the checker
   attributes ``_options``, ``_properties``, ``_state_count``,
   ``_unique_count``, ``_max_depth``, ``_discovery_slots``, ``_journal``,
@@ -47,11 +62,14 @@ from __future__ import annotations
 
 import logging
 import time
+from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..obs.metrics import COUNT_BUCKETS, FRACTION_BUCKETS, LATENCY_BUCKETS
+from ..obs.timeline import SpanRecorder, step_annotation
 from ..ops.device_fp import device_fp64
 
 # 1 = table overfull (probe failure or past 50% load), 2 = row log full,
@@ -192,6 +210,168 @@ class CheckpointCadence:
         self._last = time.monotonic()
 
 
+class LoopVitals:
+    """Always-on loop vitals, the JAX package's: cheap per-wave counters
+    and histograms recorded at the host-side boundary the loop already
+    crosses, from scalars the wave's one readback holds -- never an extra
+    device read.  One instance per engine run; writes land in the
+    engine's :class:`~stateright_tpu_torch.obs.metrics.MetricsRegistry`:
+
+    - ``wave_latency_sec`` histogram — per-wave wall latency (the port
+      reads back every wave, so each quantum is one wave);
+    - ``waves_per_grow`` histogram — committed waves between
+      overflow-triggered recoveries (how long a geometry survived
+      before overflowing);
+    - ``uniq_per_sec_ema`` / ``waves_per_sec_ema`` gauges — exponential
+      moving averages over committed quanta (alpha 0.3: a few quanta of
+      memory, mid-run readable from ``metrics()``);
+    - ``host_sec_total`` counter — host-side loop time: the untraced
+      loop accounts the gap between waves (journal/metrics/checkpoint/
+      grow); traced waves report their measured ``readback`` phase via
+      :meth:`record_host` instead.  Either way, the time-in-host
+      complement of the wave time;
+    - ``overflow_retries`` counter — every overflow-flagged wave that
+      was recovered and re-run.  The separate ``grows`` counter
+      (:func:`log_grow`) counts only ACTUAL geometry changes: a
+      recovery that re-runs without growing (the tiered engine's
+      spill-instead-of-grow) moves ``overflow_retries`` but not
+      ``grows``;
+    - ``valid_density_ema`` gauge + ``valid_density`` histogram — the
+      measured per-wave VALID-candidate count as a fraction of the
+      worst-case compaction/dedup ``U`` buffer (``cand_lanes``).  The
+      numerator is the quantum's ``state_count`` delta divided by its
+      wave count: ``state_count`` advances by exactly the
+      boundary-passing valid successors each committed wave
+      (the wave's ``generated``), so the density needs NO extra
+      readback.
+      Bounded at 1.0 by construction: the flag-4 overflow criterion
+      fires on the SAME valid-lane count (hashset.compact_valid — "a
+      stricter criterion than distinct keys"), so a committed wave's
+      numerator can never exceed its ``U`` buffer.  This is the number
+      the JAX engine's dedup-geometry tuner sizes against;
+    - ``table_load_factor`` histogram (``load_factor``) — the hot-table
+      load trajectory, one observation per committed quantum (the gauge
+      form already rides ``table_occupancy``).
+    """
+
+    EMA_ALPHA = 0.3
+
+    def __init__(self, registry, initial_unique: Optional[int] = None,
+                 initial_states: Optional[int] = None):
+        self._reg = registry
+        self._latency_buckets = LATENCY_BUCKETS
+        self._count_buckets = COUNT_BUCKETS
+        self._fraction_buckets = FRACTION_BUCKETS
+        self._uniq_ema: Optional[float] = None
+        self._wave_ema: Optional[float] = None
+        self._density_ema: Optional[float] = None
+        self.last_density: Optional[float] = None
+        # Baseline for the first quantum's uniq/s delta: the unique
+        # count already committed before the loop starts (init seeding,
+        # or a resumed snapshot's count — which must not read as "found
+        # this call").  None = unknown; the first quantum then only
+        # primes the baseline.  ``initial_states`` is the same baseline
+        # for the density's generated-successors delta.
+        self._last_unique = initial_unique
+        self._last_states = initial_states
+        self._waves_since_grow = 0
+        self._host_mark: Optional[float] = None
+        self._reg.inc("host_sec_total", 0.0)  # key exists from wave 0
+
+    def call_started(self, now: float) -> None:
+        """Account the host-side gap since the previous call ended
+        (journal/metrics/checkpoint/grow work) as host time; the first
+        call has no gap yet."""
+        if self._host_mark is not None:
+            self._reg.inc(
+                "host_sec_total", max(0.0, now - self._host_mark)
+            )
+
+    def call_ended(self, now: float) -> None:
+        self._host_mark = now
+
+    def record_host(self, sec: float) -> None:
+        """Directly account host-side seconds — the traced loops' path:
+        their per-wave timers already isolate the host ``readback``
+        phase inside the wave, so they report it here instead of the
+        fused loop's between-calls gap."""
+        self._reg.inc("host_sec_total", max(0.0, sec))
+
+    def record_quantum(
+        self, call_sec: float, waves: int, unique: int, committed: bool,
+        states: Optional[int] = None, cand_lanes: Optional[int] = None,
+        occupancy: Optional[float] = None,
+    ) -> None:
+        """Fold one device-call quantum into the vitals.  Aborted
+        (flagged) quanta count latency but not rates: their unique delta
+        is zero by construction and would drag the EMA to the floor.
+        ``states``/``cand_lanes`` feed the density telemetry (see the
+        class docstring), ``occupancy`` the load-factor trajectory."""
+        waves = max(1, int(waves))
+        self._reg.observe(
+            "wave_latency_sec", call_sec / waves, count=waves,
+            boundaries=self._latency_buckets,
+        )
+        self.last_density = None  # stale density must not journal on abort
+        if not committed:
+            return
+        if occupancy is not None:
+            self._reg.observe(
+                "load_factor", occupancy,
+                boundaries=self._fraction_buckets,
+            )
+        if states is not None and cand_lanes:
+            if self._last_states is not None:
+                density = (
+                    max(0, states - self._last_states) / waves / cand_lanes
+                )
+                self.last_density = density
+                self._density_ema = (
+                    density if self._density_ema is None
+                    else self._density_ema
+                    + self.EMA_ALPHA * (density - self._density_ema)
+                )
+                self._reg.observe(
+                    "valid_density", density, count=waves,
+                    boundaries=self._fraction_buckets,
+                )
+                self._reg.update(
+                    valid_density_ema=round(self._density_ema, 6),
+                )
+            self._last_states = states
+        self._waves_since_grow += waves
+        if call_sec > 0:
+            wave_rate = waves / call_sec
+            if self._last_unique is not None:
+                uniq_rate = max(0, unique - self._last_unique) / call_sec
+                self._uniq_ema = (
+                    uniq_rate if self._uniq_ema is None
+                    else self._uniq_ema
+                    + self.EMA_ALPHA * (uniq_rate - self._uniq_ema)
+                )
+            self._wave_ema = (
+                wave_rate if self._wave_ema is None
+                else self._wave_ema
+                + self.EMA_ALPHA * (wave_rate - self._wave_ema)
+            )
+            self._reg.update(
+                waves_per_sec_ema=round(self._wave_ema, 4),
+                **(
+                    {"uniq_per_sec_ema": round(self._uniq_ema, 2)}
+                    if self._uniq_ema is not None else {}
+                ),
+            )
+        self._last_unique = unique
+
+    def record_overflow_recovery(self) -> None:
+        self._reg.inc("overflow_retries", 1)
+        self._reg.observe(
+            "waves_per_grow", max(1, self._waves_since_grow),
+            boundaries=self._count_buckets,
+        )
+        self._waves_since_grow = 0
+
+
 def journal_geometry(eng) -> None:
     """One ``geometry`` journal event at loop start: the engine's live
     geometry knobs (``_wl_geometry()``)."""
@@ -226,45 +406,94 @@ class WaveLoop:
         (monotonic seconds) or a stop request; returns the number of waves
         run (re-runs after growth included)."""
         eng = self.eng
+        traced = eng._tracer is not None
         cadence = CheckpointCadence(eng._ckpt_every_waves, eng._ckpt_every_sec)
         journal_geometry(eng)
         after_commit = getattr(eng, "_wl_after_commit", None)
         waves = 0
         eng._wl_publish()
+        vitals = LoopVitals(eng._metrics, initial_unique=eng._unique_count,
+                            initial_states=eng._state_count)
+        # The untraced loop decomposes its host tail into named spans (one
+        # ``host_span`` event a wave); a traced wave times its own phases.
+        spans = None if traced else SpanRecorder(eng._journal, eng._metrics)
+
+        def span(name):
+            return nullcontext() if spans is None else spans.span(name)
+
         while eng._wl_can_wave():
             t_call = time.monotonic()
-            flags = eng._wl_wave()
-            call_sec = time.monotonic() - t_call
+            if spans is not None:
+                spans.quantum_start(t_call)
+                vitals.call_started(t_call)
+            with step_annotation() if spans is None else spans.step():
+                flags = eng._wl_wave()
+            t_done = time.monotonic()
+            call_sec = t_done - t_call
+            phases = eng._wl_trace_phases()
+            if phases is not None:
+                # A traced wave's call time is its phases' span, as in the
+                # JAX traced loop: the phases partition it.
+                call_sec = sum(phases.values())
             waves += 1
+            if spans is None:
+                eng._wl_host_spans()  # a traced wave times them as phases
+            else:
+                spans.collect(eng)
+                vitals.call_ended(t_done)
+                spans.tail_start(t_done)
             if not flags:
                 eng._wl_publish()
             occupancy = eng._wl_occupancy()
+            vitals.record_quantum(
+                call_sec, 1, eng._unique_count, committed=not flags,
+                states=eng._state_count, cand_lanes=eng._wl_cand_lanes(),
+                occupancy=occupancy,
+            )
+            if phases is not None:
+                vitals.record_host(phases.get("readback", 0.0))
             eng._metrics.update(waves=waves,
-                                table_occupancy=round(occupancy, 6))
+                                table_occupancy=round(occupancy, 6),
+                                last_call_sec=round(call_sec, 6))
+            eng._metrics.inc("device_call_sec_total", call_sec)
+            eng._metrics.inc("device_calls", 1)
             if eng._journal:
-                eng._journal.append(
-                    "wave", waves=waves, remaining=eng._wl_remaining(),
-                    unique=eng._unique_count, states=eng._state_count,
-                    depth=eng._wl_depth(), flags=flags,
-                    call_sec=round(call_sec, 4), mono=round(t_call, 6),
-                    occupancy=round(occupancy, 6), **eng._wl_wave_extra(),
-                )
+                with span("journal"):
+                    eng._journal.append(
+                        "wave", waves=waves, remaining=eng._wl_remaining(),
+                        unique=eng._unique_count, states=eng._state_count,
+                        depth=eng._wl_depth(), flags=flags,
+                        call_sec=round(call_sec, 6 if traced else 4),
+                        mono=round(t_call, 6),
+                        occupancy=round(occupancy, 6),
+                        **(
+                            {"density": round(vitals.last_density, 6)}
+                            if vitals.last_density is not None else {}
+                        ),
+                        **eng._wl_wave_extra(),
+                    )
             if not flags:
                 # The spill rung, at the committed boundary, so the
                 # cadence below persists the post-spill state.
                 if after_commit is not None:
-                    after_commit()
-                if eng._checkpoint_path is not None and cadence.due(1):
-                    t_ck = time.monotonic()
-                    extra = eng._wl_write_checkpoint()
-                    cadence.mark()
-                    if eng._journal:
-                        eng._journal.append(
-                            "checkpoint", path=eng._checkpoint_path,
-                            unique=eng._unique_count, depth=eng._wl_depth(),
-                            write_sec=round(time.monotonic() - t_ck, 4),
-                            **extra,
-                        )
+                    with span("spill"):
+                        after_commit()
+                if (
+                    not traced and eng._checkpoint_path is not None
+                    and cadence.due(1)
+                ):
+                    with span("checkpoint"):
+                        t_ck = time.monotonic()
+                        extra = eng._wl_write_checkpoint()
+                        cadence.mark()
+                        if eng._journal:
+                            eng._journal.append(
+                                "checkpoint", path=eng._checkpoint_path,
+                                unique=eng._unique_count,
+                                depth=eng._wl_depth(),
+                                write_sec=round(time.monotonic() - t_ck, 4),
+                                **extra,
+                            )
                 if loop_should_break(eng, eng._wl_remaining(), eng._wl_depth(),
                                      deadline):
                     break
@@ -280,8 +509,12 @@ class WaveLoop:
             if past_deadline_or_stopped(eng, deadline):
                 eng._wl_abort_cleanup()
                 break
-            eng._wl_grow(flags)
-            eng._metrics.inc("overflow_retries", 1)
+            with span("grow"):
+                eng._wl_grow(flags)
+            vitals.record_overflow_recovery()
+        if spans is not None:
+            # The last tail has no next wave to account it.
+            vitals.record_host(spans.finish(time.monotonic()))
         return waves
 
 

@@ -58,12 +58,15 @@ The host reads one small stats tensor per wave and keeps the scalar carry
 (level bounds, tail, counts, depth, discoveries); an overflowing wave
 (flags 1/2/4/8) commits nothing, and growth rebuilds the table from the
 committed log before the same chunk runs again.  A wave runs in phases
-(expand, fingerprint, insert and compact, the readback, the commit), so an
-engine built on this one -- the tiered checker, ``tiered/engine.py`` --
-folds values into the readback and filters the new lanes between the
-readback and the append.  Around the loop sit the JAX engine's surface:
-``metrics()``, ``tuned_kwargs()``, the journal, the checkpoint cadence and
-``auto_tune``.
+(expand, fingerprint, insert and compact, the readback, the commit through
+K25), so an engine built on this one -- the tiered checker,
+``tiered/engine.py`` -- folds values into the readback and filters the new
+lanes between the readback and the append.  Around the loop sit the JAX
+engine's surface: ``metrics()`` (with the vitals' histograms),
+``tuned_kwargs()``, the journal, the checkpoint cadence, ``auto_tune``,
+traced mode (``trace=True``: each phase timed and charged modeled bytes
+against the card's peak, ``obs/``) and ``CheckerBuilder.visitor()``, fed
+from the traced readback.
 """
 
 from __future__ import annotations
@@ -84,10 +87,13 @@ from ..core.checker import Checker
 from ..core.model import Expectation
 from ..core.path import Path
 from ..obs.metrics import MetricsRegistry
+from ..obs.roofline import slot_bytes, sort_bytes
+from ..obs.trace import NO_CLOCK, PhaseClock, WaveTracer
 from ..ops.cuda import resolve_device
 from ..ops.device_fp import device_fp64
-from ..ops.u32 import M32, from_numpy_u32, i32, to_numpy_u32
+from ..ops.u32 import M32, from_numpy_u32, to_numpy_u32
 from ..runtime.journal import as_journal
+from .append import append_block
 from .canon import make_canon
 from .compiled import CompiledModel, compiled_model_for, two_phase_capable
 from .hashset import (
@@ -163,6 +169,83 @@ class Carry:
     unique_count: int
     depth: int
     disc: List[int]  # per property: BFS position of its discovery, or NO_ID
+
+
+def wave_bytes(*, count: int, a: int, w: int, fpw: int, n_props: int,
+               u: int, n_valid: int, n_inserted: int, n_new: int,
+               probe_slots: int, two_phase: bool, sortless: bool,
+               symmetric: bool) -> Dict[str, int]:
+    """Modeled device bytes of one traced wave, per phase: each phase read
+    as one function of the wave's counts, its inputs read once and its
+    outputs written once (what a phase hands its next kernel inside the
+    phase is not counted: consecutive passes over one buffer partly hit
+    L2, and a count of every kernel's inputs and outputs reads above the
+    card's peak on the small waves).
+
+    ``count`` states expanded, ``a`` actions, rows of ``w`` words hashed
+    on their leading ``fpw`` (all ``w`` under symmetry, which K15 reads),
+    ``n_props`` properties, a compaction buffer of ``u`` lanes (the
+    wave's: ``min(U, count * a)`` for the full chunk's ``U``),
+    ``n_valid`` valid candidates (the wave's ``generated``), ``n_inserted``
+    keys the insert found new, ``n_new`` states appended, ``probe_slots``
+    table slots the insert's lanes read (K4's figure, ``obs/roofline.py``).
+    With ``b = count * a``:
+
+    - ``step``: the states' rows and eventually-bits in, their
+      eventually-bits and the discovery candidates out; single-phase, the
+      ``b`` successor rows and their validity out; two-phase, the buffer's
+      lane indices and active and flag bytes (``6u``) and the ``n_valid``
+      successor rows out;
+    - ``canon``: the hashed words of each candidate row in and its two key
+      words out -- the whole ``u``-row buffer two-phase (K1 hashes it
+      all, as the JAX program does), all ``b`` candidates single-phase,
+      whose validity (``b``) is read too and whose valid keys come out
+      compacted with their lane indices and active bytes (``13u``);
+    - ``dedup``: the active bytes (``u``), the ``n_valid`` active lanes'
+      keys and the ``probe_slots`` slots in (8 bytes each), the
+      ``n_inserted`` new keys and K3's ``u``-lane compaction of the new
+      mask out; the sorted path adds K12's 8 radix passes
+      (``sort_bytes(u)``; its buffers outgrow L2) and the representatives'
+      keys in and origins out (``12u``);
+    - ``append``: K25, each new state's index words (2, 3 on the sorted
+      path) and its parent's eventually-bits in, its row in and out, its
+      parent and ebits out.
+
+    Where it differs from the JAX engine's model
+    (``stateright_tpu/parallel/wavefront.py:1687-1732``): the JAX programs
+    stream whole fixed-width buffers (the chunk at ``max_frontier``, ``U``
+    rows gathered or built, whole append blocks), so that model charges
+    buffer widths; the port's kernels touch the wave's live counts and a
+    buffer no wider than its chunk's candidates, and the model charges
+    those.  The two agree on the two-phase ``canon`` term without
+    symmetry (``4 fpw u + 8u``) on a full chunk.  The JAX ``dedup`` term
+    charges every buffer lane every lockstep round (``probe_bytes``) and
+    the sorted path a bitonic network of ``k(k+1)/2`` passes over three
+    planes; K4 walks only the active lanes' chains and K12 makes 8 radix
+    passes, so the port charges the slots read and
+    :func:`~stateright_tpu_torch.obs.roofline.sort_bytes`.  The JAX
+    ``append`` term holds the new-mask compaction, which the port runs in
+    ``dedup`` (its readback needs the count)."""
+    b = count * a
+    states = count * (4 * w + 8) + 8 * n_props
+    if two_phase:
+        step = states + 6 * u + n_valid * 4 * w
+        hashed = u
+    else:
+        step = states + b * (4 * w + 1)
+        hashed = b
+    canon = hashed * (4 * (w if symmetric else fpw) + 8)
+    if not two_phase:
+        canon += b + 13 * u
+    dedup = (
+        u + 8 * n_valid + slot_bytes(probe_slots) + 8 * n_inserted
+        + 4 * u
+    )
+    if not sortless:
+        dedup += sort_bytes(u) + 12 * u
+    index_words = 2 if sortless else 3
+    append = n_new * (4 * index_words + 8 * w + 12)
+    return {"step": step, "canon": canon, "dedup": dedup, "append": append}
 
 
 def _sized(t: torch.Tensor, n: int, fill: int) -> torch.Tensor:
@@ -259,12 +342,16 @@ class Wave:
     dd_overflow: torch.Tensor = None
     sel: torch.Tensor = None  # K3's compaction of is_new
     n_new_d: torch.Tensor = None
+    probe: Optional[torch.Tensor] = None  # traced: K4's probe figures
     # The readback's scalars.
-    n_new: int = 0
+    n_new: int = 0  # new lanes to append (after an engine's filter)
+    n_inserted: int = 0  # keys the insert found new
     generated: int = 0
     ok: int = 1
     s_flag: int = 0
     dd_flag: int = 0
+    probe_rounds: int = 0
+    probe_slots: int = 0
     extra: tuple = ()
     cand_ids: tuple = ()
 
@@ -292,6 +379,7 @@ class GpuChecker(Checker):
         checkpoint_path: Optional[str] = None,
         checkpoint_every_waves: Optional[int] = None,
         checkpoint_every_sec: Optional[float] = None,
+        trace: bool = False,
     ):
         """``capacity`` sizes the fingerprint table (slots; load is kept at
         or below 50%), ``log_capacity`` the row log (positions = unique
@@ -331,12 +419,42 @@ class GpuChecker(Checker):
         given), and a completion snapshot at the end; a stopped run
         resumes from it through ``resume_from``.
 
+        ``trace``: time every phase of every wave (``step``, ``canon``,
+        ``dedup``, ``readback``, ``append``; the tiered engine adds
+        ``cold_probe``) with a ``torch.cuda.synchronize`` at each boundary,
+        and charge each phase its modeled bytes against the card's peak
+        bandwidth (``obs/roofline.py``, :meth:`_traced_wave_bytes`).
+        Results are identical (same kernels, same commit order);
+        throughput is not -- a traced wave pays a sync a phase and exists
+        to say where the untraced run's time goes.  Each committed wave's
+        journal ``wave`` event gains ``wave_breakdown``, ``bytes``,
+        ``hbm_util_frac``, ``probe_rounds`` and ``probe_slots``; the run
+        ends with a ``trace_summary`` event; ``metrics()`` and
+        :meth:`trace_summary` carry the reduction (``bottleneck_phase``
+        among it).  Traced runs grow, stop and time out through the same
+        loop as untraced ones; like the JAX engine's they refuse
+        ``resume_from`` and skip the mid-run checkpoint cadence (the
+        completion checkpoint still lands).  The port has no density or
+        step-rung tuner yet, so neither loop calls one.  A builder
+        ``visitor()`` forces ``trace`` on: each expanded state is visited
+        once, as a single-state path, in BFS level order across waves and
+        log order within a wave, from the traced readback.
+
         ``device`` defaults to ``cuda``; with no card present the spawn
         raises -- it never carries on on the CPU unless the caller asks for
         ``device="cpu"``.  ``resume_from`` continues a run from a snapshot
         of either engine (``save_snapshot``, JAX npz format), adopting its
         table and log geometry."""
         super().__init__(options.model)
+        self._visitor = options._visitor
+        # The visitor stream rides the traced readback.
+        self._trace = bool(trace) or self._visitor is not None
+        if self._trace and resume_from is not None:
+            raise ValueError(
+                f"{self.spawn_name[:-2]}(trace=True) does not support "
+                "resume_from: tracing is a diagnostic mode; resume the run "
+                "untraced and trace a fresh (bounded) run instead"
+            )
         self._device = resolve_device(device, self.spawn_name)
         self._options = options
         self._compiled = compiled or compiled_model_for(options.model)
@@ -406,6 +524,10 @@ class GpuChecker(Checker):
         ):
             self._ckpt_every_sec = 30.0
         self._final_load_factor: Optional[float] = None
+        self._tracer: Optional[WaveTracer] = None  # built by _run when traced
+        self._trace_phases: Optional[Dict[str, float]] = None
+        self._trace_record: Optional[dict] = None
+        self._host_spans: List[tuple] = []
         self._discovery_slots: Dict[str, int] = {}
         self._state_count = 0
         self._unique_count = 0
@@ -480,9 +602,13 @@ class GpuChecker(Checker):
             self._carry = (
                 self._resume() if self._resume_from is not None else self._seed()
             )
+            if self._trace:
+                self._tracer = WaveTracer(self._device, self.engine_name)
             self._waves = WaveLoop(self).run(deadline)
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
+            if self._tracer is not None and self._journal:
+                self._journal.append("trace_summary", **self._tracer.summary())
             finalize_run(self)
         except BaseException as e:  # propagate at join, like the host engine
             self._errors.append(e)
@@ -609,7 +735,23 @@ class GpuChecker(Checker):
         return self._carry.unique_count / self._capacity
 
     def _wl_wave_extra(self) -> dict:
-        return {"tail": self._carry.tail}
+        return {"tail": self._carry.tail, **(self._trace_record or {})}
+
+    def _wl_cand_lanes(self) -> int:
+        """The density telemetry's denominator: the worst-case buffer U of
+        a full chunk (the JAX engine's ``_wl_cand_lanes``)."""
+        return self._wl_full_sort_lanes()
+
+    def _wl_host_spans(self) -> List[tuple]:
+        """The host spans measured inside the last wave (``(phase, t0,
+        seconds)``: its readback, an engine's filter), drained."""
+        spans, self._host_spans = self._host_spans, []
+        return spans
+
+    def _wl_trace_phases(self) -> Optional[Dict[str, float]]:
+        """The last wave's phase seconds, when it was traced and
+        committed; None otherwise."""
+        return self._trace_phases
 
     def _wl_geometry(self) -> dict:
         """The ``geometry`` journal event's payload: the live knobs."""
@@ -628,24 +770,42 @@ class GpuChecker(Checker):
         self._write_snapshot(self._checkpoint_path)
         return {"tail": self._carry.tail}
 
+    # The phase an engine's _wave_filter is timed as in a traced wave (the
+    # tiered engine's cold merge-join); the in-HBM engine has no filter.
+    _filter_phase: Optional[str] = None
+
     def _wl_wave(self) -> int:
         """Expand one chunk of the current level, in phases: expand,
         fingerprint, insert and compact, the one readback, then (an engine
         may filter the new lanes here) the commit.  Returns the overflow
-        flags; the carry changes only when they are 0."""
+        flags; the carry changes only when they are 0.  A traced wave
+        marks each phase's end on its :class:`PhaseClock` and, once
+        committed, records its phase seconds and modeled bytes."""
+        clock = PhaseClock(self._device) if self._tracer is not None else NO_CLOCK
         c = self._carry
         count = min(c.level_end - c.level_start, self._max_frontier)
         # The compaction buffer: the rung, or the worst case U of a FULL
         # chunk -- sized from max_frontier, as the JAX engine's padded
         # chunk is, so flag 4 fires where it fires there.
         wave = Wave(count=count, lo_pos=c.level_start, size=self._sort_width())
+        self._trace_phases = self._trace_record = None
         self._wave_expand(wave)
+        clock.mark("step")
         self._wave_fingerprint(wave)
+        clock.mark("canon")
         self._wave_insert(wave)
+        clock.mark("dedup")
+        t_rb = time.monotonic()
         self._wave_readback(wave)
         flags = self._wave_flags(wave)
+        if not flags and self._visitor is not None:
+            self._visit(wave)
+        self._host_spans.append(("readback", t_rb, time.monotonic() - t_rb))
+        clock.mark("readback")
         if not flags:
             self._wave_filter(wave)
+            if self._filter_phase is not None:
+                clock.mark(self._filter_phase)
             if self._log_full(wave):
                 flags = 2
         if flags:
@@ -653,7 +813,26 @@ class GpuChecker(Checker):
             # rebuilds it from the committed log, which erases them.
             return flags
         self._wave_commit(wave)
+        clock.mark("append")
+        if self._tracer is not None:
+            self._trace_phases = clock.phases
+            self._trace_record = self._tracer.record_wave(
+                clock.phases, self._traced_wave_bytes(wave),
+                probe_rounds=wave.probe_rounds, probe_slots=wave.probe_slots,
+            )
         return 0
+
+    def _visit(self, wave: Wave) -> None:
+        """The visitor stream of a wave that commits: each expanded state,
+        in log order, as a single-state path (the JAX engine's traced
+        readback of the chunk)."""
+        w = self._compiled.state_width
+        lo = wave.lo_pos
+        rows = to_numpy_u32(self._carry.rows[lo * w : (lo + wave.count) * w])
+        for row in rows.reshape(wave.count, w):
+            self._visitor.visit(
+                self._model, Path([(self._compiled.decode(row), None)])
+            )
 
     def _wave_expand(self, wave: Wave) -> None:
         """The model's step and the wave verdicts (K8).  The JAX version
@@ -710,11 +889,13 @@ class GpuChecker(Checker):
         """Insert the buffer's keys into the table and compact the new
         lanes (K3)."""
         c = self._carry
+        # A traced wave asks K4 for its probe figures (the byte model's).
+        rounds = self._tracer is not None
         if self._sortless:
             # The claim election: buffer lane j is its own representative
             # (u_origin is the identity), new states append in lane order.
-            wave.is_new, wave.probe_ok = insert_batch_claim(
-                c.table, wave.hi, wave.lo, wave.v_act
+            wave.is_new, wave.probe_ok, *probe = insert_batch_claim(
+                c.table, wave.hi, wave.lo, wave.v_act, with_rounds=rounds
             )
             wave.dd_overflow = torch.zeros((), dtype=torch.bool,
                                            device=self._device)
@@ -722,10 +903,12 @@ class GpuChecker(Checker):
             # The sorted fallback: one representative per key in sorted-key
             # order over the whole buffer, so new states append in that
             # order (JAX wave_body at dedup_factor=1).
-            wave.is_new, wave.u_origin, _u_act, wave.probe_ok, wave.dd_overflow = (
-                insert_batch_compact(c.table, wave.hi, wave.lo, wave.v_act,
-                                     dedup_factor=1)
+            (wave.is_new, wave.u_origin, _u_act, wave.probe_ok,
+             wave.dd_overflow, *probe) = insert_batch_compact(
+                c.table, wave.hi, wave.lo, wave.v_act, dedup_factor=1,
+                with_rounds=rounds,
             )
+        wave.probe = probe[0] if probe else None
         wave.sel, wave.n_new_d = compact(wave.is_new, wave.is_new.shape[0])
 
     def _wave_extra_stats(self, wave: Wave) -> List[torch.Tensor]:
@@ -734,20 +917,28 @@ class GpuChecker(Checker):
         return []
 
     def _wave_readback(self, wave: Wave) -> None:
-        """The wave's one readback."""
+        """The wave's one readback (with K4's probe figures on a traced
+        wave)."""
+        probe = [] if wave.probe is None else [wave.probe]
         extra = self._wave_extra_stats(wave)
         stats = torch.cat([
             torch.stack([
                 wave.n_new_d, wave.n_valid, wave.probe_ok.long(),
                 wave.step_flag.long(), wave.dd_overflow.long(),
             ]),
+            *probe,
             *extra,
             wave.cands,
         ]).tolist()
         (wave.n_new, wave.generated, wave.ok, wave.s_flag,
          wave.dd_flag) = (int(x) for x in stats[:5])
-        n_extra = 5 + sum(t.numel() for t in extra)
-        wave.extra = tuple(int(x) for x in stats[5:n_extra])
+        wave.n_inserted = wave.n_new
+        at = 5
+        if probe:
+            wave.probe_rounds, wave.probe_slots = (int(x) for x in stats[5:7])
+            at = 7
+        n_extra = at + sum(t.numel() for t in extra)
+        wave.extra = tuple(int(x) for x in stats[at:n_extra])
         wave.cand_ids = tuple(int(x) for x in stats[n_extra:])
 
     # An engine whose _wave_filter drops new lanes tests the row log after
@@ -781,30 +972,18 @@ class GpuChecker(Checker):
         in-HBM engine has none."""
 
     def _wave_commit(self, wave: Wave) -> None:
-        """Append the new representatives' rows, parents and ebits as three
-        contiguous block writes at the tail and advance the scalars."""
+        """Append the new representatives' rows, parents and ebits at the
+        tail (K25, one launch) and advance the scalars."""
         c = self._carry
-        a = self._compiled.max_actions
-        w = self._compiled.state_width
         n_new = wave.n_new
-        if n_new:
-            # ``lanes`` are the representatives' buffer lanes (through
-            # u_origin on the sorted path).  Two-phase rows are already
-            # compacted: buffer lane j holds original lane v_orig[j]'s
-            # successor.
-            lanes = wave.sel[:n_new].long()
-            if wave.u_origin is not None:
-                lanes = wave.u_origin[lanes].long()
-            idxs = wave.v_orig[lanes].long()
-            src = idxs // a
-            t = c.tail
-            rows_new = (
-                wave.cand_rows[lanes] if self._two_phase
-                else wave.cand_rows[idxs]
-            )
-            c.rows[t * w : (t + n_new) * w] = rows_new.reshape(-1)
-            c.parent[t : t + n_new] = i32(src + wave.lo_pos)
-            c.ebits[t : t + n_new] = wave.eb[src]
+        # The representatives' buffer lanes go through u_origin on the
+        # sorted path; two-phase rows are already compacted (buffer lane j
+        # holds original lane v_orig[j]'s successor).
+        append_block(
+            c.rows, c.parent, c.ebits, wave.sel, wave.u_origin, wave.v_orig,
+            wave.cand_rows, wave.eb, wave.lo_pos, c.tail, n_new,
+            self._compiled.max_actions, self._two_phase,
+        )
         c.tail += n_new
         c.unique_count += n_new
         c.state_count += wave.generated
@@ -815,6 +994,19 @@ class GpuChecker(Checker):
         if c.level_start >= c.level_end:
             c.depth += 1
             c.level_end = c.tail
+
+    def _traced_wave_bytes(self, wave: Wave) -> Dict[str, int]:
+        """The committed wave's modeled bytes per phase (:func:`wave_bytes`
+        documents the model and where it differs from the JAX engine's)."""
+        cm = self._compiled
+        return wave_bytes(
+            count=wave.count, a=cm.max_actions, w=cm.state_width,
+            fpw=self._fp_words, n_props=len(self._properties),
+            u=wave.v_orig.shape[0], n_valid=wave.generated,
+            n_inserted=wave.n_inserted, n_new=wave.n_new,
+            probe_slots=wave.probe_slots, two_phase=self._two_phase,
+            sortless=self._sortless, symmetric=self._canon is not None,
+        )
 
     def _wl_overflow_message(self, flags: int) -> str:
         if flags & 8:
@@ -1020,6 +1212,7 @@ class GpuChecker(Checker):
         out.update(
             engine=self.engine_name,
             device=str(self._device),
+            trace=self._trace,
             capacity=self._capacity,
             log_capacity=self._log_capacity,
             max_frontier=self._max_frontier,
@@ -1038,7 +1231,24 @@ class GpuChecker(Checker):
                 )
             out["table_load_factor"] = self._final_load_factor
         out.update(snap)
+        # The vitals' histograms, one nested key as in the JAX engine.
+        hists = self._metrics.snapshot_histograms()
+        if hists:
+            out["histograms"] = hists
+        if self._tracer is not None:
+            out["trace_summary"] = self._tracer.summary()
         return out
+
+    def trace_summary(self) -> dict:
+        """The finished traced run's roofline reduction: per-phase seconds
+        (``wave_breakdown``), modeled bytes, ``hbm_util_frac`` against the
+        card's peak and ``bottleneck_phase``.  Requires ``trace=True``."""
+        self.join()
+        if self._tracer is None:
+            raise RuntimeError(
+                f"trace_summary() requires {self.spawn_name[:-2]}(trace=True)"
+            )
+        return self._tracer.summary()
 
     def tuned_kwargs(self) -> dict:
         """Spawn kwargs right-sized to this run's final counts, so a fresh

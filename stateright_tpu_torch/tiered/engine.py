@@ -28,7 +28,8 @@ row log is not budgeted: it holds every state's row, as the base engine's
 does.  ``spill`` and ``cold_probe`` journal events carry the JAX engine's
 fields and accounting; snapshots carry the whole cold store under the key
 suffix ``+tiered-v1``, so either package resumes the other's tiered
-snapshot.
+snapshot.  ``trace=True`` times the base engine's phases plus the cold
+filter, as the host-classed ``cold_probe`` phase.
 """
 
 from __future__ import annotations
@@ -101,7 +102,17 @@ class TieredGpuChecker(GpuChecker):
         of two; ``8 * cold_chunk`` bytes).  ``cold_max_runs``: the run
         count past which the cold store merges its runs.  ``cold_dir``:
         keep the runs on disk there, memory-mapped.  Every other keyword is
-        :class:`GpuChecker`'s."""
+        :class:`GpuChecker`'s; with ``trace=True`` each traced wave's
+        breakdown gains ``cold_probe``, the cold filter's host-classed
+        seconds (the whole filter: windowing, K20 passes and the fresh
+        lanes' compaction).  Visitors are refused, as in the JAX
+        engine."""
+        if options._visitor is not None:
+            raise ValueError(
+                "spawn_gpu_tiered() does not support visitors (they "
+                "require the traced readback path); use spawn_gpu for "
+                "visitor-instrumented runs"
+            )
         if not 0.0 < float(spill_threshold) <= 0.5:
             raise ValueError(
                 "spill_threshold must be in (0, 0.5]: the insert flags "
@@ -157,6 +168,8 @@ class TieredGpuChecker(GpuChecker):
 
     # Flag 2 waits for the cold filter and tests the fresh count.
     _filters_new_lanes = True
+    # A traced wave times the cold filter as its own, host-classed phase.
+    _filter_phase = "cold_probe"
 
     def _table_entries(self) -> int:
         """Flag 1 counts the hot table's entries since the last spill, not
@@ -171,7 +184,9 @@ class TieredGpuChecker(GpuChecker):
             self._cold_last = self._cold_filter(wave)
             # Host wall time of the filter: windowing, chunk copies, K20's
             # launches and the fresh count's readback.
-            self._metrics.inc("cold_probe_sec_total", time.monotonic() - t0)
+            sec = time.monotonic() - t0
+            self._metrics.inc("cold_probe_sec_total", sec)
+            self._host_spans.append(("cold_probe", t0, sec))
 
     def _cold_filter(self, wave: Wave) -> dict:
         """Merge-join the wave's hot-new keys against every cold run: the
@@ -320,6 +335,7 @@ class TieredGpuChecker(GpuChecker):
         if self._cold_last is not None:
             out["cold_passes"] = self._cold_last["passes"]
             out["cold_bytes"] = self._cold_last["bytes"]
+        out.update(self._trace_record or {})
         return out
 
     # --- snapshots ----------------------------------------------------------

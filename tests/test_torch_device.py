@@ -156,6 +156,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert gang_eligibility(JobSpec.from_dict({'workload': 'grid_walk'}))[0]\n"
         "for name in workloads.workload_names():\n"
         "    workloads.build_model(name)\n"
+        "c = TwoPhaseSys(rm_count=3).checker().visitor(lambda p: None).spawn_gpu("
+        "device='cpu', capacity=1 << 12).join()\n"
+        "assert c.trace_summary()['traced_waves'] == 11, c.trace_summary()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -1374,3 +1377,100 @@ def test_cuda_gang_matches_cpu_gang_in_fixed_launches():
         assert np.array_equal(a.discovered_fingerprints(),
                               b.discovered_fingerprints())
         assert sorted(a.discoveries()) == sorted(b.discoveries())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_phase,sorted_path", [
+    (False, False), (True, False), (False, True),
+])
+def test_cuda_append_block_matches_twin(two_phase, sorted_path):
+    """K25 against its twin on seeded commits: every row word, parent and
+    ebits word bit-equal, nothing written past the new states."""
+    from stateright_tpu_torch.parallel.append import append_block, append_block_plain
+
+    dev = _card()
+    rng = np.random.default_rng(31)
+    for a, w, f, u in ((52, 2, 4096, 200_000), (64, 77, 512, 40_000)):
+        n_rows = u if two_phase else f * a
+        cand = _t(rng.integers(0, 2**32, size=(n_rows, w), dtype=np.uint32), dev)
+        n_valid = u // 2
+        v_orig = np.zeros(u, np.uint32)
+        v_orig[:n_valid] = np.sort(rng.choice(f * a, n_valid, replace=False))
+        new = torch.from_numpy(np.r_[rng.random(n_valid) < 0.5,
+                                     np.zeros(u - n_valid, bool)]).to(dev)
+        sel, count = compact(new, u)
+        origin = (_t(rng.permutation(u).astype(np.uint32), dev)
+                  if sorted_path else None)
+        eb = _t(rng.integers(0, 2**32, size=f, dtype=np.uint32), dev)
+        n, tail, cap = int(count), 1234, 1234 + u + 10
+        outs = []
+        for fn in (append_block, append_block_plain):
+            logs = (torch.full((cap * w,), 7, dtype=torch.int32, device=dev),
+                    torch.full((cap,), 7, dtype=torch.int32, device=dev),
+                    torch.full((cap,), 7, dtype=torch.int32, device=dev))
+            fn(*logs, sel, origin, _t(v_orig, dev), cand, eb, 99, tail, n, a,
+               two_phase)
+            outs.append(logs)
+        torch.cuda.synchronize()
+        for k, p in zip(*outs):
+            assert torch.equal(k, p)
+        assert bool((outs[0][0][(tail + n) * w:] == 7).all())
+
+
+@pytest.mark.cuda
+def test_cuda_insert_reports_its_probe_figures():
+    """K4's ``with_rounds`` figures: its longest chain and the slots its
+    lanes read, counted again from where each lane's key landed."""
+    from stateright_tpu_torch.parallel.hashset import home_slot
+
+    dev = _card()
+    rng = np.random.default_rng(32)
+    cap = 1 << 16
+    table = HashSet.empty(cap, dev)
+    keys = rng.integers(1, 2**40, size=20_000, dtype=np.uint64)
+    hi = _t((keys >> np.uint64(32)).astype(np.uint32), dev)
+    lo = _t((keys & np.uint64(0xFFFFFFFF)).astype(np.uint32), dev)
+    active = torch.from_numpy(rng.random(20_000) < 0.9).to(dev)
+    new, ok, probe = insert_batch_claim(table, hi, lo, active, with_rounds=True)
+    assert bool(ok)
+    key = (hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
+    slot = home_slot(hi, lo, cap)
+    landed = torch.zeros_like(slot)
+    for _ in range(cap):  # each lane's distance to its key's slot
+        here = table.keys[slot] == key
+        if bool(here[active].all()):
+            break
+        landed = torch.where(here, landed, landed + 1)
+        slot = torch.where(here, slot, (slot + 1) & (cap - 1))
+    reads = landed[active] + 1
+    assert probe.tolist() == [int(reads.max()), int(reads.sum())]
+
+
+@pytest.mark.cuda
+def test_cuda_traced_run_matches_untraced(tmp_path):
+    """A traced card run writes the untraced run's logs; its journal's
+    waves carry a breakdown against the card's (not estimated) peak, no
+    phase above 1.05 of it, and the visitor sees each state once."""
+    from stateright_tpu_torch.core.visitor import StateRecorder
+    from stateright_tpu_torch.runtime.journal import read_journal
+
+    _card()
+    rec, states = StateRecorder.new_with_accessor()
+    journal = str(tmp_path / "t.jsonl")
+    model = TwoPhaseSys(rm_count=5)
+    traced = model.checker().visitor(rec).spawn_gpu(
+        device="cuda", journal=journal, **GEOMETRY).join()
+    plain = model.checker().spawn_gpu(device="cuda", **GEOMETRY).join()
+    for a, b in zip(_logs(traced, tmp_path / "t.npz"), _logs(plain, tmp_path / "p.npz")):
+        assert np.array_equal(a, b)
+    assert len({model.fingerprint(s) for s in states()}) == len(states()) == 8832
+    summary = traced.trace_summary()
+    assert not summary["hbm_peak_estimated"]
+    # The 2**14-slot table grows once: that flagged wave is journaled
+    # without a breakdown, and every committed wave with one.
+    waves = [e for e in read_journal(journal)
+             if e["event"] == "wave" and not e["flags"]]
+    assert len(waves) == summary["traced_waves"]
+    for w in waves:
+        assert sum(w["wave_breakdown"].values()) >= 0.9 * w["call_sec"]
+        assert w["hbm_util_frac"] <= 1.05

@@ -424,9 +424,46 @@ def test_tiered_spawn_validation():
         m.checker().spawn_gpu_tiered(device="cpu", capacity=256, cold_chunk=100)
     with pytest.raises(ValueError, match="memory_budget_mb"):
         m.checker().spawn_gpu_tiered(device="cpu", memory_budget_mb=-1)
-    with pytest.raises(TypeError, match="trace"):
-        m.checker().spawn_gpu_tiered(device="cpu", capacity=256, trace=True)
+    # Traced mode is ported; like the JAX engine's it refuses a resume and
+    # a visitor, with the JAX engine's messages.
+    with pytest.raises(ValueError, match=r"trace=True\) does not support resume_from"):
+        m.checker().spawn_gpu_tiered(device="cpu", capacity=256, trace=True,
+                                     resume_from="never-read.npz")
+    with pytest.raises(ValueError, match="does not support visitors"):
+        m.checker().visitor(lambda path: None).spawn_gpu_tiered(
+            device="cpu", capacity=256)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match=r"spawn_gpu_tiered\(\): no CUDA"):
             m.checker().spawn_gpu_tiered(capacity=256)
 
+
+
+def test_tiered_trace_breaks_out_cold_probe(tmp_path):
+    """The port's mirror of the JAX engine's ``test_tiered_trace_breaks_out_
+    cold_probe``: a traced tiered run that spills gains the host-classed
+    ``cold_probe`` phase in every traced wave's breakdown and still
+    matches the in-HBM run."""
+    journal = str(tmp_path / "trace.jsonl")
+    ref = TwoPhaseSys(rm_count=3).checker().spawn_gpu(
+        device="cpu", capacity=1 << 14, max_frontier=1 << 6).join()
+    t = TwoPhaseSys(rm_count=3).checker().spawn_gpu_tiered(
+        device="cpu", capacity=256, max_frontier=1 << 6, trace=True,
+        journal=journal).join()
+    assert t.unique_state_count() == ref.unique_state_count() == 288
+    assert np.array_equal(t.discovered_fingerprints(),
+                          ref.discovered_fingerprints())
+
+    summary = t.trace_summary()
+    assert summary["traced_waves"] > 0 and summary["engine"] == "gpu-tiered"
+    assert "cold_probe" in summary["wave_breakdown"]
+    assert t.metrics()["trace_summary"]["traced_waves"] == summary["traced_waves"]
+
+    events = read_journal(journal)
+    assert any(e["event"] == "spill" for e in events)
+    assert any(e["event"] == "cold_probe" for e in events)
+    waves = [e for e in events if e["event"] == "wave" and "wave_breakdown" in e]
+    assert waves, "traced waves must journal their phase breakdown"
+    assert all("cold_probe" in w["wave_breakdown"] for w in waves)
+    assert len(waves) == sum(
+        1 for e in events if e["event"] == "wave" and not e["flags"])
+    assert [e["event"] for e in events][-2:] == ["trace_summary", "engine_done"]
