@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the twenty-three CUDA sources of ``stateright_tpu_torch/csrc``
+1. build: compile the twenty-five CUDA sources of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -224,7 +224,30 @@ Phases, in order; any failure exits non-zero:
     checks against phase 6's fingerprints, ``cold_probe`` in every traced
     wave's breakdown;
 51. a visitor on ``2pc check 5``: 8,832 visits, one a state;
-52. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+52. ``paxos check 3`` through ``spawn_gpu_sharded(mesh=["cuda:0"] * 4)``
+    (four shards of the card: K12 and K26 on every sender, the exchange's
+    slice copies, K1, K4 and K27 on every owner): the golden 1,194,428 at
+    depth 28, fingerprints equal to phase 6's, the accounting (waves,
+    all-to-all bytes, occupancy, skew) printed;
+53. ``2pc check 10`` on four shards (2**26 slots a shard): 61,515,776 at
+    depth 32, fingerprints equal to phase 4's, the peak device memory;
+54. ``paxos check 3`` on a 1-shard mesh: the exchange elided, K26 and K12
+    never launched, phase 6's fingerprints;
+55. the paxos C = 2 pin of ``test_tpu_sharded.py:247``: 16,668 at 1/2/4/8
+    shards, each set the single-card run's; at 8 shards at most 250 MB of
+    all-to-all bytes and an occupancy of at least 0.02; ``bucket_slack=1``
+    at 2 shards retries at least once;
+56. ``2pc check-sym 12`` on four shards: 6,656 orbits, K15 launched;
+57. a mid-run checkpoint of phase 52's run (cut at depth 15) resumed on
+    four shards to phase 6's counts and fingerprints, and refused on two
+    with the JAX engine's message;
+58. K26, K27, K1, K4 and K12 (and K15 on sh-sym12) against their twins on
+    the widest waves of phases 52, 53 and 56, captured from the runs: K12
+    and K26 on the sender with the most lanes, K1, K4 (into the owner's
+    table as it stood) and K27 (replayed into fresh tables, equal to what
+    the run wrote) on the owner that committed the most; K26 timed beside
+    ``torch.sort(stable=True)`` of its owner keys;
+59. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -490,6 +513,10 @@ KERNELS = {
                   "stateright_tpu/fleet/gang.py:216"),
     "append_block": ("stateright_tpu_torch/csrc/append.cu",
                      "stateright_tpu/parallel/wavefront.py:1666"),
+    "owner_bucket": ("stateright_tpu_torch/csrc/exchange.cu",
+                     "stateright_tpu/parallel/sharded.py:683"),
+    "shard_commit": ("stateright_tpu_torch/csrc/shard_commit.cu",
+                     "stateright_tpu/parallel/sharded.py:789"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -542,6 +569,15 @@ PATH_KERNELS = {
     "gang-grid": ("grid_walk_gang", "gang_eval", "device_fp64"),
     "gang-cap": ("cap_counter_gang", "gang_eval", "device_fp64"),
     "cap-solo": ("cap_counter",),
+    # The sharded paths on four shards of the card: K26 and K27, and K1, K4
+    # and K12 as the sharded wave runs them (K12 on every sender, K1 and K4
+    # on every owner's receive buffer); K15 under symmetry.
+    "sh-paxos3": ("owner_bucket", "shard_commit", "device_fp64",
+                  "insert_batch_claim", "prededup"),
+    "sh-rm10": ("owner_bucket", "shard_commit", "device_fp64",
+                "insert_batch_claim", "prededup"),
+    "sh-sym12": ("owner_bucket", "shard_commit", "device_fp64",
+                 "insert_batch_claim", "prededup", "canonicalize_rows"),
 }
 ALSO_LAUNCHED = {
     "tiered-paxos3": PATH_KERNELS["paxos3"],
@@ -549,6 +585,10 @@ ALSO_LAUNCHED = {
     "incr-grid": ("device_fp64", "compact", "insert_batch_claim", "wave_eval"),
     "incr-paxos3": PATH_KERNELS["paxos3"],
     "cap-solo": ("device_fp64", "compact", "insert_batch_claim", "wave_eval"),
+    "sh-paxos3": ("compact", "paxos_step_valid", "paxos_conds",
+                  "paxos_step_lane", "wave_eval"),
+    "sh-rm10": ("twophase_step", "compact", "wave_eval"),
+    "sh-sym12": ("twophase_step", "compact", "wave_eval"),
 }
 
 
@@ -841,8 +881,9 @@ def launch_counted():
     )
     from stateright_tpu_torch.fleet.gang import gang_eval
     from stateright_tpu_torch.parallel.append import append_block
+    from stateright_tpu_torch.parallel.exchange import owner_bucket, shard_commit
 
-    return (append_block, device_fp64, twophase_step, compact, insert_batch_claim,
+    return (owner_bucket, shard_commit, append_block, device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
             single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
             paxos_step, canonicalize_rows, lww_step, trap_step,
@@ -3748,6 +3789,367 @@ def phase_gang_kernels(torch, rows, captured):
                 time_ms(torch, lambda: cap_counter_plain(flat_states, limit, cap), 5),
                 k * f * (4 + 4 + 1 + 3))
 
+# The sharded paths: four shards on the one card (``mesh=["cuda:0"] * 4``).
+# paxos check 3: 2**20 slots a shard (about 300K states each, load under
+# 0.3); a shard expands up to 4,096 states a wave into a 32,768-lane
+# buffer (the JAX spawn clamp keeps four buffers inside 244,667 lanes at
+# 45 words).  2pc check 10: 2**26 slots a shard (26 + 2 gid bits; about
+# 15.4M states each, load 0.23) and the JAX clamp's 8,192 states a shard at
+# dedup_factor=4.
+SH_SHARDS = 4
+SH_PAXOS3 = dict(capacity=1 << 22, chunk_size=1 << 12)
+SH_RM10 = dict(capacity=1 << 28, chunk_size=1 << 13)
+SH_SYM12 = dict(capacity=1 << 16, chunk_size=1 << 12)
+SH_PAXOS2 = dict(capacity=1 << 16, chunk_size=1 << 9)  # test_tpu_sharded.py:247
+SH_PAXOS2_MAX_BYTES = 250_000_000
+SH_PAXOS2_MIN_OCCUPANCY = 0.02
+
+
+def sharded_mesh(n=SH_SHARDS):
+    return ["cuda:0"] * n
+
+
+def sharded_device_fps(torch, checker):
+    """A sharded run's identity fingerprints as a sorted int64 tensor on the
+    card: each shard's queue prefix, as :func:`device_fps` reads a log."""
+    from stateright_tpu_torch.ops.device_fp import device_fp64, fp64_of
+
+    parts = []
+    for sh in checker._shards:
+        if sh.tail:
+            rows = sh.store[sh.queue[: sh.tail].long()]
+            parts.append(fp64_of(*device_fp64(checker._identity(rows))))
+    return torch.sort(torch.cat(parts)).values
+
+
+class ShardCapture:
+    """While entered, keeps the inputs of the widest committed waves of a
+    sharded run: the senders' K12 and K26 calls of the wave that sent the
+    most representatives, and the owners' K4 and K27 calls of the wave that
+    committed the most new states (with each owner's tail then)."""
+
+    def __enter__(self):
+        import stateright_tpu_torch.parallel.sharded as sharded
+
+        self.mod = sharded
+        self.saved = {k: getattr(sharded, k) for k in (
+            "prededup", "owner_bucket", "insert_batch_claim", "shard_commit")}
+        self.saved_host = sharded.ShardedGpuChecker._wave_host
+        self.cur = {k: [] for k in self.saved}
+        self.send = self.recv = None
+        self.best_reps = self.best_new = -1
+        cap = self
+
+        def recording(name):
+            fn = cap.saved[name]
+
+            def call(*args, **kw):
+                cap.cur[name].append((args, kw))
+                return fn(*args, **kw)
+
+            return call
+
+        for name in self.saved:
+            setattr(sharded, name, recording(name))
+
+        def host(eng, exp, got, size, sovf):
+            flags = cap.saved_host(eng, exp, got, size, sovf)
+            n = eng._n
+            if not flags:
+                reps = sum(r[5] for r in got)
+                new = sum(r[0] for r in got)
+                if reps > cap.best_reps:
+                    cap.best_reps = reps
+                    cap.send = dict(prededup=cap.cur["prededup"],
+                                    bucket=cap.cur["owner_bucket"])
+                if new > cap.best_new:
+                    cap.best_new = new
+                    cap.recv = dict(insert=cap.cur["insert_batch_claim"][-n:],
+                                    commit=cap.cur["shard_commit"][-n:])
+            cap.cur = {k: [] for k in cap.saved}
+            return flags
+
+        sharded.ShardedGpuChecker._wave_host = host
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+        self.mod.ShardedGpuChecker._wave_host = self.saved_host
+
+
+def run_sharded(torch, gpu, path, builder, kw, want_counts=None):
+    """``builder().spawn_gpu_sharded(**kw)`` on the card with the launch
+    counts read around it (``path``'s kernels must all launch where it is
+    in ``PATH_KERNELS``); logs its counts, time, peak memory and
+    accounting, holds ``(unique, depth)`` to ``want_counts`` (or its
+    first item); returns ``(launches, checker, seconds)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.monotonic()
+    checker = builder().spawn_gpu_sharded(**kw).join()
+    elapsed = time.monotonic() - t0
+    launches = (read_launches(path) if path in PATH_KERNELS
+                else {fn.__name__: fn.launches for fn in launch_counted()})
+    got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
+    peak = torch.cuda.max_memory_allocated() - held
+    acc = checker.accounting()
+    log(f"  {path}: unique={got[0]} states={got[1]} depth={got[2]} "
+        f"waves={acc['waves']} elapsed_s={elapsed:.3f} "
+        f"unique_per_s={got[0] / elapsed:.1f} peak_bytes={peak} card={gpu!r}")
+    log(f"  {path} accounting: {json.dumps(acc)}")
+    log(f"  {path} launches: {launches}")
+    if want_counts is not None and (got[0], got[2])[: len(want_counts)] != want_counts:
+        raise AssertionError(f"{path} (unique, depth) {got} != {want_counts}")
+    return launches, checker, elapsed
+
+
+def same_fps(what, got, want):
+    import numpy as np
+
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: fingerprints differ from the single-card run's")
+    log(f"  {what}: {len(got)} fingerprints equal to the single-card run's")
+
+
+def phase_sh_paxos3(torch, gpu, want_counts, want_fps):
+    """``paxos check 3`` on four shards of the card: phase 6's counts and
+    fingerprints; returns its launches, checker and capture."""
+    with ShardCapture() as cap:
+        launches, checker, _ = run_sharded(
+            torch, gpu, "sh-paxos3", paxos_model(3).checker,
+            dict(mesh=sharded_mesh(), **SH_PAXOS3), want_counts)
+    same_fps("sh-paxos3", checker.discovered_fingerprints(), want_fps)
+    checker.assert_properties()
+    return launches, checker, cap
+
+
+def phase_sh_rm10(torch, gpu, want_counts, want_fps):
+    """``2pc check 10`` on four shards of the card: phase 4's counts and
+    fingerprints, and the peak device memory."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    with ShardCapture() as cap:
+        launches, checker, _ = run_sharded(
+            torch, gpu, "sh-rm10", TwoPhaseSys(rm_count=RM).checker,
+            dict(mesh=sharded_mesh(), **SH_RM10), want_counts)
+    if not torch.equal(sharded_device_fps(torch, checker), want_fps):
+        raise AssertionError("sh-rm10: fingerprints differ from phase 4's")
+    log(f"  sh-rm10: {want_counts[0]} fingerprints equal to phase 4's")
+    checker.assert_properties()
+    return launches, checker, cap
+
+
+def phase_sh1_paxos3(torch, gpu, want_counts, want_fps):
+    """``paxos check 3`` on a 1-shard mesh: the exchange elided, K26 and K12
+    never launched, phase 6's counts and fingerprints."""
+    launches, checker, _ = run_sharded(
+        torch, gpu, "sh1-paxos3", paxos_model(3).checker,
+        dict(mesh=sharded_mesh(1), capacity=1 << 22, chunk_size=1 << 14),
+        want_counts)
+    if launches["owner_bucket"] or launches["prededup"]:
+        raise AssertionError("a 1-shard mesh launched K26 or K12")
+    if not launches["shard_commit"] or not checker.accounting()["exchange_elided"]:
+        raise AssertionError("the 1-shard mesh did not commit through K27 "
+                             "with the exchange elided")
+    same_fps("sh1-paxos3", checker.discovered_fingerprints(), want_fps)
+
+
+def phase_sh_paxos2(torch, gpu):
+    """The paxos C = 2 pin of ``test_tpu_sharded.py:247`` on the card: 16,668
+    at 1/2/4/8 shards, each set the single-card run's; at 8 shards at most
+    250 MB of all-to-all bytes and occupancy >= 0.02; a forced
+    ``bucket_slack=1`` at 2 shards climbs the slack ladder."""
+    single = paxos_model(2).checker().spawn_gpu(
+        capacity=1 << 16, max_frontier=1 << 9).join()
+    want = single.discovered_fingerprints()
+    for n in (1, 2, 4, 8):
+        _l, checker, _ = run_sharded(
+            torch, gpu, f"sh-paxos2-{n}", paxos_model(2).checker,
+            dict(mesh=sharded_mesh(n), **SH_PAXOS2), GOLDEN_PAXOS2[:1])
+        same_fps(f"paxos check 2 on {n} shards", checker.discovered_fingerprints(),
+                 want)
+        if n == 8:
+            acc = checker.accounting()
+            if not (acc["all_to_all_bytes_total"] <= SH_PAXOS2_MAX_BYTES
+                    and acc["exchange_occupancy"] >= SH_PAXOS2_MIN_OCCUPANCY):
+                raise AssertionError(f"8-shard exchange out of its pin: {acc}")
+    _l, forced, _ = run_sharded(
+        torch, gpu, "sh-paxos2-forced", paxos_model(2).checker,
+        dict(mesh=sharded_mesh(2), bucket_slack=1, **SH_PAXOS2),
+        GOLDEN_PAXOS2[:1])
+    same_fps("forced bucket retry", forced.discovered_fingerprints(), want)
+    if forced.accounting()["bucket_retries"] < 1:
+        raise AssertionError("bucket_slack=1 at 2 shards never retried")
+
+
+def phase_sh_sym12(torch, gpu):
+    """``2pc check-sym 12`` on four shards: 6,656 orbits, K15 launched (the
+    canonical fingerprint routes owners)."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    with ShardCapture() as cap:
+        launches, checker, _ = run_sharded(
+            torch, gpu, "sh-sym12", TwoPhaseSys(rm_count=12).checker().symmetry,
+            dict(mesh=sharded_mesh(), **SH_SYM12), GOLDEN_SYM[12][:1])
+    if sorted(checker.discoveries()) != SYM_FOUND:
+        raise AssertionError(f"sh-sym12 found {sorted(checker.discoveries())}")
+    return launches, checker, cap
+
+
+def phase_sh_checkpoint(torch, want_counts, want_fps):
+    """A mid-run checkpoint of sh-paxos3 (the ``checkpoint_every_waves``
+    cadence) resumed by a fresh four-shard spawn to phase 6's counts and
+    fingerprints; resuming it on two shards fails with the JAX message."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sh.npz")
+        cut = paxos_model(3).checker().target_max_depth(15).spawn_gpu_sharded(
+            mesh=sharded_mesh(), checkpoint_path=path, checkpoint_every_waves=8,
+            **SH_PAXOS3).join()
+        log(f"  cut at depth {cut.max_depth()}: {cut.unique_state_count()} states")
+        resumed = paxos_model(3).checker().spawn_gpu_sharded(
+            mesh=sharded_mesh(), resume_from=path, **SH_PAXOS3).join()
+        got = (resumed.unique_state_count(), resumed.max_depth())
+        if got != want_counts:
+            raise AssertionError(f"resumed sharded run {got} != {want_counts}")
+        same_fps("resumed sh-paxos3", resumed.discovered_fingerprints(), want_fps)
+        try:
+            paxos_model(3).checker().spawn_gpu_sharded(
+                mesh=sharded_mesh(2), resume_from=path, **SH_PAXOS3).join()
+        except ValueError as e:
+            if "written on a 4-shard mesh and cannot resume on 2 shards" not in str(e):
+                raise
+            log(f"  a 2-shard resume refused: {str(e)[:80]}...")
+        else:
+            raise AssertionError("a 4-shard snapshot resumed on 2 shards")
+
+
+def phase_shard_kernels(torch, rows, path, checker, cap):
+    """K12 and K26 on the senders of the path's widest wave (the shard with
+    the most active lanes), K1, K4 and K27 on the owner that committed the
+    most of its widest committed wave -- each against its twin, bit-equal,
+    timed; K26 beside ``torch.sort(stable=True)`` of its owner keys, K12
+    beside the same sort of its keys; K27 replayed into fresh tables and
+    held against what the run wrote at those slots and queue positions."""
+    from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
+    from stateright_tpu_torch.parallel.exchange import (
+        owner_bucket, owner_bucket_plain, owner_mix, shard_commit,
+        shard_commit_plain,
+    )
+    from stateright_tpu_torch.parallel.hashset import (
+        HashSet, insert_batch_claim, prededup, prededup_plain,
+    )
+
+    if cap.send is None or cap.recv is None:
+        raise AssertionError(f"{path}: no committed wave was captured")
+    row = kernel_row(rows, path)
+    w = checker._compiled.state_width
+    fpw = checker._fp_words
+    n = checker._n
+
+    # K12: the sender batch with the most active lanes.
+    pd = max(cap.send["prededup"], key=lambda c: int(c[0][2].sum()))
+    v_hi, v_lo, v_act = pd[0][:3]
+    got = prededup(v_hi, v_lo, v_act, 1)
+    want = prededup_plain(v_hi, v_lo, v_act, 1)
+    size = v_hi.shape[0]
+    skey = v_hi.long() * (1 << 32) + (v_lo.long() & 0xFFFFFFFF)
+    row("prededup", max_abs_err(torch, zip(got, want)),
+        time_ms(torch, lambda: prededup(v_hi, v_lo, v_act, 1), 10),
+        time_ms(torch, lambda: prededup_plain(v_hi, v_lo, v_act, 1), 2),
+        size * (4 + 4 + 1) + size * (4 + 4 + 4 + 1),
+        library_ms=time_ms(
+            torch, lambda: torch.sort(skey ^ (-(1 << 63)), stable=True), 10))
+    log(f"  prededup [{path}]: {int(v_act.sum())} active lanes of {size}, "
+        f"{int(got[3].sum())} distinct keys")
+
+    # K26: the sender with the most representatives.
+    args, _kw = max(cap.send["bucket"], key=lambda c: int(c[0][2].sum()))
+    u_hi, u_lo, u_valid = args[:3]
+    bkt = args[10]
+    k = owner_bucket(*args)
+    p = owner_bucket_plain(*args)
+    torch.cuda.synchronize()
+    reps, u = int(u_valid.sum()), u_hi.shape[0]
+    key = torch.where(u_valid, owner_mix(u_hi, u_lo) % n, n)
+    row("owner_bucket", max_abs_err(torch, zip(k, p)),
+        time_ms(torch, lambda: owner_bucket(*args), 10),
+        time_ms(torch, lambda: owner_bucket_plain(*args), 2),
+        u * (4 + 4 + 1) + reps * (4 + 4 + 4 * w + 8) + n * bkt * (w + 3) * 4,
+        library_ms=time_ms(torch, lambda: torch.sort(key, stable=True), 10))
+    log(f"  owner_bucket [{path}]: {reps} representatives of {u} lanes into "
+        f"{n} buckets of {bkt}, counts {k[1].tolist()}")
+
+    # K1, K4 and K27: the owner that committed the most in its widest wave.
+    commits = cap.recv["commit"]
+    d = max(range(len(commits)), key=lambda i: int(commits[i][0][0].sum()))
+    (is_new, slot, origin, rrows, gid, eb, store, parent, ebits, queue,
+     tail), _kw = commits[d]
+    sh = checker._shards[d]
+    ins_args = cap.recv["insert"][d][0]
+    hi, lo, rv = ins_args[1:4]
+    ident = checker._identity(rrows)
+    k1 = device_fp64(ident)
+    p1 = device_fp64_plain(ident)
+    torch.cuda.synchronize()
+    row("device_fp64", max_abs_err(torch, zip(k1, p1)) +
+        max_abs_err(torch, zip(k1, (hi, lo))),
+        time_ms(torch, lambda: device_fp64(ident), 10),
+        time_ms(torch, lambda: device_fp64_plain(ident), 2),
+        ident.shape[0] * (4 * fpw + 8))
+    # The owner's table as it stood: every state of its queue before.
+    table = HashSet.empty(checker._cap_s, hi.device)
+    before = sh.store[sh.queue[:tail].long()]
+    b_hi, b_lo = device_fp64(checker._identity(before))
+    insert_batch_claim(table, b_hi, b_lo,
+                       torch.ones((tail,), dtype=torch.bool, device=hi.device))
+    log(f"  owner {d}: a table of {tail} states, {int(rv.sum())} received keys")
+    check_insert(torch, row, table, hi, lo, rv)
+    del table
+
+    n_new = int(is_new.sum())
+    fresh = [torch.zeros_like(t) for t in (sh.store, sh.parent, sh.ebits, sh.queue)]
+    plain = [t.clone() for t in fresh]
+    kn = shard_commit(is_new, slot, origin, rrows, gid, eb, *fresh, tail)
+    pn = shard_commit_plain(is_new, slot, origin, rrows, gid, eb, *plain, tail)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [(kn, pn)] + list(zip(fresh, plain)))
+    s_new = slot[is_new].long()
+    ran = (
+        torch.equal(fresh[0][s_new], sh.store[s_new])
+        and torch.equal(fresh[1][s_new], sh.parent[s_new])
+        and torch.equal(fresh[2][s_new], sh.ebits[s_new])
+        and torch.equal(fresh[3][tail : tail + n_new], sh.queue[tail : tail + n_new])
+    )
+    if not ran:
+        raise AssertionError(f"{path}: K27's replay does not write what the run did")
+    log(f"  shard_commit [{path}]: {n_new} new of {is_new.shape[0]} lanes at "
+        f"tail {tail}, equal to what the run wrote")
+    idx_words = 1 if origin is None else 2
+    row("shard_commit", err,
+        time_ms(torch, lambda: shard_commit(is_new, slot, origin, rrows, gid, eb,
+                                            *fresh, tail), 10),
+        time_ms(torch, lambda: shard_commit_plain(is_new, slot, origin, rrows, gid,
+                                                  eb, *plain, tail), 2),
+        is_new.shape[0] + n_new * (4 * idx_words + 2 * (4 * w + 8) + 4))
+    if path == "sh-sym12":
+        from stateright_tpu_torch.parallel.canon import (
+            canonicalize_rows, canonicalize_rows_plain,
+        )
+
+        spec = checker._compiled.canon_spec()
+        flat = rrows.contiguous()
+        k15 = canonicalize_rows(spec, flat)
+        p15 = canonicalize_rows_plain(spec, flat)
+        torch.cuda.synchronize()
+        row("canonicalize_rows", max_abs_err(torch, [(k15, p15)]),
+            time_ms(torch, lambda: canonicalize_rows(spec, flat), 10),
+            time_ms(torch, lambda: canonicalize_rows_plain(spec, flat), 2),
+            flat.shape[0] * w * 4 * 2)
+
+
 def main() -> int:
     use_one_card()
     try:
@@ -4038,7 +4440,7 @@ def main() -> int:
     log("phase 48: traced 2pc check 10 against phase 4's run, and K25 on "
         "its widest commit")
     phase_traced_rm10(torch, gpu, rows, rm10_counts, rm10_logs, rm10_fps)
-    del rm10_logs, rm10_fps
+    del rm10_logs
     torch.cuda.empty_cache()
 
     log("phase 49: traced paxos check 3 against phase 6's run, and K25 on "
@@ -4049,11 +4451,52 @@ def main() -> int:
 
     log("phase 50: traced tiered paxos check 3, with its cold_probe phase")
     phase_traced_tiered_paxos3(torch, gpu, paxos3_counts, paxos3_fps)
-    del paxos3_fps
     torch.cuda.empty_cache()
 
     log("phase 51: a visitor on 2pc check 5")
     phase_visitor_rm5(torch)
+
+    log("phase 52: paxos check 3 on four shards of the card (K26, K27), "
+        "against phase 6's fingerprints")
+    launches["sh-paxos3"], sh_paxos3, sh_paxos3_cap = phase_sh_paxos3(
+        torch, gpu, GOLDEN_PAXOS3, paxos3_fps)
+    torch.cuda.empty_cache()
+
+    log("phase 53: 2pc check 10 on four shards of the card, against phase "
+        "4's fingerprints")
+    launches["sh-rm10"], sh_rm10, sh_rm10_cap = phase_sh_rm10(
+        torch, gpu, GOLDEN_RM10, rm10_fps)
+    del rm10_fps
+    torch.cuda.empty_cache()
+
+    log("phase 54: paxos check 3 on a 1-shard mesh: the exchange elided")
+    phase_sh1_paxos3(torch, gpu, GOLDEN_PAXOS3, paxos3_fps)
+    torch.cuda.empty_cache()
+
+    log("phase 55: paxos check 2 at 1/2/4/8 shards, and a forced bucket "
+        "retry")
+    phase_sh_paxos2(torch, gpu)
+
+    log("phase 56: 2pc check-sym 12 on four shards")
+    launches["sh-sym12"], sh_sym12, sh_sym12_cap = phase_sh_sym12(torch, gpu)
+
+    log("phase 57: a mid-run checkpoint of sh-paxos3 resumed on four shards "
+        "and refused on two")
+    phase_sh_checkpoint(torch, GOLDEN_PAXOS3, paxos3_fps)
+    del paxos3_fps
+    torch.cuda.empty_cache()
+
+    log("phase 58: K26, K27, K1, K4 and K12 against their twins on the "
+        "sharded paths' widest waves (and K15 on sh-sym12's)")
+    phase_shard_kernels(torch, rows, "sh-paxos3", sh_paxos3, sh_paxos3_cap)
+    del sh_paxos3, sh_paxos3_cap
+    torch.cuda.empty_cache()
+    phase_shard_kernels(torch, rows, "sh-rm10", sh_rm10, sh_rm10_cap)
+    del sh_rm10, sh_rm10_cap
+    torch.cuda.empty_cache()
+    phase_shard_kernels(torch, rows, "sh-sym12", sh_sym12, sh_sym12_cap)
+    del sh_sym12, sh_sym12_cap
+    torch.cuda.empty_cache()
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []

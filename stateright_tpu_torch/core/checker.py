@@ -4,9 +4,11 @@ Reference: src/checker.rs -- ``CheckerBuilder`` (fluent config + spawn) and
 the ``Checker`` trait (counts, discoveries, join/report, assertion helpers).
 The port's builder carries the options its GPU engines read and spawns
 them with :meth:`CheckerBuilder.spawn_gpu`,
-:meth:`CheckerBuilder.spawn_gpu_tiered` and
+:meth:`CheckerBuilder.spawn_gpu_tiered`,
+:meth:`CheckerBuilder.spawn_gpu_sharded` and
 :meth:`CheckerBuilder.spawn_gpu_simulation`, the counterparts of the JAX
-package's ``spawn_tpu``, ``spawn_tpu_tiered`` and ``spawn_tpu_simulation``.
+package's ``spawn_tpu``, ``spawn_tpu_tiered``, ``spawn_tpu_sharded`` and
+``spawn_tpu_simulation``.
 """
 
 from __future__ import annotations
@@ -103,6 +105,24 @@ class CheckerBuilder:
         from ..tiered.engine import TieredGpuChecker
 
         return TieredGpuChecker(self, **kwargs)
+
+    def spawn_gpu_sharded(self, **kwargs) -> "Checker":
+        """Spawn the sharded wavefront checker (parallel/sharded.py), the
+        counterpart of the JAX package's ``spawn_tpu_sharded``: the
+        frontier and the fingerprint table split over ``mesh`` (a list of
+        devices, one a shard; repeats put several shards on one card) by
+        fingerprint ownership, successors routed to their owner shard each
+        wave (K26, the exchange) and committed there (K4, K27).  It takes
+        the JAX spawn's arguments (``capacity``, ``chunk_size``,
+        ``dedup_factor``, ``bucket_slack``, ``sort_lanes``, ``sortless``,
+        ``step_lanes``, ``waves_per_call``, the journal and checkpoint
+        knobs, ``resume_from`` on a mesh of the same size) and adds
+        ``accounting()``.  ``mesh`` defaults to one shard on each visible
+        card and raises where there is none; ``mesh=["cpu"] * n`` runs the
+        plain-torch twins.  ``trace=True`` is not ported yet (it raises)."""
+        from ..parallel.sharded import ShardedGpuChecker
+
+        return ShardedGpuChecker(self, **kwargs)
 
     def spawn_gpu_simulation(self, seed: int, walkers: int = 1024,
                              max_trace_len: Optional[int] = None,

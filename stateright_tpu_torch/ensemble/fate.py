@@ -196,7 +196,7 @@ def fate_mask(t: int, ctr: torch.Tensor, params: Dict[str, torch.Tensor]) -> tor
         int(t), k, lanes, cuda.ptr(ctr),
         *(cuda.ptr(p[name]) for name in LANE_PARAMS),
         *(cuda.ptr(p[name]) for name in MEMBER_PARAMS),
-        cuda.ptr(blocked), cuda.stream(),
+        cuda.ptr(blocked), cuda.stream(blocked),
     )
     cuda.check(code, "fate", "fate_mask")
     return blocked

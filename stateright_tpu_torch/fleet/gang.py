@@ -270,7 +270,7 @@ def gang_eval(conds: torch.Tensor, valid: torch.Tensor, active: torch.Tensor,
     gang_eval.launches += 1
     code = fn(cuda.ptr(conds), cuda.ptr(valid), cuda.ptr(active),
               cuda.ptr(undisc), k, f, p, a, always, cuda.ptr(generated),
-              cuda.ptr(first), cuda.stream())
+              cuda.ptr(first), cuda.stream(conds))
     cuda.check(code, "gang", "gang_eval")
     return valid, generated, first
 

@@ -96,7 +96,7 @@ def first_hits(conds: torch.Tensor, n: int, always: int, sometimes: int,
     )
     first_hits.launches += 1
     code = fn(cuda.ptr(conds), n, p, always, sometimes, start,
-              cuda.ptr(slots), cuda.stream())
+              cuda.ptr(slots), cuda.stream(conds))
     cuda.check(code, "recheck", "first_hits")
     return slots
 

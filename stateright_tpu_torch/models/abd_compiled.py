@@ -808,7 +808,7 @@ def abd_step(states: torch.Tensor, c: int, ordered: bool, skip_ack: bool,
     abd_step.launches += 1
     code = fn(
         cuda.ptr(states), f, c, int(ordered), int(skip_ack), cuda.ptr(nexts),
-        cuda.ptr(valid), cuda.ptr(conds), cuda.ptr(flags), cuda.stream(),
+        cuda.ptr(valid), cuda.ptr(conds), cuda.ptr(flags), cuda.stream(nexts),
     )
     cuda.check(code, "abd_step", "abd_step")
     return nexts, valid, conds, flags if flag_rows else flags.any()

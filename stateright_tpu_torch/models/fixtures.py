@@ -175,7 +175,7 @@ def trap_step(states: torch.Tensor, limit: int, trap_at: int, trap_state: int):
     trap_step.launches += 1
     code = fn(
         cuda.ptr(states), f, limit, trap_at, trap_state, cuda.ptr(nexts),
-        cuda.ptr(valid), cuda.ptr(conds), cuda.stream(),
+        cuda.ptr(valid), cuda.ptr(conds), cuda.stream(nexts),
     )
     cuda.check(code, "fixtures_step", "trap_step")
     return nexts, valid, conds
@@ -342,7 +342,7 @@ def grid_walk(states: torch.Tensor, bound: int):
     )
     grid_walk.launches += 1
     code = fn(cuda.ptr(states), f, bound, cuda.ptr(nexts), cuda.ptr(valid),
-              cuda.ptr(conds), cuda.stream())
+              cuda.ptr(conds), cuda.stream(nexts))
     cuda.check(code, "fixtures_step", "grid_walk")
     return nexts, valid, conds
 
@@ -424,7 +424,7 @@ def grid_walk_gang(states: torch.Tensor, consts: torch.Tensor, out=None):
     )
     grid_walk_gang.launches += 1
     code = fn(cuda.ptr(states), cuda.ptr(consts), k, f, cuda.ptr(nexts),
-              cuda.ptr(valid), cuda.ptr(conds), cuda.stream())
+              cuda.ptr(valid), cuda.ptr(conds), cuda.stream(nexts))
     cuda.check(code, "fixtures_step", "grid_walk_gang")
     return nexts, valid, conds
 
@@ -566,7 +566,7 @@ def cap_counter(states: torch.Tensor, limit: int, cap: int):
     )
     cap_counter.launches += 1
     code = fn(cuda.ptr(states), f, limit, cap, cuda.ptr(nexts), cuda.ptr(valid),
-              cuda.ptr(conds), cuda.stream())
+              cuda.ptr(conds), cuda.stream(nexts))
     cuda.check(code, "fixtures_step", "cap_counter")
     return nexts, valid, conds
 
@@ -597,7 +597,7 @@ def cap_counter_gang(states: torch.Tensor, consts: torch.Tensor, out=None):
     )
     cap_counter_gang.launches += 1
     code = fn(cuda.ptr(states), cuda.ptr(consts), k, f, cuda.ptr(nexts),
-              cuda.ptr(valid), cuda.ptr(conds), cuda.stream())
+              cuda.ptr(valid), cuda.ptr(conds), cuda.stream(nexts))
     cuda.check(code, "fixtures_step", "cap_counter_gang")
     return nexts, valid, conds
 

@@ -365,7 +365,7 @@ def lww_step(states: torch.Tensor, n: int):
     lww_step.launches += 1
     code = fn(
         cuda.ptr(states), f, n, cuda.ptr(nexts), cuda.ptr(valid),
-        cuda.ptr(flags), cuda.ptr(conds), cuda.stream(),
+        cuda.ptr(flags), cuda.ptr(conds), cuda.stream(nexts),
     )
     cuda.check(code, "lww_step", "lww_step")
     return nexts, valid, flags, conds

@@ -875,7 +875,7 @@ def paxos_step_valid(states: torch.Tensor, c: int) -> torch.Tensor:
         [cuda.P, cuda.I64, cuda.I32, cuda.P, cuda.P],
     )
     paxos_step_valid.launches += 1
-    code = fn(cuda.ptr(states), f, c, cuda.ptr(valid), cuda.stream())
+    code = fn(cuda.ptr(states), f, c, cuda.ptr(valid), cuda.stream(valid))
     cuda.check(code, "paxos_valid", "paxos_step_valid")
     return valid
 
@@ -904,7 +904,7 @@ def paxos_step_lane(states, v_orig, count, c: int):
     paxos_step_lane.launches += 1
     code = fn(
         cuda.ptr(states), states.shape[0], c, cuda.ptr(v_orig), u,
-        cuda.ptr(count), cuda.ptr(nexts), cuda.ptr(flags), cuda.stream(),
+        cuda.ptr(count), cuda.ptr(nexts), cuda.ptr(flags), cuda.stream(nexts),
     )
     cuda.check(code, "paxos_lane", "paxos_step_lane")
     return nexts, flags
@@ -929,7 +929,7 @@ def paxos_conds(states: torch.Tensor, c: int, never_decided: bool) -> torch.Tens
     paxos_conds.launches += 1
     code = fn(
         cuda.ptr(states), f, c, int(never_decided), cuda.ptr(conds),
-        cuda.stream(),
+        cuda.stream(conds),
     )
     cuda.check(code, "paxos_conds", "paxos_conds")
     return conds
@@ -962,7 +962,7 @@ def paxos_step(states: torch.Tensor, c: int, max_round: Optional[int],
     bound = 0xFFFFFFFF if max_round is None else max_round
     code = fn(
         cuda.ptr(states), f, c, bound, cuda.ptr(nexts), cuda.ptr(valid),
-        cuda.ptr(flags), cuda.stream(),
+        cuda.ptr(flags), cuda.stream(nexts),
     )
     cuda.check(code, "paxos_step", "paxos_step")
     rows_flag = flags.any(dim=1)

@@ -248,7 +248,7 @@ def ping_pong_step(states: torch.Tensor, max_nat: int, lossy: bool,
     ping_pong_step.launches += 1
     code = fn(
         cuda.ptr(states), f, max_nat, int(lossy), int(bounded), cuda.ptr(nexts),
-        cuda.ptr(valid), cuda.ptr(conds), cuda.stream(),
+        cuda.ptr(valid), cuda.ptr(conds), cuda.stream(nexts),
     )
     cuda.check(code, "ping_pong_step", "ping_pong_step")
     return nexts, valid, conds

@@ -1012,7 +1012,7 @@ def raft_step(states: torch.Tensor, max_crashes: int, flag_rows: bool = False):
     raft_step.launches += 1
     code = fn(
         cuda.ptr(states), f, max_crashes, *fresh, cuda.ptr(nexts),
-        cuda.ptr(valid), cuda.ptr(conds), cuda.ptr(flags), cuda.stream(),
+        cuda.ptr(valid), cuda.ptr(conds), cuda.ptr(flags), cuda.stream(nexts),
     )
     cuda.check(code, "raft_step", "raft_step")
     return nexts, valid, conds, flags if flag_rows else flags.any()

@@ -342,7 +342,7 @@ def single_copy_step(states: torch.Tensor, s: int, c: int,
     single_copy_step.launches += 1
     code = fn(
         cuda.ptr(states), f, s, c, cuda.ptr(nexts), cuda.ptr(valid),
-        cuda.ptr(conds), cuda.ptr(flags), cuda.stream(),
+        cuda.ptr(conds), cuda.ptr(flags), cuda.stream(nexts),
     )
     cuda.check(code, "single_copy_step", "single_copy_step")
     return nexts, valid, conds, flags if flag_rows else flags.any()

@@ -78,7 +78,7 @@ def twophase_step(
     twophase_step.launches += 1
     code = fn(
         cuda.ptr(states), f, n, cuda.ptr(nexts), cuda.ptr(valid),
-        cuda.ptr(conds), cuda.stream(),
+        cuda.ptr(conds), cuda.stream(nexts),
     )
     cuda.check(code, "twophase_step", "twophase_step")
     return nexts, valid, conds
@@ -126,7 +126,7 @@ def twophase_conds(
     )
     twophase_conds.launches += 1
     code = fn(cuda.ptr(states), f, n, int(some_prepared), cuda.ptr(conds),
-              cuda.stream())
+              cuda.stream(conds))
     cuda.check(code, "twophase_step", "twophase_conds")
     return conds
 

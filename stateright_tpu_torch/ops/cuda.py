@@ -10,7 +10,10 @@ started together.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` after its launches; :func:`check` raises on a nonzero
-code.  Nothing here runs on import: the CPU tests import every module of the
+code.  A launch takes its stream from a tensor it writes (:func:`stream`)
+and runs under that tensor's device (:func:`function`'s entries), so a
+kernel of a shard on another card launches there, whatever the current
+device.  Nothing here runs on import: the CPU tests import every module of the
 package on a machine with no ``nvcc`` and no card.
 """
 
@@ -35,6 +38,7 @@ SOURCES = (
     "prededup", "ping_pong_step", "paxos_step",
     "canon", "lww_step", "fixtures_step",
     "walk", "fate", "cold", "recheck", "gang", "append",
+    "exchange", "shard_commit",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,7 +53,34 @@ I64 = ctypes.c_int64
 U64 = ctypes.c_uint64
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_FUNCS: Dict[tuple, object] = {}
+_FUNCS: Dict[tuple, "_Entry"] = {}
+
+
+class Stream:
+    """A launch's stream: the current stream of a tensor's device, and that
+    device, under which the launch runs."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.handle = P(torch.cuda.current_stream(device).cuda_stream)
+
+
+class _Entry:
+    """A C entry point whose last argument is a :class:`Stream`: the call
+    runs under the stream's device, so the kernel launches on the card
+    that holds its tensors, not on the current one."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        s = args[-1]
+        if not isinstance(s, Stream):
+            raise TypeError("a launch's last argument is cuda.stream(tensor)")
+        if s.device.index == torch.cuda.current_device():
+            return self.fn(*args[:-1], s.handle)
+        with torch.cuda.device(s.device):
+            return self.fn(*args[:-1], s.handle)
 
 
 def nvcc() -> str:
@@ -124,7 +155,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 def function(lib_name: str, symbol: str, argtypes):
     """The C entry point ``symbol`` of ``lib<lib_name>.so`` (built on first
     use) with its argument types declared -- pointers and the stream as
-    ``c_void_p``, so ctypes never cuts them to 32 bits."""
+    ``c_void_p``, so ctypes never cuts them to 32 bits -- called with a
+    :func:`stream` last, under whose device it launches."""
     fn = _FUNCS.get((lib_name, symbol))
     if fn is not None:
         return fn
@@ -138,8 +170,8 @@ def function(lib_name: str, symbol: str, argtypes):
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = I32
-    _FUNCS[(lib_name, symbol)] = fn
-    return fn
+    entry = _FUNCS[(lib_name, symbol)] = _Entry(fn)
+    return entry
 
 
 def check(code: int, lib_name: str, what: str) -> None:
@@ -153,8 +185,10 @@ def ptr(t: torch.Tensor) -> P:
     return P(t.data_ptr())
 
 
-def stream() -> P:
-    return P(torch.cuda.current_stream().cuda_stream)
+def stream(t: torch.Tensor) -> Stream:
+    """The stream a launch on ``t``'s card runs on: that device's current
+    stream (not the current device's)."""
+    return Stream(t.device)
 
 
 def resolve_device(device, what: str) -> torch.device:

@@ -62,7 +62,7 @@ def device_fp64(words: torch.Tensor, out=None) -> Tuple[torch.Tensor, torch.Tens
     )
     device_fp64.launches += 1
     code = fn(cuda.ptr(words), n, w, stride, cuda.ptr(hi), cuda.ptr(lo),
-              cuda.stream())
+              cuda.stream(hi))
     cuda.check(code, "device_fp", "device_fp64")
     return hi, lo
 

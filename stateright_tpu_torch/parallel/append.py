@@ -72,7 +72,7 @@ def append_block(rows: torch.Tensor, parent: torch.Tensor,
         cuda.ptr(rows), cuda.ptr(parent), cuda.ptr(ebits), cuda.ptr(sel),
         cuda.P(None) if u_origin is None else cuda.ptr(u_origin),
         cuda.ptr(v_orig), cuda.ptr(cand_rows), cuda.ptr(eb), lo_pos, tail,
-        n_new, a, w, int(two_phase), cuda.stream(),
+        n_new, a, w, int(two_phase), cuda.stream(rows),
     )
     cuda.check(code, "append", "append_block")
 

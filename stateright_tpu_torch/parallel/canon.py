@@ -272,7 +272,7 @@ def _canonicalize(spec: CanonSpec, rows: torch.Tensor) -> torch.Tensor:
     )
     canonicalize_rows.launches += 1
     code = fn(cuda.ptr(rows), b, w, arr, len(words), cuda.ptr(out),
-              cuda.stream())
+              cuda.stream(out))
     cuda.check(code, "canon", "canonicalize_rows")
     return out
 

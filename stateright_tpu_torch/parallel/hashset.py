@@ -210,7 +210,7 @@ def _sorted_runs(hi, lo, active):
     code = fn(
         cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, cuda.ptr(keys),
         cuda.ptr(keys_tmp), cuda.ptr(lanes), cuda.ptr(lanes_tmp),
-        cuda.ptr(counts), cuda.ptr(rep), cuda.stream(),
+        cuda.ptr(counts), cuda.ptr(rep), cuda.stream(hi),
     )
     cuda.check(code, "prededup", "prededup")
     return keys, lanes, rep
@@ -232,7 +232,7 @@ def _sorted_runs_plain(hi, lo, active):
 
 def insert_batch_claim(
     table: HashSet, hi: torch.Tensor, lo: torch.Tensor, active: torch.Tensor,
-    with_rounds: bool = False,
+    with_rounds: bool = False, with_slots: bool = False,
 ):
     """Sortless insert-if-absent of a key batch, IN PLACE.
 
@@ -248,12 +248,22 @@ def insert_batch_claim(
     device tensor (the traced wave's byte model reads them,
     ``obs/roofline.py``): ``[0]`` the twin's count of lockstep claim
     rounds -- the JAX ``with_rounds`` count -- or K4's longest probe
-    chain in slots, and ``[1]`` the table slots the lanes read."""
+    chain in slots, and ``[1]`` the table slots the lanes read.
+
+    ``with_slots=True`` appends each lane's slot, int32[B]: where its key
+    lies after the call for an active lane (new or present), -1 for an
+    inactive one -- the JAX ``insert_batch_claim``'s ``slot``, which the
+    sharded engine's commit scatters rows to.  Slots of keys that
+    contended for one empty slot are the twin's (lockstep rounds, lowest
+    lane first) on the CPU; on the card each key lands somewhere on its
+    probe run, so slot-indexed layouts hold the same states, maybe at
+    other slots."""
     if hi.device.type == "cpu":
-        new, ok, probe = insert_batch_claim_plain(
-            table.keys, hi, lo, active, with_rounds=True
+        new, ok, probe, slot = insert_batch_claim_plain(
+            table.keys, hi, lo, active, with_rounds=True, with_slots=True
         )
-        return (new, ok, probe) if with_rounds else (new, ok)
+        out = (new, ok) + ((probe,) if with_rounds else ())
+        return out + ((slot,) if with_slots else ())
     dev = hi.device
     n = hi.shape[0]
     cuda.require(table.keys, "table.keys", torch.int64, 1, dev)
@@ -282,10 +292,11 @@ def insert_batch_claim(
         cuda.ptr(table.keys), cuda.ptr(table.meta), table.capacity,
         cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, table.epoch,
         cuda.ptr(slot), cuda.ptr(is_new), cuda.ptr(ok),
-        cuda.P(None) if probe is None else cuda.ptr(probe), cuda.stream(),
+        cuda.P(None) if probe is None else cuda.ptr(probe), cuda.stream(table.keys),
     )
     cuda.check(code, "hashset", "insert_batch_claim")
-    return (is_new, ok != 0, probe) if with_rounds else (is_new, ok != 0)
+    out = (is_new, ok != 0) + ((probe,) if with_rounds else ())
+    return out + ((slot,) if with_slots else ())
 
 
 insert_batch_claim.launches = 0
@@ -293,7 +304,7 @@ insert_batch_claim.launches = 0
 
 def insert_batch_claim_plain(
     keys: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, active: torch.Tensor,
-    with_rounds: bool = False,
+    with_rounds: bool = False, with_slots: bool = False,
 ):
     """Plain-torch twin of the K4 kernel (any device), IN PLACE on ``keys``:
     the JAX ``_probe_rounds(elect=True)`` round by round.  Each round every
@@ -306,7 +317,8 @@ def insert_batch_claim_plain(
     its round count is the JAX ``_probe_rounds`` count (main and straggler
     rounds together: the straggler rounds continue the same lanes from
     the same slots), and a lane that re-reads its slot after a lost claim
-    counts that read."""
+    counts that read.  With ``with_slots`` it also returns each lane's
+    slot (int32, -1 for an inactive or unplaced lane)."""
     cap = keys.shape[0]
     dev = keys.device
     n = hi.shape[0]
@@ -315,6 +327,7 @@ def insert_batch_claim_plain(
     lane = torch.nonzero(active).flatten()
     slot = home_slot(hi[lane], lo[lane], cap)
     claim = torch.full((cap,), _I64_MAX, dtype=torch.int64, device=dev)
+    slot_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
     rounds = slots = 0
     while lane.numel() and rounds < 4 * cap:
         slots += lane.numel()
@@ -327,14 +340,16 @@ def insert_batch_claim_plain(
         keys[slot[won]] = k[won]
         new[lane[won]] = True
         undone = ~(present | won)
+        slot_out[lane[~undone]] = i32(slot[~undone])
         advance = undone & ~empty
         slot = torch.where(advance, (slot + 1) & (cap - 1), slot)
         lane, slot = lane[undone], slot[undone]
         rounds += 1
     ok = torch.tensor(lane.numel() == 0, device=dev)
-    if not with_rounds:
-        return new, ok
-    return new, ok, torch.tensor([rounds, slots], dtype=torch.int64, device=dev)
+    out = (new, ok)
+    if with_rounds:
+        out += (torch.tensor([rounds, slots], dtype=torch.int64, device=dev),)
+    return out + ((slot_out,) if with_slots else ())
 
 
 def insert_batch_compact(table: HashSet, hi, lo, active,

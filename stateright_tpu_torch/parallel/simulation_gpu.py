@@ -164,7 +164,7 @@ def walker_keys(base: torch.Tensor, w0: int, n: int, device) -> torch.Tensor:
     keys = torch.empty((n, 2), dtype=torch.int32, device=device)
     fn = _fn("sr_walk_keys", [cuda.U32, cuda.U32, cuda.U32, cuda.I64, cuda.P, cuda.P])
     walker_keys.launches += 1
-    code = fn(k0, k1, w0 & M32, n, cuda.ptr(keys), cuda.stream())
+    code = fn(k0, k1, w0 & M32, n, cuda.ptr(keys), cuda.stream(keys))
     cuda.check(code, "walk", "walker_keys")
     return keys
 
@@ -188,7 +188,7 @@ def walk_init(carry: WalkCarry, init: torch.Tensor) -> None:
     fn = _fn("sr_walk_init", [cuda.I64, cuda.I32, cuda.I32, cuda.P, cuda.P, cuda.P, cuda.P])
     walk_init.launches += 1
     code = fn(b, init.shape[0], w, cuda.ptr(init), cuda.ptr(carry.key),
-              cuda.ptr(carry.state), cuda.stream())
+              cuda.ptr(carry.state), cuda.stream(carry.key))
     cuda.check(code, "walk", "walk_init")
 
 
@@ -242,7 +242,7 @@ def walk_step(carry: WalkCarry, t: int, props: WalkProps, hi, lo,
         cuda.ptr(carry.state), cuda.ptr(carry.hist_hi), cuda.ptr(carry.hist_lo),
         cuda.ptr(carry.trace), cuda.ptr(carry.ebits), cuda.ptr(carry.disc),
         cuda.ptr(carry.done), cuda.ptr(carry.counted), cuda.ptr(carry.appended),
-        cuda.ptr(carry.flag), cuda.ptr(carry.key), cuda.stream(),
+        cuda.ptr(carry.flag), cuda.ptr(carry.key), cuda.stream(carry.key),
     )
     cuda.check(code, "walk", "walk_step")
 
@@ -318,7 +318,7 @@ def walk_finish(carry: WalkCarry, props: WalkProps) -> None:
     walk_finish.launches += 1
     code = fn(b, props.count, props.eventually, cuda.ptr(carry.done),
               cuda.ptr(carry.ebits), cuda.ptr(carry.appended),
-              cuda.ptr(carry.disc), cuda.stream())
+              cuda.ptr(carry.disc), cuda.stream(carry.disc))
     cuda.check(code, "walk", "walk_finish")
 
 

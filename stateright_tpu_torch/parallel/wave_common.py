@@ -48,7 +48,7 @@ def compact(mask: torch.Tensor, size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     compact.launches += 1
     code = fn(
         cuda.ptr(mask), n, cuda.ptr(out), size, cuda.ptr(scratch),
-        cuda.ptr(count), cuda.stream(),
+        cuda.ptr(count), cuda.stream(mask),
     )
     cuda.check(code, "compact", "compact")
     return out, count
@@ -71,6 +71,34 @@ def compact_plain(
     if n == 0:
         return buf[:size].clone(), torch.zeros((), dtype=torch.int64, device=mask.device)
     return buf[:size].clone(), pos[-1] + 1
+
+
+def finish_when_trivially_true(fw, props) -> bool:
+    """Policies that match with zero discoveries (ALL with no properties,
+    ALL_FAILURES with no failure property, ALL_OF nothing): only the host
+    check after a wave stops those -- the JAX package's rule."""
+    fail_props = [p for p in props if p.expectation.discovery_is_failure]
+    return (
+        (fw._kind == "all" and not props)
+        or (fw._kind == "all_failures" and not fail_props)
+        or (fw._kind == "all_of" and not fw._names)
+    )
+
+
+def default_waves_per_call(options) -> int:
+    """The JAX engines' waves between two host checks: 1 where the host
+    alone can stop the run (a wall ``timeout``, ``target_state_count``, a
+    trivially-true ``finish_when``), else 256.  The port's sharded engine
+    folds its shards' discoveries at these boundaries, as the JAX loop
+    reads them back."""
+    fine_grained = (
+        options._timeout is not None
+        or options._target_state_count is not None
+        or finish_when_trivially_true(
+            options._finish_when, options.model.properties()
+        )
+    )
+    return 1 if fine_grained else 256
 
 
 def make_finish_when_device(fw, props):
@@ -151,7 +179,7 @@ def wave_eval(conds: torch.Tensor, valid: torch.Tensor, eb: torch.Tensor,
     code = fn(
         cuda.ptr(conds), f, p, cuda.ptr(valid), valid.shape[1], cuda.ptr(eb),
         cuda.ptr(eb_out), start_id, always, sometimes, eventually,
-        discovered, cuda.ptr(cands), cuda.stream(),
+        discovered, cuda.ptr(cands), cuda.stream(conds),
     )
     cuda.check(code, "wave_eval", "wave_eval")
     return valid, eb_out, cands

@@ -25,8 +25,12 @@ times each phase of its wave itself and hands back the wave's record
 fields of ``_wl_wave_extra``); the loop then accounts the wave's
 ``readback`` phase as host time instead of the gap between waves, runs no
 host spans, and skips the mid-run checkpoint cadence, as the JAX traced
-loop does.  Not ported: the step-rung ladder, the density tuner (the JAX
-loop's ``retune`` span times it) and the knob cache.
+loop does.  Not ported: the density tuners (the JAX loop's ``retune``
+span times them) and the knob cache.  The sharded engine's ladders are
+here: the exchange buckets' slack (``exchange_bucket_lanes``,
+``next_bucket_slack``, flag 32) and the step rung (``climb_step_rung``,
+flag 128); an engine names the flags it can grow in place through
+``_wl_retryable_flags()`` (default 1, 2 and 4).
 
 The engine adapter (the checker) provides:
 
@@ -39,6 +43,8 @@ The engine adapter (the checker) provides:
 - ``_wl_publish()`` -- copy the carry's counts to the checker surface;
 - ``_wl_grow(flags)`` -- grow the tripped buffers in place and rebuild the
   table from the committed log (raises when a knob cannot grow);
+- ``_wl_retryable_flags() -> int`` (optional) -- the flags ``_wl_grow``
+  takes; any other flag raises ``_wl_overflow_message``;
 - ``_wl_abort_cleanup()`` -- erase a flagged wave's table writes before a
   stop or deadline keeps the partial result;
 - ``_wl_after_commit()`` (optional) -- called after every committed wave,
@@ -83,6 +89,46 @@ RETRYABLE_FLAGS = 1 | 2 | 4
 # climbs one rung (x2, capped at U).
 SORT_RUNG_MIN = 256
 
+# The step-geometry rung ladder (JAX ``wave_loop.py:108-126``): a
+# power-of-two chunk width below ``chunk_size``; a wave whose remaining
+# level exceeds it raises the non-committing flag 128 and the host climbs
+# one rung.
+STEP_RUNG_MIN = 256
+
+# The sharded exchange's per-destination bucket (JAX ``wave_loop.py:
+# 27-70``): ``slack`` percent of the even share of the compaction buffer,
+# doubling on flag 32 until it spans the whole buffer.
+BUCKET_SLACK_DEFAULT = 50
+BUCKET_SLACK_MAX_RUNGS = 12
+
+
+def exchange_bucket_lanes(u_sz: int, n: int, slack_pct: int) -> int:
+    """Per-destination exchange bucket width in lanes: ``slack_pct``
+    percent of the even share ``u_sz/n``, rounded up to a multiple of 128,
+    floored at 8, capped at ``u_sz``; ``u_sz`` itself on a 1-shard mesh
+    (no exchange) -- the JAX package's, lane for lane."""
+    if n <= 1:
+        return u_sz
+    even = -(-u_sz // n)
+    want = -(-even * max(int(slack_pct), 1) // 100)
+    want = max(8, ((want + 127) // 128) * 128 if want > 8 else want)
+    return min(u_sz, want)
+
+
+def next_bucket_slack(u_sz: int, n: int, slack_pct: int) -> Optional[int]:
+    """The next slack rung (doubling until the bucket widens), or None once
+    the bucket spans the whole ``u_sz`` buffer, where it cannot overflow."""
+    if exchange_bucket_lanes(u_sz, n, slack_pct) >= u_sz:
+        return None
+    grown = slack_pct * 2
+    for _ in range(BUCKET_SLACK_MAX_RUNGS):
+        if exchange_bucket_lanes(u_sz, n, grown) > exchange_bucket_lanes(
+            u_sz, n, slack_pct
+        ):
+            return grown
+        grown *= 2
+    return None
+
 
 def _pow2_ceil(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
@@ -98,6 +144,10 @@ def clamp_sort_lanes(requested: int) -> int:
     return clamp_rung(requested, SORT_RUNG_MIN)
 
 
+def clamp_step_lanes(requested: int) -> int:
+    return clamp_rung(requested, STEP_RUNG_MIN)
+
+
 def next_rung(cur: int, full: int, min_rung: int) -> Optional[int]:
     """The next rung up (doubling, capped at ``full``), or None when the
     rung already spans the full buffer."""
@@ -108,6 +158,21 @@ def next_rung(cur: int, full: int, min_rung: int) -> Optional[int]:
 
 def next_sort_lanes(cur: int, u_sz: int) -> Optional[int]:
     return next_rung(cur, u_sz, SORT_RUNG_MIN)
+
+
+def next_step_lanes(cur: int, full: int) -> Optional[int]:
+    return next_rung(cur, full, STEP_RUNG_MIN)
+
+
+def climb_step_rung(eng, full: int) -> Optional[str]:
+    """Flag 128: climb the step rung one rung toward ``full`` (the chunk
+    size) and return the grow note; None at the full chunk, where the flag
+    cannot fire."""
+    nxt = next_step_lanes(eng._step_width(), full)
+    if nxt is None:
+        return None
+    eng._step_lanes = nxt
+    return f"step_lanes={nxt}"
 
 
 def climb_sort_rung(eng, full: int) -> Optional[str]:
@@ -410,6 +475,7 @@ class WaveLoop:
         cadence = CheckpointCadence(eng._ckpt_every_waves, eng._ckpt_every_sec)
         journal_geometry(eng)
         after_commit = getattr(eng, "_wl_after_commit", None)
+        retryable = getattr(eng, "_wl_retryable_flags", lambda: RETRYABLE_FLAGS)()
         waves = 0
         eng._wl_publish()
         vitals = LoopVitals(eng._metrics, initial_unique=eng._unique_count,
@@ -498,7 +564,7 @@ class WaveLoop:
                                      deadline):
                     break
                 continue
-            fatal = flags & ~RETRYABLE_FLAGS
+            fatal = flags & ~retryable
             if fatal:
                 raise RuntimeError(eng._wl_overflow_message(fatal))
             # A run past its budget (or asked to stop) keeps its partial

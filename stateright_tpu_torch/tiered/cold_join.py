@@ -67,7 +67,7 @@ def cold_query(hi: torch.Tensor, lo: torch.Tensor,
     )
     cold_query.launches += 1
     code = fn(cuda.ptr(hi), cuda.ptr(lo), _origin_ptr(origin),
-              cuda.ptr(is_new), n, cuda.ptr(minmax), cuda.stream())
+              cuda.ptr(is_new), n, cuda.ptr(minmax), cuda.stream(hi))
     cuda.check(code, "cold", "cold_query")
     return minmax
 
@@ -109,7 +109,7 @@ def cold_probe(hi: torch.Tensor, lo: torch.Tensor,
     )
     cold_probe.launches += 1
     code = fn(cuda.ptr(hi), cuda.ptr(lo), _origin_ptr(origin),
-              cuda.ptr(is_new), n, cuda.ptr(chunk), c, cuda.stream())
+              cuda.ptr(is_new), n, cuda.ptr(chunk), c, cuda.stream(hi))
     cuda.check(code, "cold", "cold_probe")
     return None
 

@@ -159,6 +159,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "c = TwoPhaseSys(rm_count=3).checker().visitor(lambda p: None).spawn_gpu("
         "device='cpu', capacity=1 << 12).join()\n"
         "assert c.trace_summary()['traced_waves'] == 11, c.trace_summary()\n"
+        "import stateright_tpu_torch.parallel.sharded\n"
+        "c = TwoPhaseSys(rm_count=3).checker().spawn_gpu_sharded("
+        "mesh=['cpu'] * 2, capacity=1 << 13, chunk_size=1 << 6).join()\n"
+        "assert c.unique_state_count() == 288, c.unique_state_count()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -183,13 +187,16 @@ def test_every_kernel_source_is_in_the_parallel_build():
 
 def test_spawn_gpu_defaults_to_the_card():
     """No device means CUDA: with no card the spawn raises instead of
-    carrying on on the CPU; with one, rm=3 runs there."""
+    carrying on on the CPU; with one, rm=3 runs there.  The sharded spawn
+    with no mesh is one shard a visible card, and raises alike."""
     builder = TwoPhaseSys(rm_count=3).checker()
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            builder.spawn_gpu()
+        for spawn in (builder.spawn_gpu, builder.spawn_gpu_sharded):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                spawn()
         return
     assert builder.spawn_gpu().join().unique_state_count() == 288
+    assert builder.spawn_gpu_sharded().join().unique_state_count() == 288
 
 
 def test_port_snapshot_resumes_in_the_port(tmp_path):
@@ -1474,3 +1481,66 @@ def test_cuda_traced_run_matches_untraced(tmp_path):
     for w in waves:
         assert sum(w["wave_breakdown"].values()) >= 0.9 * w["call_sec"]
         assert w["hbm_util_frac"] <= 1.05
+
+
+@pytest.mark.cuda
+def test_cuda_owner_bucket_matches_twin():
+    """K26 against its twin on seeded representatives: invalid lanes, row
+    indices and parents through index maps, a strided row view, buckets
+    under and over ``bkt`` at 2, 4 and 8 shards, and an empty shard."""
+    from stateright_tpu_torch.parallel.exchange import (
+        owner_bucket, owner_bucket_plain,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(26)
+    for n, u, bkt, w in ((2, 5_000, 2_432, 2), (4, 100_000, 13_312, 42),
+                         (4, 100_000, 128, 5), (8, 3, 8, 3), (4, 0, 128, 2)):
+        count = max(1, u // 3)
+        rows = _t(rng.integers(0, 2**32, size=(u + 7, w + 3), dtype=np.uint32),
+                  dev)[:, :w]
+        args = (
+            _t(rng.integers(0, 2**32, size=u, dtype=np.uint32), dev),
+            _t(rng.integers(0, 2**32, size=u, dtype=np.uint32), dev),
+            torch.from_numpy(rng.random(u) < 0.7).to(dev), rows,
+            _t(rng.integers(0, u + 7, size=u, dtype=np.uint32), dev),
+            _t(rng.integers(0, 3 * count, size=u, dtype=np.uint32), dev), 3,
+            _t(rng.integers(0, 2**32, size=count, dtype=np.uint32), dev),
+            _t(rng.integers(0, 2**32, size=count, dtype=np.uint32), dev), n, bkt,
+        )
+        for k, p in zip(owner_bucket(*args), owner_bucket_plain(*args)):
+            assert torch.equal(k, p.to(k.dtype)), (n, u, bkt)
+
+
+@pytest.mark.cuda
+def test_cuda_shard_commit_matches_twin():
+    """K27 against its twin: new lanes at distinct slots, with and without
+    an origin map, strided views of a packed receive buffer, a queue that
+    ends inside the batch, and no new lane at all."""
+    from stateright_tpu_torch.parallel.exchange import (
+        shard_commit, shard_commit_plain,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(27)
+    for r, w, cap, p_new, tail, origin in (
+        (300_000, 2, 1 << 20, 0.3, 17, False), (50_000, 42, 1 << 17, 0.5, 0, True),
+        (5_000, 3, 1 << 13, 0.9, (1 << 13) - 100, False), (10, 2, 64, 0.0, 3, False),
+    ):
+        recv = _t(rng.integers(0, 2**32, size=(r, w + 3), dtype=np.uint32), dev)
+        is_new = torch.from_numpy(rng.random(r) < p_new).to(dev)
+        slot = _t(rng.permutation(cap)[:r].astype(np.uint32), dev)
+        org = _t(rng.permutation(r).astype(np.uint32), dev) if origin else None
+        tables = [
+            [_t(rng.integers(0, 2**32, size=shape, dtype=np.uint32), dev)
+             for shape in ((cap, w), (cap,), (cap,), (cap + 64,))]
+        ]
+        tables.append([t.clone() for t in tables[0]])
+        counts = [
+            fn(is_new, slot, org, recv[:, :w], recv[:, w], recv[:, w + 1],
+               *tabs, tail)
+            for fn, tabs in zip((shard_commit, shard_commit_plain), tables)
+        ]
+        assert int(counts[0]) == int(counts[1]) == int(is_new.sum())
+        for k, p in zip(*tables):
+            assert torch.equal(k, p), (r, w)
