@@ -247,7 +247,34 @@ Phases, in order; any failure exits non-zero:
     table as it stood) and K27 (replayed into fresh tables, equal to what
     the run wrote) on the owner that committed the most; K26 timed beside
     ``torch.sort(stable=True)`` of its owner keys;
-59. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+59. tr-sh-paxos3: ``paxos check 3`` through ``spawn_gpu_sharded(mesh=
+    ["cuda:0"] * 4, trace=True)`` (each phase of each wave ended by a sync
+    of the card): 1,194,428 at depth 28, phase 6's fingerprints, the
+    traced summary's checks (no wave or phase above 1.05 of the peak), the
+    journal's summed ``exchange_payload_bytes`` equal to the accounting's,
+    and the measured breakdown printed;
+60. tr-sh1-paxos3: the same on a 1-shard mesh: 0 exchange bytes and
+    payload, phase 6's fingerprints;
+61. ts-paxos3: ``paxos check 3`` through ``spawn_gpu_tiered_sharded(mesh=
+    ["cuda:0"] * 4, memory_budget_mb=2)`` (131,072 slots a shard; K20
+    filters each owner's new keys against its own cold runs, K28 appends
+    the fresh ones): 1,194,428 at depth 28, phase 6's fingerprints, every
+    shard spilled, cold hits; spills, cold entries, peak memory and
+    seconds printed;
+62. ts-sym12: ``2pc check-sym 12`` tiered-sharded on four shards at 0.016
+    MB (1,024 slots a shard): 6,656 orbits, spills, K15 launched;
+63. ts-reshard: ts-paxos3 cut at depth 15 and resharded on the host 4 -> 2
+    and 4 -> 8 (``reshard_snapshot``), each resumed on that many shards to
+    phase 6's counts and fingerprints; a plain sh-paxos3 checkpoint
+    resharded into a 2-shard tiered one resumes to them too; the 4-shard
+    tiered snapshot resumed on 2 shards without a reshard fails with the
+    JAX engine's message;
+64. K28 against its twin on ts-paxos3's and ts-sym12's widest appends
+    (captured inputs, bit-equal to each other and to the run's log, timed
+    beside the torch glue it replaced); K20, K1 and K4 on ts-paxos3's
+    largest cold filter and widest owner insert; K15 on ts-sym12's; K26,
+    K27, K1, K4 and K12 on tr-sh-paxos3's widest waves;
+65. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -273,6 +300,7 @@ import sys
 import tempfile
 import time
 from dataclasses import fields
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 F = 1 << 20  # states per wave at rm=10 (max_frontier)
@@ -517,6 +545,8 @@ KERNELS = {
                      "stateright_tpu/parallel/sharded.py:683"),
     "shard_commit": ("stateright_tpu_torch/csrc/shard_commit.cu",
                      "stateright_tpu/parallel/sharded.py:789"),
+    "shard_log_append": ("stateright_tpu_torch/csrc/shard_commit.cu",
+                         "stateright_tpu/tiered/sharded_engine.py:289"),
 }
 # The kernels each path must launch; the kernels line has a row for each.
 PATH_KERNELS = {
@@ -578,6 +608,13 @@ PATH_KERNELS = {
                 "insert_batch_claim", "prededup"),
     "sh-sym12": ("owner_bucket", "shard_commit", "device_fp64",
                  "insert_batch_claim", "prededup", "canonicalize_rows"),
+    # Traced on four shards: K26 and K27 as the traced phases run them.
+    "tr-sh-paxos3": ("owner_bucket", "shard_commit"),
+    # Tiered-sharded on four shards: K28 appends (no K27), K20 filters, the
+    # owners' K1 and K4 (and the plane rebuilds'); K15 under symmetry.
+    "ts-paxos3": ("shard_log_append", "cold_query", "cold_probe",
+                  "device_fp64", "insert_batch_claim"),
+    "ts-sym12": ("shard_log_append", "canonicalize_rows"),
 }
 ALSO_LAUNCHED = {
     "tiered-paxos3": PATH_KERNELS["paxos3"],
@@ -589,6 +626,14 @@ ALSO_LAUNCHED = {
                   "paxos_step_lane", "wave_eval"),
     "sh-rm10": ("twophase_step", "compact", "wave_eval"),
     "sh-sym12": ("twophase_step", "compact", "wave_eval"),
+    "tr-sh-paxos3": ("device_fp64", "insert_batch_claim", "prededup",
+                     "compact", "paxos_step_valid", "paxos_conds",
+                     "paxos_step_lane", "wave_eval"),
+    "ts-paxos3": ("owner_bucket", "prededup", "compact", "paxos_step_valid",
+                  "paxos_conds", "paxos_step_lane", "wave_eval"),
+    "ts-sym12": ("owner_bucket", "device_fp64", "insert_batch_claim",
+                 "prededup", "twophase_step", "compact", "wave_eval",
+                 "cold_query", "cold_probe"),
 }
 
 
@@ -881,9 +926,11 @@ def launch_counted():
     )
     from stateright_tpu_torch.fleet.gang import gang_eval
     from stateright_tpu_torch.parallel.append import append_block
-    from stateright_tpu_torch.parallel.exchange import owner_bucket, shard_commit
+    from stateright_tpu_torch.parallel.exchange import (
+        owner_bucket, shard_commit, shard_log_append,
+    )
 
-    return (owner_bucket, shard_commit, append_block, device_fp64, twophase_step, compact, insert_batch_claim,
+    return (shard_log_append, owner_bucket, shard_commit, append_block, device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
             single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
             paxos_step, canonicalize_rows, lww_step, trap_step,
@@ -3878,18 +3925,19 @@ class ShardCapture:
         self.mod.ShardedGpuChecker._wave_host = self.saved_host
 
 
-def run_sharded(torch, gpu, path, builder, kw, want_counts=None):
-    """``builder().spawn_gpu_sharded(**kw)`` on the card with the launch
-    counts read around it (``path``'s kernels must all launch where it is
-    in ``PATH_KERNELS``); logs its counts, time, peak memory and
-    accounting, holds ``(unique, depth)`` to ``want_counts`` (or its
-    first item); returns ``(launches, checker, seconds)``."""
+def run_sharded(torch, gpu, path, builder, kw, want_counts=None,
+                spawn="spawn_gpu_sharded"):
+    """``builder().spawn_gpu_sharded(**kw)`` (or the ``spawn`` named) on the
+    card with the launch counts read around it (``path``'s kernels must all
+    launch where it is in ``PATH_KERNELS``); logs its counts, time, peak
+    memory and accounting, holds ``(unique, depth)`` to ``want_counts`` (or
+    its first item); returns ``(launches, checker, seconds)``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     reset_launches()
     t0 = time.monotonic()
-    checker = builder().spawn_gpu_sharded(**kw).join()
+    checker = getattr(builder(), spawn)(**kw).join()
     elapsed = time.monotonic() - t0
     launches = (read_launches(path) if path in PATH_KERNELS
                 else {fn.__name__: fn.launches for fn in launch_counted()})
@@ -4148,6 +4196,339 @@ def phase_shard_kernels(torch, rows, path, checker, cap):
             time_ms(torch, lambda: canonicalize_rows(spec, flat), 10),
             time_ms(torch, lambda: canonicalize_rows_plain(spec, flat), 2),
             flat.shape[0] * w * 4 * 2)
+
+
+# The tiered-sharded checker (phases 61-63): paxos check 3 on four shards
+# under 2 MB a shard (131,072 slots at 16 bytes, about 300,000 states a
+# shard: several spills each), 2pc check-sym 12 under 0.016 MB (1,024 slots,
+# about 1,700 orbits a shard); the mid-run checkpoint for the reshards is
+# cut at depth 15.
+TS_PAXOS3 = dict(memory_budget_mb=2)
+TS_SYM12 = dict(memory_budget_mb=0.016)
+TS_CUT_DEPTH = 15
+TS_WIDTHS = (2, 8)
+
+
+def run_ts(torch, gpu, path, builder, kw, want_counts=None, want_hits=True):
+    """``builder().spawn_gpu_tiered_sharded(**kw)`` on the card with the
+    launch counts read around it, as :func:`run_sharded` does; also logs
+    the spills, cold entries and hits and fails unless every shard spilled
+    and (with ``want_hits``) the cold tier answered a duplicate."""
+    launches, checker, elapsed = run_sharded(
+        torch, gpu, path, builder, kw, want_counts,
+        spawn="spawn_gpu_tiered_sharded")
+    m = checker.metrics()
+    log(f"  {path}: per-shard capacity {checker._cap_s}, spills "
+        f"{m['shard_spills']}, cold_entries={m['cold_entries']} "
+        f"cold_runs={m['cold_runs']} cold hits={m.get('cold_hits_total', 0)} "
+        f"queried={m.get('cold_probe_queries_total', 0)} "
+        f"K20 passes={m.get('cold_probe_passes_total', 0)} "
+        f"log_capacity={checker._log_cap} growths={m.get('grows', 0)}")
+    if min(m["shard_spills"].values()) < 1 or (
+            want_hits and not m.get("cold_hits_total")):
+        raise AssertionError(f"{path}: a shard never spilled, or no cold hit")
+    return launches, checker, elapsed
+
+
+class TsCapture:
+    """While entered, keeps the inputs of the tiered-sharded runs' widest
+    kernel calls: the owner insert with the most active receive lanes (its
+    table as it stood, the receive rows and keys), the owner cold filter
+    with the most new keys times cold entries (in :func:`phase_cold_kernels`'
+    format), and the K28 append with the most fresh lanes (with its shard
+    and tail)."""
+
+    def __enter__(self):
+        import stateright_tpu_torch.tiered.sharded_engine as ts
+        from stateright_tpu_torch.parallel.sharded import ShardedGpuChecker
+        from stateright_tpu_torch.tiered.cold_join import cold_windows
+
+        self.mod = ts
+        self.saved = (ts.TieredShardedGpuChecker._cold_filter,
+                      ts.shard_log_append)
+        self.insert = self.cold = self.append = None
+        cap = self
+        best = {"insert": -1, "cold": -1, "append": -1}
+
+        def insert(eng, sh, r, rv):
+            act = int(rv.sum())
+            take = act >= best["insert"]
+            keys = sh.table.keys.clone() if take else None
+            out = ShardedGpuChecker._phase_insert(eng, sh, r, rv)
+            if take:
+                best["insert"] = act
+                cap.insert = dict(keys=keys, rows=r.rows.clone(), hi=r.hi.clone(),
+                                  lo=r.lo.clone(), rv=rv.clone(), eng=eng)
+            return out
+
+        def cold_filter(eng, recvs, ins, got, new, fresh):
+            before = {}
+            for d, sh in enumerate(eng._shards):
+                score = new[d] * sh.cold.entries
+                if new[d] and sh.cold.run_count and score >= best["cold"]:
+                    before[d] = (score, ins[d].is_new.clone(), list(sh.cold.runs),
+                                 sh.cold.entries)
+            out = cap.saved[0](eng, recvs, ins, got, new, fresh)
+            for d, (score, is_new, runs, entries) in before.items():
+                if score < best["cold"]:
+                    continue
+                lo_key, hi_key = (x & ((1 << 64) - 1) for x in got[d][-2:])
+                passes = sum(-(-(b - a) // ts.COLD_CHUNK)
+                             for _r, a, b in cold_windows(runs, lo_key, hi_key))
+                best["cold"] = score
+                cap.cold = dict(
+                    hi=recvs[d].hi.clone(), lo=recvs[d].lo.clone(),
+                    origin=None if ins[d].origin is None else ins[d].origin.clone(),
+                    is_new=is_new, minmax=tuple(got[d][-2:]), runs=runs,
+                    chunk=ts.COLD_CHUNK, cold_entries=entries,
+                    fresh=ins[d].is_new.clone(), n_fresh=fresh[d],
+                    acct={"passes": passes, "new": new[d],
+                          "hits": new[d] - fresh[d]},
+                )
+            return out
+
+        def append(fresh, origin, rows, gid, eb, log_rows, log_parent,
+                   log_ebits, tail):
+            k = int(fresh.sum())
+            if k and k >= best["append"]:
+                best["append"] = k
+                cap.append = dict(
+                    fresh=fresh.clone(),
+                    origin=None if origin is None else origin.clone(),
+                    rows=rows.clone(), gid=gid.clone(), eb=eb.clone(),
+                    log_rows=log_rows, tail=tail, n=k,
+                )
+            return cap.saved[1](fresh, origin, rows, gid, eb, log_rows,
+                                log_parent, log_ebits, tail)
+
+        ts.TieredShardedGpuChecker._phase_insert = insert
+        ts.TieredShardedGpuChecker._cold_filter = cold_filter
+        ts.shard_log_append = append
+        return self
+
+    def __exit__(self, *exc):
+        ts = self.mod
+        del ts.TieredShardedGpuChecker._phase_insert
+        ts.TieredShardedGpuChecker._cold_filter = self.saved[0]
+        ts.shard_log_append = self.saved[1]
+
+
+def phase_tr_sh_paxos3(torch, gpu, want_fps):
+    """Traced ``paxos check 3`` on four shards of the card: phase 6's counts
+    and fingerprints, the traced summary's checks (no wave or phase above
+    1.05 of the peak), the journal's exchange payload equal to the
+    accounting's, and the measured breakdown printed; returns its launches,
+    checker and capture (K26/K27 rows)."""
+    from stateright_tpu_torch.runtime.journal import read_journal
+
+    with tempfile.TemporaryDirectory() as tmp, ShardCapture() as cap:
+        journal = os.path.join(tmp, "tr-sh.jsonl")
+        launches, checker, elapsed = run_sharded(
+            torch, gpu, "tr-sh-paxos3", paxos_model(3).checker,
+            dict(mesh=sharded_mesh(), trace=True, journal=journal, **SH_PAXOS3),
+            GOLDEN_PAXOS3)
+        s = traced_checks("tr-sh-paxos3", checker, journal)
+        waves = [e for e in read_journal(journal) if e["event"] == "wave"]
+    same_fps("tr-sh-paxos3", checker.discovered_fingerprints(), want_fps)
+    payload = sum(w["exchange_payload_bytes"] for w in waves)
+    acc = checker.accounting()
+    if not payload == s["exchange_payload_bytes"] == acc["exchange_payload_bytes_total"]:
+        raise AssertionError(f"tr-sh-paxos3: journal payload {payload} != "
+                             f"accounting {acc['exchange_payload_bytes_total']}")
+    host = s["wave_breakdown"].get("readback", 0.0)
+    log(f"  tr-sh-paxos3: {len(waves)} traced waves in {elapsed:.3f} s; "
+        f"breakdown {s['wave_breakdown']} (fractions {s['wave_breakdown_frac']}); "
+        f"readback share {host / s['traced_sec']:.4f}; exchange payload "
+        f"{payload} bytes, occupancy {acc['exchange_occupancy']:.4f}")
+    checker.assert_properties()
+    return launches, checker, cap
+
+
+def phase_tr_sh1_paxos3(torch, gpu, want_fps):
+    """Traced ``paxos check 3`` on a 1-shard mesh: the exchange elided (0
+    modeled bytes, 0 payload), phase 6's fingerprints."""
+    _l, checker, _ = run_sharded(
+        torch, gpu, "tr-sh1-paxos3", paxos_model(3).checker,
+        dict(mesh=sharded_mesh(1), capacity=1 << 22, chunk_size=1 << 14,
+             trace=True), GOLDEN_PAXOS3)
+    s = checker.trace_summary()
+    if s["bytes"]["exchange"] or s["exchange_payload_bytes"] or not \
+            checker.accounting()["exchange_elided"]:
+        raise AssertionError("tr-sh1-paxos3: the 1-shard exchange was not elided")
+    log(f"  tr-sh1-paxos3 breakdown {s['wave_breakdown']}")
+    same_fps("tr-sh1-paxos3", checker.discovered_fingerprints(), want_fps)
+
+
+def phase_ts_paxos3(torch, gpu, want_fps):
+    """``paxos check 3`` through ``spawn_gpu_tiered_sharded`` on four shards
+    at 2 MB a shard: phase 6's counts and fingerprints, every shard spilled,
+    cold hits; returns its launches, checker and capture."""
+    with TsCapture() as cap:
+        launches, checker, _ = run_ts(
+            torch, gpu, "ts-paxos3", paxos_model(3).checker,
+            dict(mesh=sharded_mesh(), **TS_PAXOS3), GOLDEN_PAXOS3)
+    same_fps("ts-paxos3", checker.discovered_fingerprints(), want_fps)
+    checker.assert_properties()
+    return launches, checker, cap
+
+
+def phase_ts_sym12(torch, gpu):
+    """``2pc check-sym 12`` tiered-sharded on four shards at 1,024 slots a
+    shard: 6,656 orbits, spills, K15 launched."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    with TsCapture() as cap:
+        launches, checker, _ = run_ts(
+            torch, gpu, "ts-sym12", TwoPhaseSys(rm_count=12).checker().symmetry,
+            dict(mesh=sharded_mesh(), **TS_SYM12), GOLDEN_SYM[12][:1],
+            want_hits=False)
+    if sorted(checker.discoveries()) != SYM_FOUND:
+        raise AssertionError(f"ts-sym12 found {sorted(checker.discoveries())}")
+    return launches, checker, cap
+
+
+def phase_ts_reshard(torch, want_counts, want_fps):
+    """A checkpoint of ts-paxos3 cut at depth 15 resharded on the host 4 -> 2
+    and 4 -> 8 (``reshard_snapshot``), each resumed on that many shards to
+    phase 6's counts and fingerprints; a plain sh-paxos3 checkpoint
+    resharded into a 2-shard tiered one resumes to them too; the 4-shard
+    tiered snapshot resumed on 2 shards unresharded fails with the JAX
+    engine's message."""
+    from stateright_tpu_torch.tiered.reshard import reshard_snapshot
+
+    model = paxos_model(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ts.npz")
+        cut = model.checker().target_max_depth(TS_CUT_DEPTH).spawn_gpu_tiered_sharded(
+            mesh=sharded_mesh(), checkpoint_path=ck, **TS_PAXOS3).join()
+        log(f"  ts-paxos3 cut at depth {cut.max_depth()}: "
+            f"{cut.unique_state_count()} states")
+        plain = os.path.join(tmp, "plain.npz")
+        model.checker().target_max_depth(TS_CUT_DEPTH).spawn_gpu_sharded(
+            mesh=sharded_mesh(), checkpoint_path=plain, **SH_PAXOS3).join()
+        # A resume adopts the snapshot's table; the plain run's is not the
+        # budget's, so that one resumes with no budget.
+        for what, src, m, kw in [("tiered 4", ck, m, TS_PAXOS3)
+                                 for m in TS_WIDTHS] + [("plain 4", plain, 2, {})]:
+            out = os.path.join(tmp, f"rs{m}.npz")
+            t0 = time.monotonic()
+            summary = reshard_snapshot(model, src, out, m)
+            t_rs = time.monotonic() - t0
+            t0 = time.monotonic()
+            res = model.checker().spawn_gpu_tiered_sharded(
+                mesh=sharded_mesh(m), resume_from=out, **kw).join()
+            got = (res.unique_state_count(), res.max_depth())
+            log(f"  {what} -> {m}: resharded in {t_rs:.3f} s (tails "
+                f"{summary['tails']}), resumed in {time.monotonic() - t0:.3f} s "
+                f"to {got}")
+            if got != want_counts:
+                raise AssertionError(f"{what} -> {m} resumed to {got}")
+            same_fps(f"{what} -> {m}", res.discovered_fingerprints(), want_fps)
+        try:
+            model.checker().spawn_gpu_tiered_sharded(
+                mesh=sharded_mesh(2), resume_from=ck, **TS_PAXOS3).join()
+        except ValueError as e:
+            if "written on a 4-shard mesh and cannot resume on 2 shards" not in str(e):
+                raise
+            log(f"  an unresharded 2-shard resume refused: {str(e)[:80]}...")
+        else:
+            raise AssertionError("a 4-shard tiered snapshot resumed on 2 shards")
+
+
+def phase_ts_kernels(torch, rows, path, checker, cap):
+    """K28 against its twin on the path's widest captured append, both
+    into scratch logs, bit-equal to each other and to what the run wrote
+    at that tail, timed beside the torch glue it replaced (``nonzero``,
+    ``index_select`` and the slice writes); on ts-paxos3 also K20 on the
+    owner's largest cold filter and K1 and K4 on the widest owner insert
+    (into its table as it stood); on ts-sym12 K15 on that insert's
+    receive rows."""
+    from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
+    from stateright_tpu_torch.parallel.exchange import (
+        shard_log_append, shard_log_append_plain,
+    )
+    from stateright_tpu_torch.parallel.hashset import HashSet
+
+    ap = cap.append
+    if ap is None or cap.insert is None:
+        raise AssertionError(f"{path}: no append or insert was captured")
+    row = kernel_row(rows, path)
+    fresh, origin, rr, gid, eb = (ap[k] for k in ("fresh", "origin", "rows",
+                                                  "gid", "eb"))
+    n, w, tail = ap["n"], rr.shape[1], ap["tail"]
+    dev = fresh.device
+
+    def logs():
+        return (torch.zeros((n, w), dtype=torch.int32, device=dev),
+                torch.zeros((n,), dtype=torch.int32, device=dev),
+                torch.zeros((n,), dtype=torch.int32, device=dev))
+
+    k, p, g = logs(), logs(), logs()
+    kn = shard_log_append(fresh, origin, rr, gid, eb, *k, 0)
+    pn = shard_log_append_plain(fresh, origin, rr, gid, eb, *p, 0)
+
+    def glue():
+        lanes = torch.nonzero(fresh).flatten()
+        src = lanes if origin is None else origin[lanes].long()
+        torch.index_select(rr, 0, src, out=g[0])
+        torch.index_select(gid, 0, src, out=g[1])
+        torch.index_select(eb, 0, src, out=g[2])
+
+    glue()
+    torch.cuda.synchronize()
+    # Owners partition the states: one shard's log holds these rows there.
+    held = [s for s in checker._shards
+            if s.tail >= tail + n and torch.equal(s.rows[tail : tail + n], k[0])]
+    if len(held) != 1:
+        raise AssertionError(f"{path}: K28's rows are in {len(held)} shards' logs")
+    sh = held[0]
+    ran = (sh.rows[tail : tail + n], sh.parent[tail : tail + n],
+           sh.ebits[tail : tail + n])
+    if not all(torch.equal(x, y) for x, y in zip(k, ran)):
+        raise AssertionError(f"{path}: K28 does not write what the run appended")
+    err = max_abs_err(torch, [(kn, pn)] + list(zip(k, p)) + list(zip(k, g)))
+    idx_words = 0 if origin is None else 1
+    log(f"  shard_log_append [{path}]: the widest append, {n} fresh of "
+        f"{fresh.shape[0]} lanes, {w} words a row, at tail {tail} of shard "
+        f"{sh.index}, bit-equal to the twin, the glue and the run's log")
+    row("shard_log_append", err,
+        time_ms(torch, lambda: shard_log_append(fresh, origin, rr, gid, eb, *k, 0), 10),
+        time_ms(torch, lambda: shard_log_append_plain(fresh, origin, rr, gid, eb,
+                                                      *p, 0), 10),
+        fresh.shape[0] + n * (4 * idx_words + 2 * (4 * w + 8)),
+        library_ms=time_ms(torch, glue, 10))
+    ins = cap.insert
+    eng = ins["eng"]
+    if path == "ts-sym12":
+        from stateright_tpu_torch.parallel.canon import (
+            canonicalize_rows, canonicalize_rows_plain,
+        )
+
+        spec = eng._compiled.canon_spec()
+        flat = ins["rows"].contiguous()
+        k15 = canonicalize_rows(spec, flat)
+        p15 = canonicalize_rows_plain(spec, flat)
+        torch.cuda.synchronize()
+        row("canonicalize_rows", max_abs_err(torch, [(k15, p15)]),
+            time_ms(torch, lambda: canonicalize_rows(spec, flat), 10),
+            time_ms(torch, lambda: canonicalize_rows_plain(spec, flat), 2),
+            flat.shape[0] * flat.shape[1] * 4 * 2)
+        return
+    if cap.cold is None:
+        raise AssertionError(f"{path}: no cold filter was captured")
+    phase_cold_kernels(torch, rows, path, SimpleNamespace(wave=cap.cold))
+    ident = eng._identity(ins["rows"])
+    k1 = device_fp64(ident)
+    p1 = device_fp64_plain(ident)
+    torch.cuda.synchronize()
+    row("device_fp64", max_abs_err(torch, zip(k1, p1)) +
+        max_abs_err(torch, zip(k1, (ins["hi"], ins["lo"]))),
+        time_ms(torch, lambda: device_fp64(ident), 10),
+        time_ms(torch, lambda: device_fp64_plain(ident), 2),
+        ident.shape[0] * (4 * eng._fp_words + 8))
+    log(f"  {path} owner insert: {int(ins['rv'].sum())} active receive lanes "
+        f"into a {ins['keys'].shape[0]}-slot hot table")
+    check_insert(torch, row, HashSet(ins["keys"]), ins["hi"], ins["lo"], ins["rv"])
 
 
 def main() -> int:
@@ -4483,7 +4864,6 @@ def main() -> int:
     log("phase 57: a mid-run checkpoint of sh-paxos3 resumed on four shards "
         "and refused on two")
     phase_sh_checkpoint(torch, GOLDEN_PAXOS3, paxos3_fps)
-    del paxos3_fps
     torch.cuda.empty_cache()
 
     log("phase 58: K26, K27, K1, K4 and K12 against their twins on the "
@@ -4496,6 +4876,45 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_shard_kernels(torch, rows, "sh-sym12", sh_sym12, sh_sym12_cap)
     del sh_sym12, sh_sym12_cap
+    torch.cuda.empty_cache()
+
+    log("phase 59: traced paxos check 3 on four shards of the card, against "
+        "phase 6's fingerprints")
+    launches["tr-sh-paxos3"], tr_sh, tr_sh_cap = phase_tr_sh_paxos3(
+        torch, gpu, paxos3_fps)
+    torch.cuda.empty_cache()
+
+    log("phase 60: traced paxos check 3 on a 1-shard mesh: the exchange elided")
+    phase_tr_sh1_paxos3(torch, gpu, paxos3_fps)
+    torch.cuda.empty_cache()
+
+    log("phase 61: paxos check 3 tiered-sharded on four shards at 2 MB a "
+        "shard (K20, K28), against phase 6's fingerprints")
+    launches["ts-paxos3"], ts_paxos3, ts_paxos3_cap = phase_ts_paxos3(
+        torch, gpu, paxos3_fps)
+    torch.cuda.empty_cache()
+
+    log("phase 62: 2pc check-sym 12 tiered-sharded on four shards at 1,024 "
+        "slots a shard")
+    launches["ts-sym12"], ts_sym12, ts_sym12_cap = phase_ts_sym12(torch, gpu)
+    torch.cuda.empty_cache()
+
+    log("phase 63: a ts-paxos3 checkpoint resharded 4 -> 2 and 4 -> 8, a "
+        "plain sh-paxos3 one into tiered, each resumed")
+    phase_ts_reshard(torch, GOLDEN_PAXOS3, paxos3_fps)
+    del paxos3_fps
+    torch.cuda.empty_cache()
+
+    log("phase 64: K28 against its twin on the tiered-sharded paths' widest "
+        "appends; K20, K1 and K4 on ts-paxos3's, K15 on ts-sym12's; K26 "
+        "and K27 on tr-sh-paxos3's widest waves")
+    phase_ts_kernels(torch, rows, "ts-paxos3", ts_paxos3, ts_paxos3_cap)
+    del ts_paxos3, ts_paxos3_cap
+    torch.cuda.empty_cache()
+    phase_ts_kernels(torch, rows, "ts-sym12", ts_sym12, ts_sym12_cap)
+    del ts_sym12, ts_sym12_cap
+    phase_shard_kernels(torch, rows, "tr-sh-paxos3", tr_sh, tr_sh_cap)
+    del tr_sh, tr_sh_cap
     torch.cuda.empty_cache()
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")

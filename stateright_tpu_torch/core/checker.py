@@ -119,10 +119,33 @@ class CheckerBuilder:
         knobs, ``resume_from`` on a mesh of the same size) and adds
         ``accounting()``.  ``mesh`` defaults to one shard on each visible
         card and raises where there is none; ``mesh=["cpu"] * n`` runs the
-        plain-torch twins.  ``trace=True`` is not ported yet (it raises)."""
+        plain-torch twins.  ``trace=True`` times each phase of every wave
+        (``step``, ``canon``, ``dedup``, ``exchange``, ``append``,
+        ``readback``) behind a sync of every card and adds
+        ``trace_summary()``."""
         from ..parallel.sharded import ShardedGpuChecker
 
         return ShardedGpuChecker(self, **kwargs)
+
+    def spawn_gpu_tiered_sharded(self, **kwargs) -> "Checker":
+        """Spawn the tiered-sharded checker (tiered/sharded_engine.py), the
+        counterpart of the JAX package's ``spawn_tpu_tiered_sharded``: the
+        sharded wavefront of :meth:`spawn_gpu_sharded` with the tiered
+        checker's cap applied per shard -- ``memory_budget_mb`` bounds each
+        shard's hot table; evicted partitions live in shard-local cold
+        stores, and each wave's new keys are merged against the owner's
+        own runs (K20) before the fresh ones append to its row log (K28).
+        Global ids are log positions (``position * n + shard``), so
+        snapshots can be re-keyed onto another mesh width with
+        :func:`stateright_tpu_torch.tiered.reshard.reshard_snapshot`.  It
+        takes ``spawn_gpu_sharded``'s arguments -- ``mesh`` (a list of
+        devices, repeats allowed; the default is one shard a visible card
+        and raises where there is none) -- and ``memory_budget_mb``,
+        ``spill_threshold``, ``cold_max_runs`` and ``cold_dir``;
+        ``trace=True`` is refused."""
+        from ..tiered.sharded_engine import TieredShardedGpuChecker
+
+        return TieredShardedGpuChecker(self, **kwargs)
 
     def spawn_gpu_simulation(self, seed: int, walkers: int = 1024,
                              max_trace_len: Optional[int] = None,

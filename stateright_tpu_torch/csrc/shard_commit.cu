@@ -21,6 +21,29 @@
 // owns 8 consecutive lanes, so the rank is lane order), and writes each new
 // lane's state at its slot and its slot at the queue position; block 0
 // writes n_new.
+//
+// K28, the second entry (sr_shard_log_append): a tiered shard's append of
+// the fresh lanes to its row log.  Replaces stateright_tpu/tiered/
+// sharded_engine.py:289-302 (append_shard: the fresh-masked cumsum
+// positions and the three drop-mode scatters).  For the j-th lane i with
+// fresh[i], in lane order, with r = origin[i] (or i):
+//   log_rows[tail + j]   = rows[r]      (w words)
+//   log_parent[tail + j] = gid[r]
+//   log_ebits[tail + j]  = eb[r]
+// dropped where tail + j is past the log's end; n_fresh = the count of
+// fresh lanes.
+// Bound: bytes.  The fresh mask is read twice (one byte a lane); each fresh
+// lane's origin, row, gid and ebits are read once and its log row, parent
+// and ebits written once.
+// Design: three launches over tiles of 256 lanes, one a thread, so the
+// rows of a few thousand fresh lanes spread over tens of blocks: (1) each
+// block counts its tile's fresh lanes; (2) one block turns the counts into
+// each tile's first log offset and writes n_fresh; (3) each block ranks its
+// lanes with a block scan (lane order), stages its fresh lanes' source
+// indices in shared memory, then copies their rows with consecutive
+// threads on consecutive words (a row's words are read and written by
+// neighbouring threads, so both sides coalesce), and their parent and
+// ebits words a thread a lane.
 #include "sr_common.cuh"
 
 namespace {
@@ -29,13 +52,19 @@ constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
 
+// K28's tile: one lane a thread, so a block copies the rows of 256 lanes
+// at most and even a few thousand lanes spread over tens of blocks.
+constexpr int kLogItems = 1;
+constexpr int kLogTile = kThreads * kLogItems;
+
+template <int ITEMS>
 __global__ void tile_count_kernel(const uint8_t* __restrict__ is_new,
                                   int64_t r, int64_t* __restrict__ tile_counts) {
-  const int64_t base =
-      static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
+  const int64_t base = (static_cast<int64_t>(blockIdx.x) * kThreads +
+                        threadIdx.x) * ITEMS;
   uint32_t c = 0;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
+  for (int k = 0; k < ITEMS; ++k) {
     const int64_t i = base + k;
     if (i < r && is_new[i]) ++c;
   }
@@ -100,7 +129,87 @@ __global__ void commit_kernel(const uint8_t* __restrict__ is_new, int64_t r,
   }
 }
 
+__global__ void log_append_kernel(const uint8_t* __restrict__ fresh, int64_t r,
+                                  const uint32_t* __restrict__ origin,
+                                  const uint32_t* __restrict__ rows,
+                                  int64_t row_stride, int w,
+                                  const uint32_t* __restrict__ gid,
+                                  int64_t gid_stride,
+                                  const uint32_t* __restrict__ eb,
+                                  int64_t eb_stride,
+                                  uint32_t* __restrict__ log_rows,
+                                  uint32_t* __restrict__ log_parent,
+                                  uint32_t* __restrict__ log_ebits,
+                                  int64_t log_len, int64_t tail,
+                                  const int64_t* __restrict__ tile_offsets) {
+  __shared__ uint32_t src_lane[kLogTile];
+  const int64_t offset = tile_offsets[blockIdx.x];
+  const int64_t base =
+      static_cast<int64_t>(blockIdx.x) * kLogTile + threadIdx.x * kLogItems;
+  bool keep[kLogItems];
+  uint32_t c = 0;
+#pragma unroll
+  for (int k = 0; k < kLogItems; ++k) {
+    const int64_t i = base + k;
+    keep[k] = i < r && fresh[i];
+    c += keep[k] ? 1u : 0u;
+  }
+  uint32_t count;
+  uint32_t at = sr::block_exclusive_scan<kThreads, uint32_t>(c, &count);
+#pragma unroll
+  for (int k = 0; k < kLogItems; ++k) {
+    if (!keep[k]) continue;
+    const int64_t i = base + k;
+    src_lane[at++] = origin != nullptr ? origin[i] : static_cast<uint32_t>(i);
+  }
+  __syncthreads();
+  const int64_t first = tail + offset;  // this block's first log position
+  const int64_t words = static_cast<int64_t>(count) * w;
+  for (int64_t t = threadIdx.x; t < words; t += blockDim.x) {
+    const int64_t j = t / w;
+    const int64_t k = t - j * w;
+    const int64_t pos = first + j;
+    if (pos < log_len) {
+      log_rows[pos * w + k] = rows[static_cast<int64_t>(src_lane[j]) * row_stride + k];
+    }
+  }
+  for (int64_t j = threadIdx.x; j < count; j += blockDim.x) {
+    const int64_t pos = first + j;
+    if (pos >= log_len) continue;
+    const int64_t src = src_lane[j];
+    log_parent[pos] = gid[src * gid_stride];
+    log_ebits[pos] = eb[src * eb_stride];
+  }
+}
+
 }  // namespace
+
+// fresh: r bytes; origin: r words or null; rows: row q at rows + q *
+// row_stride, w words; gid, eb: word q at gid + q * gid_stride (eb
+// likewise); log_rows: log_len * w words; log_parent, log_ebits: log_len
+// words; n_fresh: one int64; tile_scratch: max(1, ceil(r / 256)) int64
+// words.
+extern "C" int sr_shard_log_append(const uint8_t* fresh, int64_t r,
+                                   const uint32_t* origin, const uint32_t* rows,
+                                   int64_t row_stride, int w,
+                                   const uint32_t* gid, int64_t gid_stride,
+                                   const uint32_t* eb, int64_t eb_stride,
+                                   uint32_t* log_rows, uint32_t* log_parent,
+                                   uint32_t* log_ebits, int64_t log_len,
+                                   int64_t tail, int64_t* n_fresh,
+                                   int64_t* tile_scratch, cudaStream_t stream) {
+  int64_t ntiles = (r + kLogTile - 1) / kLogTile;
+  if (ntiles < 1) ntiles = 1;
+  tile_count_kernel<kLogItems>
+      <<<static_cast<unsigned>(ntiles), kThreads, 0, stream>>>(fresh, r,
+                                                              tile_scratch);
+  sr::offsets_scan_kernel<<<1, sr::kScanThreads, 0, stream>>>(
+      tile_scratch, ntiles, n_fresh);
+  log_append_kernel<<<static_cast<unsigned>(ntiles), kThreads, 0, stream>>>(
+      fresh, r, origin, rows, row_stride, w, gid, gid_stride, eb, eb_stride,
+      log_rows, log_parent, log_ebits, log_len, tail, tile_scratch);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // is_new: r bytes; slot: r words (the key's table slot on new lanes);
 // origin: r words or null; rows: row q at rows + q * row_stride, w words;
@@ -118,8 +227,9 @@ extern "C" int sr_shard_commit(const uint8_t* is_new, int64_t r,
                                int64_t* tile_scratch, cudaStream_t stream) {
   int64_t ntiles = (r + kTile - 1) / kTile;
   if (ntiles < 1) ntiles = 1;
-  tile_count_kernel<<<static_cast<unsigned>(ntiles), kThreads, 0, stream>>>(
-      is_new, r, tile_scratch);
+  tile_count_kernel<kItems>
+      <<<static_cast<unsigned>(ntiles), kThreads, 0, stream>>>(is_new, r,
+                                                              tile_scratch);
   commit_kernel<<<static_cast<unsigned>(ntiles), kThreads, 0, stream>>>(
       is_new, r, slot, origin, rows, row_stride, w, gid, gid_stride, eb,
       eb_stride, store, parent, ebits, queue, qlen, tail, tile_scratch, ntiles,

@@ -33,7 +33,10 @@ Phase names are the JAX engine's, and the port's wave maps onto them:
                       host time, excluded from the bandwidth figure
 ====================  =======================================================
 
-(``exchange`` is the sharded engine's, not yet ported.)
+``exchange`` is the sharded engine's: the owner bucketing (K26), the
+slice copies into each owner's receive buffer and the owners' K1 --
+``ShardedGpuChecker._run_traced``, which also charges the sender's K12 and
+the owner's insert to ``dedup`` and the commit (K27) to ``append``.
 """
 
 from __future__ import annotations
@@ -185,20 +188,23 @@ class WaveTracer:
 
 class PhaseClock:
     """The phase timer of one traced wave: :meth:`mark` waits for the
-    device's queued work (``torch.cuda.synchronize``, the counterpart of
-    the JAX engine's ``block_until_ready``) and charges the seconds since
-    the previous mark to the named phase, so the phases partition the
-    wave's wall time.  A phase marked twice accumulates."""
+    queued work of the device -- or of each device of a list, a sharded
+    mesh's cards -- (``torch.cuda.synchronize``, the counterpart of the
+    JAX engine's ``block_until_ready``) and charges the seconds since the
+    previous mark to the named phase, so the phases partition the wave's
+    wall time.  A phase marked twice accumulates."""
 
     def __init__(self, device):
-        device = torch.device(device)
-        self._device = device if device.type == "cuda" else None
+        devices = device if isinstance(device, (list, tuple)) else [device]
+        self._devices = [
+            d for d in map(torch.device, devices) if d.type == "cuda"
+        ]
         self.phases: Dict[str, float] = {}
         self._last = time.perf_counter()
 
     def mark(self, phase: str) -> None:
-        if self._device is not None:
-            torch.cuda.synchronize(self._device)
+        for d in self._devices:
+            torch.cuda.synchronize(d)
         now = time.perf_counter()
         self.phases[phase] = self.phases.get(phase, 0.0) + now - self._last
         self._last = now

@@ -13,8 +13,12 @@ global id, its eventually-bits and a validity word.  :func:`shard_commit`
 (K27, ``csrc/shard_commit.cu``) writes the owner-side insert's new lanes
 into the slot-indexed store, parents and eventually-bits and appends their
 slots at the shard's queue tail, IN PLACE (the JAX engine threads donated
-buffers).  Each wrapper launches its kernel on a CUDA tensor and runs its
-plain-torch twin (``*_plain``) on a CPU one.
+buffers).  :func:`shard_log_append` (K28, the same source's second entry)
+is the tiered-sharded engine's commit (``stateright_tpu/tiered/
+sharded_engine.py:289-302``): the fresh lanes' rows, parents and
+eventually-bits at the tail of the shard's row log.  Each wrapper launches
+its kernel on a CUDA tensor and runs its plain-torch twin (``*_plain``) on
+a CPU one.
 """
 
 from __future__ import annotations
@@ -211,6 +215,85 @@ def shard_commit_plain(is_new, slot, origin, rows, gid, eb, store, parent,
     keep = q < queue.shape[0]
     queue[q[keep]] = slot[lanes][keep]
     return torch.tensor(lanes.shape[0], dtype=torch.int64, device=is_new.device)
+
+
+def shard_log_append(fresh: torch.Tensor, origin: Optional[torch.Tensor],
+                     rows: torch.Tensor, gid: torch.Tensor, eb: torch.Tensor,
+                     log_rows: torch.Tensor, log_parent: torch.Tensor,
+                     log_ebits: torch.Tensor, tail: int) -> torch.Tensor:
+    """Append the fresh lanes of a tiered shard's insert to its row log
+    (K28), IN PLACE: for the j-th lane ``i`` with ``fresh[i]``, in lane
+    order, with ``r = origin[i]`` (or ``i``): ``log_rows[tail + j] =
+    rows[r]``, ``log_parent[tail + j] = gid[r]``, ``log_ebits[tail + j] =
+    eb[r]``, dropped past the log's end.  ``fresh`` bool[L], ``origin``
+    int32[L]; ``rows`` int32[R, W], ``gid``/``eb`` int32[R] (views of the
+    packed receive buffer may be strided); ``log_rows`` int32[N, W]
+    (contiguous), ``log_parent``/``log_ebits`` int32[N].  Returns the int64
+    count of fresh lanes (a device scalar)."""
+    if fresh.device.type == "cpu":
+        return shard_log_append_plain(fresh, origin, rows, gid, eb, log_rows,
+                                      log_parent, log_ebits, tail)
+    dev = fresh.device
+    r = fresh.shape[0]
+    cuda.require(fresh, "fresh", torch.bool, 1, dev)
+    if origin is not None:
+        cuda.require(origin, "origin", torch.int32, 1, dev)
+        if origin.shape[0] != r:
+            raise ValueError("fresh and origin differ in length")
+    for t, name in ((log_parent, "log_parent"), (log_ebits, "log_ebits")):
+        cuda.require(t, name, torch.int32, 1, dev)
+    cuda.require(log_rows, "log_rows", torch.int32, 2, dev)
+    for t, name, ndim in ((rows, "rows", 2), (gid, "gid", 1), (eb, "eb", 1)):
+        if t.dtype != torch.int32 or t.dim() != ndim or t.device != dev:
+            raise ValueError(f"{name} must be int32 {ndim}-D on {dev}")
+    w = rows.shape[1]
+    if log_rows.shape[1] != w:
+        raise ValueError(f"log_rows must be int32[N, {w}]")
+    if w > 1 and rows.stride(1) != 1:
+        raise ValueError("each row's words must be contiguous")
+    n = log_rows.shape[0]
+    if log_parent.shape[0] < n or log_ebits.shape[0] < n or tail < 0:
+        raise ValueError("the parent and ebits logs must span the row log")
+    n_fresh = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = torch.empty((max(1, (r + 255) // 256),), dtype=torch.int64,
+                          device=dev)
+    fn = cuda.function(
+        "shard_commit", "sr_shard_log_append",
+        [cuda.P, cuda.I64, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.P,
+         cuda.I64, cuda.P, cuda.I64, cuda.P, cuda.P, cuda.P, cuda.I64,
+         cuda.I64, cuda.P, cuda.P, cuda.P],
+    )
+    shard_log_append.launches += 1
+    code = fn(
+        cuda.ptr(fresh), r,
+        cuda.P(None) if origin is None else cuda.ptr(origin), cuda.ptr(rows),
+        rows.stride(0), w, cuda.ptr(gid), gid.stride(0), cuda.ptr(eb),
+        eb.stride(0), cuda.ptr(log_rows), cuda.ptr(log_parent),
+        cuda.ptr(log_ebits), n, tail, cuda.ptr(n_fresh), cuda.ptr(scratch),
+        cuda.stream(log_rows),
+    )
+    cuda.check(code, "shard_commit", "shard_log_append")
+    return n_fresh
+
+
+shard_log_append.launches = 0
+
+
+def shard_log_append_plain(fresh, origin, rows, gid, eb, log_rows,
+                           log_parent, log_ebits, tail: int) -> torch.Tensor:
+    """Plain-torch twin of K28 (any device): the fresh lanes' indices
+    (``nonzero``), their sources through ``origin``, and three row-indexed
+    writes at the tail, past the log's end dropped -- the JAX engine's
+    cumsum positions and drop-mode scatters."""
+    lanes = torch.nonzero(fresh).flatten()
+    src = lanes if origin is None else origin[lanes].long()
+    pos = tail + torch.arange(lanes.shape[0], device=fresh.device)
+    keep = pos < log_rows.shape[0]
+    pos, src = pos[keep], src[keep]
+    log_rows[pos] = rows[src]
+    log_parent[pos] = gid[src]
+    log_ebits[pos] = eb[src]
+    return torch.tensor(lanes.shape[0], dtype=torch.int64, device=fresh.device)
 
 
 def gather_to(device: torch.device, parts) -> torch.Tensor:

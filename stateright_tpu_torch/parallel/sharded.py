@@ -37,8 +37,22 @@ shard's "awaiting discoveries" gate reads its own), and the host folds
 them -- shard 0 first -- at the JAX loop's call boundaries, every
 ``waves_per_call`` waves or where its device loop would stop.  Only flags
 4, 32 and 128 grow in place; a full table (1) or queue (2) is an error,
-since a regrowth would change the global ids.  Not ported here: traced
-mode (ROADMAP A5), the density tuners and the knob cache.
+since a regrowth would change the global ids.
+
+The wave is six per-shard phases, the cuts of the JAX engine's traced
+programs (``_build_traced``, ``sharded.py:1165``): ``step`` (the model's
+step and K8, and on two-phase waves K3 and the successor rows), ``canon``
+(K15 and K1; single-phase waves then compact the valid keys, K3),
+``prededup`` (K12), ``exchange`` (K26, the slice copies and the owners'
+K1), ``insert`` (K4) and ``append`` (K27).  The untraced wave runs them
+back to back with one readback; ``trace=True`` (:meth:`_run_traced`, the
+JAX ``_check_traced``) syncs every card at each phase end, reads the
+flag-4/32 gate on the host between the exchange and the insert, folds
+discoveries every wave, and runs the density tuners of the sort and step
+rungs after each committed wave, as the JAX traced loop does.  The
+tiered-sharded engine (``tiered/sharded_engine.py``) reuses the same phase
+functions.  Not ported here: the density tuners of the untraced loop and
+the knob cache.
 """
 
 from __future__ import annotations
@@ -57,6 +71,8 @@ from ..core.checker import Checker
 from ..core.model import Expectation
 from ..core.path import Path
 from ..obs.metrics import MetricsRegistry
+from ..obs.roofline import slot_bytes, sort_bytes
+from ..obs.trace import PhaseClock, WaveTracer
 from ..ops.cuda import resolve_device
 from ..ops.device_fp import device_fp64
 from ..ops.fingerprint import fp64_words
@@ -74,12 +90,14 @@ from .wave_common import (
     wave_eval,
 )
 from .wave_loop import (
-    BUCKET_SLACK_DEFAULT, WaveLoop, clamp_sort_lanes, clamp_step_lanes,
-    climb_sort_rung, climb_step_rung, exchange_bucket_lanes, finalize_run,
-    fingerprints_of_rows, log_grow, next_bucket_slack, relax_dedup_geometry,
+    BUCKET_SLACK_DEFAULT, SORT_RUNG_MIN, STEP_RUNG_MIN, LoopVitals, WaveLoop,
+    clamp_sort_lanes, clamp_step_lanes, climb_sort_rung, climb_step_rung,
+    exchange_bucket_lanes, finalize_run, fingerprints_of_rows,
+    journal_geometry, log_grow, loop_should_break, maybe_retune_sort,
+    maybe_retune_step, next_bucket_slack, relax_dedup_geometry,
     reset_sort_rung_to_full,
 )
-from .wavefront import max_safe_unique_lanes
+from .wavefront import max_safe_unique_lanes, wave_bytes
 
 NO_GID = 0xFFFFFFFF
 
@@ -130,15 +148,39 @@ class _Shard:
 
 
 class _Expanded:
-    """One shard's expansion in a wave: what K26 (or the 1-shard commit)
-    reads, and the wave stats the readback carries."""
+    """One shard's expansion in a wave, phase by phase: the chunk's
+    candidates (``step``), their keys in the compaction buffer of ``size``
+    lanes (``canon``), the representatives K26 (or the 1-shard commit)
+    reads (``prededup``), and the wave stats the readback carries."""
 
-    def __init__(self, count: int):
+    def __init__(self, count: int, size: int):
         self.count = count
+        self.size = size
+        self.valid = None  # single-phase: each candidate's validity
+        self.v_hi = self.v_lo = self.v_orig = self.v_act = None
         self.u_hi = self.u_lo = self.u_valid = None
         self.rows = self.ridx = self.olane = None
         self.gids = self.eb = None
         self.n_valid = self.step_flag = self.cand_gid = None
+
+
+class _Received:
+    """An owner's receive buffer after the exchange: each lane's row,
+    parent global id and eventually-bits, its K1 key and its validity."""
+
+    def __init__(self, rows, gid, eb, hi, lo, rv):
+        self.rows, self.gid, self.eb = rows, gid, eb
+        self.hi, self.lo, self.rv = hi, lo, rv
+
+
+class _Inserted:
+    """An owner's insert: the new lanes, their slots, the sorted path's
+    representative -> receive lane map (or None), probe_ok, and K4's probe
+    figures on a traced wave."""
+
+    def __init__(self, is_new, ok, slot, origin, probe):
+        self.is_new, self.ok, self.slot = is_new, ok, slot
+        self.origin, self.probe = origin, probe
 
 
 class ShardedGpuChecker(Checker):
@@ -178,17 +220,22 @@ class ShardedGpuChecker(Checker):
         ``step_lanes`` the dedup path and the two rungs; ``waves_per_call``
         the JAX loop's waves between host reads, at whose boundaries the
         shards' discoveries fold.  ``resume_from`` continues a snapshot of
-        a mesh of the same size, from this engine or the JAX one."""
+        a mesh of the same size, from this engine or the JAX one.
+        ``trace=True`` times every phase of every wave behind a sync of
+        each card (:meth:`_run_traced`): journal ``wave`` events with the
+        breakdown, modeled bytes, ``hbm_util_frac`` and the exchange's
+        measured payload and occupancy, then :meth:`trace_summary`; it
+        refuses ``resume_from``, as the JAX engine does."""
         super().__init__(options.model)
         if options._visitor is not None:
             raise ValueError("spawn_gpu_sharded() does not support visitors")
-        if trace:
-            raise NotImplementedError(
-                "spawn_gpu_sharded(trace=True): the traced sharded programs "
-                "(stateright_tpu/parallel/sharded.py:1165) are not ported "
-                "yet (ROADMAP A5); run untraced, or trace spawn_gpu()"
+        self._trace = bool(trace)
+        if self._trace and resume_from is not None:
+            raise ValueError(
+                "spawn_gpu_sharded(trace=True) does not support "
+                "resume_from: tracing is a diagnostic mode; resume "
+                "untraced and trace a fresh (bounded) run instead"
             )
-        self._trace = False
         self._mesh = resolve_mesh(mesh, self.spawn_name)
         self._n = len(self._mesh)
         self._options = options
@@ -243,6 +290,14 @@ class ShardedGpuChecker(Checker):
         )
         self._sort_tune = sort_lanes is None
         self._sort_retries = 0
+        # The density tuners' evidence (the traced and tiered-sharded
+        # loops run them, as the JAX engine's loops do).
+        self._sort_rung_floor = SORT_RUNG_MIN
+        self._sort_peak_valid = 0.0
+        self._sort_quanta = 0
+        self._step_rung_floor = STEP_RUNG_MIN
+        self._step_peak_frontier = 0.0
+        self._step_quanta = 0
         self._sortless = (
             (sort_lanes is None) if sortless is None else bool(sortless)
         )
@@ -351,11 +406,16 @@ class ShardedGpuChecker(Checker):
                 self._resume()
             else:
                 self._seed()
-            self._waves = WaveLoop(self).run(deadline)
+            if self._trace:
+                self._waves = self._run_traced(deadline)
+            else:
+                self._waves = WaveLoop(self).run(deadline)
             self._end_call()
             for dev in {d for d in self._mesh if d.type == "cuda"}:
                 torch.cuda.synchronize(dev)
             self._accounting = self._build_accounting(self._waves)
+            if self._tracer is not None and self._journal:
+                self._journal.append("trace_summary", **self._tracer.summary())
             finalize_run(self)
         except BaseException as e:  # propagate at join, like the host engine
             self._errors.append(e)
@@ -457,8 +517,8 @@ class ShardedGpuChecker(Checker):
                 "encode the owner shard, so the only valid direct-resume size "
                 f"is {m} shards; to continue this run on a {self._n}-shard "
                 "mesh, re-key the snapshot first with the `reshard` verb "
-                "(stateright_tpu.tiered.reshard.reshard_snapshot) and resume "
-                "the converted snapshot with the tiered-sharded engine"
+                "(stateright_tpu_torch.tiered.reshard.reshard_snapshot) and "
+                "resume the converted snapshot with the tiered-sharded engine"
             )
         want, got = self._snapshot_key(), str(arrays["engine_key"])
         if got != want:
@@ -517,157 +577,434 @@ class ShardedGpuChecker(Checker):
                 states=self._state_count, depth=self._max_depth,
             )
 
-    # --- the wave ------------------------------------------------------------
+    # --- the wave's phases ---------------------------------------------------
 
-    def _expand(self, sh: _Shard, f_eff: int, size: int) -> _Expanded:
-        """A shard's half of the wave before the exchange: the model's step
-        and K8 on the next chunk of its queue, K1 (after K15 under
-        symmetry) and K3 on the candidates, then K12's representatives --
-        which a sortless 1-shard mesh skips, its insert being the global
-        dedup."""
+    def _chunk_states(self, sh: _Shard, count: int):
+        """The next ``count`` states of a shard's level: their rows, global
+        ids and eventually-bits (the slot queue's chunk here; the
+        tiered-sharded engine reads its row log)."""
+        chunk = sh.queue[sh.level_start : sh.level_start + count]
+        idx = chunk.long()
+        gids = i32(u32(chunk) | (sh.index << self._slot_bits))
+        return sh.store[idx], gids, sh.ebits[idx]
+
+    def _phase_step(self, sh: _Shard, f_eff: int, size: int) -> _Expanded:
+        """``step``: the model's step and K8 on the next chunk of the
+        shard's level; on two-phase waves also the valid lanes' compaction
+        (K3) into the ``size``-lane buffer and their successor rows.  The
+        discovery candidates come back as the chunk's global ids."""
         cm = self._compiled
         a, w = cm.max_actions, cm.state_width
         dev = sh.device
-        ex = _Expanded(min(sh.level_end - sh.level_start, f_eff))
+        ex = _Expanded(min(sh.level_end - sh.level_start, f_eff), size)
         count = ex.count
         p = len(self._properties)
         if count == 0:
             z32 = torch.zeros((0,), dtype=torch.int32, device=dev)
             ex.u_hi = ex.u_lo = ex.ridx = ex.olane = ex.gids = ex.eb = z32
-            ex.u_valid = torch.zeros((0,), dtype=torch.bool, device=dev)
+            ex.v_hi = ex.v_lo = ex.v_orig = z32
+            ex.u_valid = ex.v_act = torch.zeros((0,), dtype=torch.bool, device=dev)
             ex.rows = torch.zeros((0, w), dtype=torch.int32, device=dev)
             ex.n_valid = torch.zeros((), dtype=torch.int64, device=dev)
             ex.step_flag = torch.zeros((), dtype=torch.bool, device=dev)
             ex.cand_gid = torch.full((p,), NO_GID, dtype=torch.int64, device=dev)
             return ex
-        chunk = sh.queue[sh.level_start : sh.level_start + count]
-        idx = chunk.long()
-        states = sh.store[idx]
-        ex.gids = i32(u32(chunk) | (sh.index << self._slot_bits))
-        eb_in = sh.ebits[idx]
+        states, ex.gids, eb_in = self._chunk_states(sh, count)
         discovered = sum(1 << q for q, g in enumerate(sh.disc) if g != NO_GID)
         if self._two_phase:
             valid, ex.eb, cands = wave_eval(
                 cm.property_conds(states), cm.step_valid(states), eb_in, 0,
                 self._kinds, discovered,
             )
-            v_orig, v_act, ex.n_valid = compact_valid_indices(
+            ex.v_orig, ex.v_act, ex.n_valid = compact_valid_indices(
                 valid.view(-1), sort_lanes=size
             )
-            rows_v, lane_flags = cm.step_lane(states, v_orig, ex.n_valid)
+            ex.rows, lane_flags = cm.step_lane(states, ex.v_orig, ex.n_valid)
             ex.step_flag = lane_flags.any()
-            v_hi, v_lo = device_fp64(self._identity(rows_v))
-            ex.rows = rows_v
-            ridx = torch.arange(v_orig.shape[0], dtype=torch.int32, device=dev)
         else:
             nexts, valid, conds, ex.step_flag = cm.expand(states)
             valid, ex.eb, cands = wave_eval(
                 conds, valid, eb_in, 0, self._kinds, discovered
             )
             ex.rows = nexts.view(count * a, w)
-            hi, lo = device_fp64(self._identity(ex.rows))
-            v_hi, v_lo, v_orig, v_act, ex.n_valid = compact_valid(
-                hi, lo, valid.view(-1), sort_lanes=size
-            )
-            ridx = v_orig
+            ex.valid = valid.view(-1)
         if ex.step_flag is None:
             ex.step_flag = torch.zeros((), dtype=torch.bool, device=dev)
-        if self._sortless and self._n == 1:
-            ex.u_hi, ex.u_lo, ex.u_valid = v_hi, v_lo, v_act
-            ex.ridx, ex.olane = ridx, v_orig
-        else:
-            ex.u_hi, ex.u_lo, origin, ex.u_valid, _ = prededup(
-                v_hi, v_lo, v_act, dedup_factor=1
-            )
-            origin = origin.long()
-            ex.ridx, ex.olane = ridx[origin], v_orig[origin]
-        # Discovery candidates come back as chunk lanes: their global ids.
         lane = cands.clamp(0, count - 1)
         ex.cand_gid = torch.where(cands != NO_ID, u32(ex.gids)[lane], NO_GID)
         return ex
 
-    def _receive(self, sh: _Shard, rows, gid, eb, hi, lo, rv):
-        """An owner's half of the wave: insert the received keys (K4, the
-        claim election; on the sorted path K12's representatives first)
-        and commit the new states (K27).  Returns (n_new, probe_ok)."""
-        origin = None
-        if self._sortless:
-            is_new, ok, slot = insert_batch_claim(
-                sh.table, hi, lo, rv, with_slots=True
-            )
+    def _phase_canon(self, ex: _Expanded) -> None:
+        """``canon``: K1 (after K15 under symmetry) on the candidate rows;
+        single-phase waves then compact the valid lanes' keys (K3)."""
+        if ex.count == 0:
+            return
+        hi, lo = device_fp64(self._identity(ex.rows))
+        if self._two_phase:
+            ex.v_hi, ex.v_lo = hi, lo
+            ex.ridx = torch.arange(ex.v_orig.shape[0], dtype=torch.int32,
+                                   device=hi.device)
         else:
-            p_hi, p_lo, origin, p_act, _ = prededup(hi, lo, rv, dedup_factor=1)
-            is_new, ok, slot = insert_batch_claim(
-                sh.table, p_hi, p_lo, p_act, with_slots=True
+            ex.v_hi, ex.v_lo, ex.v_orig, ex.v_act, ex.n_valid = compact_valid(
+                hi, lo, ex.valid, sort_lanes=ex.size
             )
-        n_new = shard_commit(is_new, slot, origin, rows, gid, eb, sh.store,
-                             sh.parent, sh.ebits, sh.queue, sh.tail)
-        return n_new, ok
+            ex.ridx = ex.v_orig
 
-    def _wl_wave(self) -> int:
-        """One wave on every shard: expand, bucket (K26), exchange, insert
-        and commit (K27), then the one readback and the mesh-wide host
-        decisions (``sharded.py:531-855``).  Returns the flags; the wave
-        committed iff none of 4, 32 and 128 is set."""
+    def _phase_prededup(self, ex: _Expanded) -> None:
+        """``prededup``: K12's representatives, one lane a distinct key --
+        which a sortless 1-shard mesh skips, its insert being the global
+        dedup."""
+        if ex.count == 0:
+            return
+        if self._sortless and self._n == 1:
+            ex.u_hi, ex.u_lo, ex.u_valid = ex.v_hi, ex.v_lo, ex.v_act
+            ex.olane = ex.v_orig
+        else:
+            ex.u_hi, ex.u_lo, origin, ex.u_valid, _ = prededup(
+                ex.v_hi, ex.v_lo, ex.v_act, dedup_factor=1
+            )
+            origin = origin.long()
+            ex.ridx, ex.olane = ex.ridx[origin], ex.v_orig[origin]
+
+    def _expand(self, sh: _Shard, f_eff: int, size: int) -> _Expanded:
+        """A shard's half of the wave before the exchange: ``step``,
+        ``canon`` and ``prededup`` back to back."""
+        ex = self._phase_step(sh, f_eff, size)
+        self._phase_canon(ex)
+        self._phase_prededup(ex)
+        return ex
+
+    def _phase_exchange(self, exp: List[_Expanded], bkt: int):
+        """``exchange``: every sender's representatives bucketed by owner
+        (K26), each owner's ``n * bkt``-lane receive buffer filled by slice
+        copies (sender 0's bucket first), and K1 (after K15 under symmetry)
+        on what it received.  A 1-shard mesh elides it: its
+        representatives are its receive buffer.  Returns the owners'
+        receive buffers and the senders' bucket-overflow words (int32)."""
         n = self._n
         a, w = self._compiled.max_actions, self._compiled.state_width
+        if n == 1:
+            ex = exp[0]
+            parent = ex.olane.long() // a
+            dev = ex.u_hi.device
+            return [_Received(ex.rows[ex.ridx.long()], ex.gids[parent],
+                              ex.eb[parent], ex.u_hi, ex.u_lo, ex.u_valid)], [
+                torch.zeros((), dtype=torch.int32, device=dev)]
+        sends, bovfs = [], []
+        for ex in exp:
+            send, _counts, bovf = owner_bucket(
+                ex.u_hi, ex.u_lo, ex.u_valid, ex.rows, ex.ridx, ex.olane,
+                a, ex.gids, ex.eb, n, bkt,
+            )
+            sends.append(send)
+            bovfs.append(bovf)
+        recvs = []
+        for sh in self._shards:
+            buf = torch.empty((n * bkt, w + 3), dtype=torch.int32,
+                              device=sh.device)
+            for s, send in enumerate(sends):
+                buf[s * bkt : (s + 1) * bkt].copy_(send[sh.index])
+            hi, lo = device_fp64(self._identity(buf[:, :w]))
+            recvs.append(_Received(buf[:, :w], buf[:, w], buf[:, w + 1],
+                                   hi, lo, buf[:, w + 2] != 0))
+        return recvs, bovfs
+
+    def _phase_insert(self, sh: _Shard, r: _Received, rv) -> _Inserted:
+        """``insert``: the owner's claim insert of its received keys under
+        the validity ``rv`` (K4, the lowest receive lane elected; on the
+        sorted path K12's representatives first), with K4's probe figures
+        on a traced wave."""
+        origin = None
+        rounds = self._tracer is not None
+        if self._sortless:
+            is_new, ok, *rest = insert_batch_claim(
+                sh.table, r.hi, r.lo, rv, with_slots=True, with_rounds=rounds
+            )
+        else:
+            p_hi, p_lo, origin, p_act, _ = prededup(r.hi, r.lo, rv,
+                                                    dedup_factor=1)
+            is_new, ok, *rest = insert_batch_claim(
+                sh.table, p_hi, p_lo, p_act, with_slots=True,
+                with_rounds=rounds,
+            )
+        probe = rest[0] if rounds else None
+        return _Inserted(is_new, ok, rest[-1], origin, probe)
+
+    def _phase_append(self, sh: _Shard, r: _Received, ins: _Inserted):
+        """``append``: the new states at their slots and the shard's queue
+        tail (K27); returns their count (a device scalar)."""
+        return shard_commit(ins.is_new, ins.slot, ins.origin, r.rows, r.gid,
+                            r.eb, sh.store, sh.parent, sh.ebits, sh.queue,
+                            sh.tail)
+
+    def _wave_stats(self, exp, bovfs, ins, n_new, extra=None) -> list:
+        """Every shard's wave stats (the ``_R_*`` layout, then ``extra``
+        words) in one readback."""
+        stats = []
+        for d, (ex, bovf, i, k) in enumerate(zip(exp, bovfs, ins, n_new)):
+            dev = k.device
+            stats.append(torch.cat([
+                torch.stack([
+                    k, ex.n_valid.to(dev), i.ok.long(), ex.step_flag.long(),
+                    bovf.to(dev).long(), ex.u_valid.sum().to(dev),
+                ]),
+                ex.cand_gid.to(dev),
+                *([] if extra is None else [extra[d].to(dev)]),
+            ]))
+        return gather_to(self._mesh[0], stats).tolist()
+
+    def _wl_wave(self) -> int:
+        """One wave on every shard: the six phases back to back, the
+        mesh-wide commit gate moved to each owner as one word a sender
+        (flags 4 and 32 abort EVERY shard's insert), then the one readback
+        and the mesh-wide host decisions (``sharded.py:531-855``).  Returns
+        the flags; the wave committed iff none of 4, 32 and 128 is set."""
         f_eff = self._step_width()
         size = self._sort_width()
-        bkt = self._bucket_lanes()
         shards = self._shards
         # Flag 128 (the step rung clamped a shard's level) is known here.
         sovf = f_eff < self._chunk and any(
             sh.level_end - sh.level_start > f_eff for sh in shards
         )
         exp = [self._expand(sh, f_eff, size) for sh in shards]
-        stats = []
-        if n == 1:
-            sh, ex = shards[0], exp[0]
-            commit = (ex.n_valid <= size) & (not sovf)
-            parent = ex.olane.long() // a
-            n_new, ok = self._receive(
-                sh, ex.rows[ex.ridx.long()], ex.gids[parent], ex.eb[parent],
-                ex.u_hi, ex.u_lo, ex.u_valid & commit,
-            )
-            bovfs = [torch.zeros((), dtype=torch.int32, device=sh.device)]
-            results = [(n_new, ok)]
-        else:
-            sends, bovfs, aborts = [], [], []
-            for ex in exp:
-                send, _counts, bovf = owner_bucket(
-                    ex.u_hi, ex.u_lo, ex.u_valid, ex.rows, ex.ridx, ex.olane,
-                    a, ex.gids, ex.eb, n, bkt,
-                )
-                sends.append(send)
-                bovfs.append(bovf)
-                aborts.append((ex.n_valid > size).to(torch.int32) | bovf)
-            results = []
-            for sh in shards:
-                recv = torch.empty((n * bkt, w + 3), dtype=torch.int32,
-                                   device=sh.device)
-                for s, send in enumerate(sends):
-                    recv[s * bkt : (s + 1) * bkt].copy_(send[sh.index])
-                commit = gather_to(sh.device, aborts).sum() == 0
-                if sovf:
-                    commit = torch.zeros((), dtype=torch.bool, device=sh.device)
-                rv = (recv[:, w + 2] != 0) & commit
-                hi, lo = device_fp64(self._identity(recv[:, :w]))
-                results.append(self._receive(
-                    sh, recv[:, :w], recv[:, w], recv[:, w + 1], hi, lo, rv,
-                ))
-        for ex, bovf, (n_new, ok) in zip(exp, bovfs, results):
-            dev = n_new.device
-            stats.append(torch.cat([
-                torch.stack([
-                    n_new, ex.n_valid.to(dev), ok.long(), ex.step_flag.long(),
-                    bovf.long(), ex.u_valid.sum(),
-                ]),
-                ex.cand_gid,
-            ]))
+        recvs, bovfs = self._phase_exchange(exp, self._bucket_lanes())
+        aborts = [(ex.n_valid > size).to(torch.int32) | bovf.to(ex.n_valid.device)
+                  for ex, bovf in zip(exp, bovfs)]
+        ins, n_new = [], []
+        for sh, r in zip(shards, recvs):
+            commit = gather_to(sh.device, aborts).sum() == 0
+            if sovf:
+                commit = torch.zeros((), dtype=torch.bool, device=sh.device)
+            ins.append(self._phase_insert(sh, r, r.rv & commit))
+            n_new.append(self._phase_append(sh, r, ins[-1]))
         t_rb = time.monotonic()
-        got = gather_to(self._mesh[0], stats).tolist()
+        got = self._wave_stats(exp, bovfs, ins, n_new)
         self._host_spans.append(("readback", t_rb, time.monotonic() - t_rb))
         return self._wave_host(exp, got, size, sovf)
+
+    # --- traced mode -----------------------------------------------------------
+
+    def _card_groups(self) -> Dict[torch.device, List[int]]:
+        """The shards of each device of the mesh."""
+        groups: Dict[torch.device, List[int]] = {}
+        for d, dev in enumerate(self._mesh):
+            groups.setdefault(dev, []).append(d)
+        return groups
+
+    def _traced_wave_bytes(self, exp, recvs, ins, got, bkt: int) -> Dict[str, int]:
+        """Modeled device bytes of one traced wave by phase, on the busiest
+        card: each shard's bytes by the port's model, summed over the
+        shards a card holds (their launches run one after another on it,
+        so the phase's seconds are all of theirs), the largest card sum
+        taken.  A sender's ``step`` and ``canon`` are
+        :func:`~.wavefront.wave_bytes`'s; ``dedup`` is K12's radix passes
+        with the representatives' keys in and origins out (none on a
+        sortless 1-shard mesh), plus the owner's insert: the receive
+        lanes' validity, the active keys and K4's slots read, the new
+        keys, the new mask and each lane's slot written (K12 first on the
+        sorted path);
+        ``exchange`` is K26 (keys and validity, each representative's
+        indices, row, gid and ebits read, the send buffer written), the
+        slice copies into the owner's buffer (read and written) and the
+        owner's K1 over its receive rows; ``append`` is K27 (the new mask,
+        each new state's slot, origin, row, gid and ebits read, its row,
+        parent, ebits and queue entry written).  0 on a 1-shard mesh's
+        exchange, which is elided."""
+        cm = self._compiled
+        n, a, w = self._n, cm.max_actions, cm.state_width
+        fpw = self._fp_words
+        hashed = w if self._canon is not None else fpw
+        per = []
+        for d, (ex, r, i) in enumerate(zip(exp, recvs, ins)):
+            row = got[d]
+            u = ex.v_orig.shape[0]
+            base = wave_bytes(
+                count=ex.count, a=a, w=w, fpw=fpw, n_props=len(self._properties),
+                u=u, n_valid=row[_R_VALID], n_inserted=0, n_new=0,
+                probe_slots=0, two_phase=self._two_phase,
+                sortless=True, symmetric=self._canon is not None,
+            ) if ex.count else {"step": 0, "canon": 0}
+            reps = row[_R_REPS]
+            lanes = r.rv.shape[0]
+            active = int(row[len(row) - 3])
+            slots = int(row[len(row) - 1])
+            new = row[_R_NEW]
+            dedup = 0
+            if not (self._sortless and n == 1) and u:
+                dedup += sort_bytes(u) + 12 * u
+            dedup += lanes + 8 * active + slot_bytes(slots) + 8 * new + 5 * lanes
+            if not self._sortless:
+                dedup += sort_bytes(lanes) + 12 * lanes
+            exchange = 0
+            if n > 1:
+                exchange = (
+                    u * (4 + 4 + 1) + reps * (4 + 4 + 4 * w + 8)
+                    + n * bkt * (w + 3) * 4
+                    + 2 * n * bkt * (w + 3) * 4
+                    + lanes * (4 * hashed + 8)
+                )
+            idx_words = 1 if i.origin is None else 2
+            append = lanes + new * (4 * idx_words + 2 * (4 * w + 8) + 4)
+            per.append({"step": base["step"], "canon": base["canon"],
+                        "dedup": dedup, "exchange": exchange,
+                        "append": append})
+        out = {}
+        for k in ("step", "canon", "dedup", "exchange", "append"):
+            out[k] = max(sum(per[d][k] for d in ds)
+                         for ds in self._card_groups().values())
+        return out
+
+    def _run_traced(self, deadline: Optional[float]) -> int:
+        """The ``trace=True`` host loop, the JAX ``_check_traced``
+        (``sharded.py:1428-1783``): one wave an iteration, each phase
+        ended by a sync of every card of the mesh; the step rung climbs on
+        the host before dispatch; the flag-4/32 gate is read after the
+        exchange and before the insert, so an overflowing wave inserts
+        nothing and re-runs at the grown knob; a committed wave journals
+        its breakdown, modeled bytes, ``hbm_util_frac`` and the exchange's
+        payload bytes and occupancy, folds the shards' discoveries, and
+        feeds the density tuners.  Flags 1, 2 and 8 raise.  Returns the
+        committed waves."""
+        n = self._n
+        w = self._compiled.state_width
+        shards = self._shards
+        cards = [d for d in self._card_groups() if d.type == "cuda"]
+        self._tracer = tracer = WaveTracer(self._mesh[0], f"{self.engine_name}-{n}")
+        vitals = LoopVitals(self._metrics, initial_unique=self._unique_count,
+                            initial_states=self._state_count)
+        journal_geometry(self)
+        waves = 0
+        while self._wl_remaining() > 0:
+            target = self._options._target_max_depth
+            if target and self._depth >= target - 1:
+                break
+            f_eff = self._step_width()
+            if f_eff < self._chunk and max(
+                sh.level_end - sh.level_start for sh in shards
+            ) > f_eff:
+                # Flag 128 is host data here: climb before dispatching.
+                if self._grow_knobs(128) is None:
+                    raise RuntimeError(self._wl_overflow_message(128))
+                vitals.record_overflow_recovery()
+                continue
+            size, bkt = self._sort_width(), self._bucket_lanes()
+            t_call = time.monotonic()
+            clock = PhaseClock(cards)
+            exp = [self._phase_step(sh, f_eff, size) for sh in shards]
+            clock.mark("step")
+            for ex in exp:
+                self._phase_canon(ex)
+            clock.mark("canon")
+            for ex in exp:
+                self._phase_prededup(ex)
+            clock.mark("dedup")
+            recvs, bovfs = self._phase_exchange(exp, bkt)
+            clock.mark("exchange")
+            gate = gather_to(self._mesh[0], [
+                torch.stack([(ex.n_valid > size).long(),
+                             bovf.to(ex.n_valid.device).long()])
+                for ex, bovf in zip(exp, bovfs)
+            ]).tolist()
+            retry = (4 if any(g[0] for g in gate) else 0) | (
+                32 if any(g[1] for g in gate) else 0)
+            if retry:
+                # Nothing was inserted: grow the tripped knob and re-run.
+                if self._grow_knobs(retry) is None:
+                    raise RuntimeError(self._wl_overflow_message(retry))
+                vitals.record_overflow_recovery()
+                continue
+            ins = [self._phase_insert(sh, r, r.rv) for sh, r in zip(shards, recvs)]
+            clock.mark("dedup")
+            n_new = [self._phase_append(sh, r, i)
+                     for sh, r, i in zip(shards, recvs, ins)]
+            clock.mark("append")
+            extra = [torch.cat([r.rv.sum().view(1), i.probe])
+                     for r, i in zip(recvs, ins)]
+            got = self._wave_stats(exp, bovfs, ins, n_new, extra)
+            clock.mark("readback")
+            flags = self._wave_host(exp, [g[:-3] for g in got], size, False)
+            self._end_call()
+            if flags:
+                raise RuntimeError(self._wl_overflow_message(flags))
+            waves += 1
+            self._wl_publish()
+            phases = clock.phases
+            call_sec = sum(phases.values())
+            reps = sum(g[_R_REPS] for g in got)
+            useful = reps * (w + 3) * 4 if n > 1 else 0
+            occupancy_x = reps / (n * n * bkt) if n > 1 else 0.0
+            rounds = max(int(g[-2]) for g in got)
+            enrich = tracer.record_wave(
+                phases, self._traced_wave_bytes(exp, recvs, ins, got, bkt),
+                probe_rounds=rounds, probe_slots=sum(int(g[-1]) for g in got),
+                exchange_payload_bytes=useful,
+            )
+            enrich["exchange_occupancy"] = round(occupancy_x, 6)
+            occupancy = self._wl_occupancy()
+            vitals.record_quantum(
+                call_sec, 1, self._unique_count, committed=True,
+                states=self._state_count, cand_lanes=self._wl_cand_lanes(),
+                occupancy=occupancy,
+            )
+            vitals.record_host(phases["readback"])
+            remaining = self._wl_remaining()
+            if self._journal:
+                self._journal.append(
+                    "wave", waves=waves, remaining=remaining,
+                    unique=self._unique_count, states=self._state_count,
+                    depth=self._depth, flags=0, call_sec=round(call_sec, 6),
+                    mono=round(t_call, 6), occupancy=round(occupancy, 6),
+                    **(
+                        {"density": round(vitals.last_density, 6)}
+                        if vitals.last_density is not None else {}
+                    ),
+                    **enrich,
+                )
+            self._metrics.update(
+                waves=waves, table_occupancy=round(occupancy, 6),
+                last_call_sec=round(call_sec, 6),
+                exchange_occupancy=round(occupancy_x, 6),
+            )
+            self._metrics.inc("device_call_sec_total", call_sec)
+            self._metrics.inc("device_calls", 1)
+            maybe_retune_sort(self, vitals.last_density)
+            maybe_retune_step(self, max(
+                sh.level_end - sh.level_start for sh in shards) or None)
+            if loop_should_break(self, remaining, self._depth, deadline):
+                break
+        return waves
+
+    def trace_summary(self) -> dict:
+        """The finished traced run's roofline reduction: per-phase seconds
+        (``step``, ``canon``, ``dedup``, ``exchange``, ``append``,
+        ``readback``), modeled bytes, ``hbm_util_frac`` against the card's
+        peak, ``bottleneck_phase`` and the measured exchange payload
+        total.  Requires ``trace=True``."""
+        self.join()
+        if self._tracer is None:
+            raise RuntimeError(
+                f"trace_summary() requires {self.spawn_name[:-2]}(trace=True)"
+            )
+        return self._tracer.summary()
+
+    # --- the density tuners' hooks (wave_loop.maybe_retune_*) ---------------
+
+    def _wl_full_sort_lanes(self) -> int:
+        """The per-shard worst-case width the sort rung is clamped to."""
+        return self._u_sz()
+
+    def _wl_apply_sort_rung(self, rung: int) -> None:
+        self._sort_lanes = int(rung)
+        self._sort_quanta = 0
+        journal_geometry(self)
+
+    def _wl_full_step_lanes(self) -> int:
+        return self._chunk
+
+    def _wl_apply_step_rung(self, rung: int) -> None:
+        self._step_lanes = int(rung)
+        self._step_quanta = 0
+        journal_geometry(self)
 
     def _wave_host(self, exp, got, size: int, sovf: bool) -> int:
         """The wave's mesh-wide decisions from its one readback: the flags
@@ -850,7 +1187,8 @@ class ShardedGpuChecker(Checker):
             self._step_retries += 1
             notes.append(note)
         if flags & 4:
-            note = climb_sort_rung(self, self._u_sz())
+            full = self._u_sz()
+            note = climb_sort_rung(self, full)
             if note is not None:
                 self._sort_retries += 1
                 notes.append(note)
@@ -865,7 +1203,7 @@ class ShardedGpuChecker(Checker):
                 if relaxed is None:
                     return None
                 self._dedup_factor, self._chunk, note = relaxed
-                reset_sort_rung_to_full(self)
+                reset_sort_rung_to_full(self, full)
                 if self._journal:
                     self._journal.append("geometry", **self._wl_geometry())
                 notes.append(note)
@@ -986,6 +1324,8 @@ class ShardedGpuChecker(Checker):
             out["histograms"] = hists
         if self._accounting:
             out["accounting"] = dict(self._accounting)
+        if self._tracer is not None:
+            out["trace_summary"] = self._tracer.summary()
         return out
 
     # --- snapshots -----------------------------------------------------------

@@ -25,8 +25,12 @@ times each phase of its wave itself and hands back the wave's record
 fields of ``_wl_wave_extra``); the loop then accounts the wave's
 ``readback`` phase as host time instead of the gap between waves, runs no
 host spans, and skips the mid-run checkpoint cadence, as the JAX traced
-loop does.  Not ported: the density tuners (the JAX loop's ``retune``
-span times them) and the knob cache.  The sharded engine's ladders are
+loop does.  The density tuners (``maybe_retune_sort``,
+``maybe_retune_step``) run where an engine asks for them (``_wl_retune``,
+the tiered-sharded engine; the traced sharded loop calls them itself), as
+the JAX loops run them after each committed quantum; the single-card
+engines do not tune.  Not ported: the knob cache.  The sharded engine's
+ladders are
 here: the exchange buckets' slack (``exchange_bucket_lanes``,
 ``next_bucket_slack``, flag 32) and the step rung (``climb_step_rung``,
 flag 128); an engine names the flags it can grow in place through
@@ -50,6 +54,9 @@ The engine adapter (the checker) provides:
 - ``_wl_after_commit()`` (optional) -- called after every committed wave,
   before the checkpoint cadence, so the very next checkpoint holds what it
   changed;
+- ``_wl_retune(density, remaining)`` (optional) -- called after the
+  after-commit rung of every committed wave with the wave's measured
+  valid density and its remaining level: the density tuners;
 - ``_wl_occupancy() -> float``, ``_wl_wave_extra() -> dict`` (journal
   fields of a ``wave`` event), ``_wl_write_checkpoint() -> dict`` (extra
   fields of a ``checkpoint`` event), ``_wl_geometry() -> dict``,
@@ -89,11 +96,19 @@ RETRYABLE_FLAGS = 1 | 2 | 4
 # climbs one rung (x2, capped at U).
 SORT_RUNG_MIN = 256
 
+# The density tuner's sizing headroom over the measured per-wave valid
+# peak, and the committed observations it waits for before a downshift
+# (JAX ``wave_loop.py:93-106``).
+SORT_RUNG_HEADROOM = 4.0
+SORT_TUNE_MIN_QUANTA = 8
+
 # The step-geometry rung ladder (JAX ``wave_loop.py:108-126``): a
 # power-of-two chunk width below ``chunk_size``; a wave whose remaining
 # level exceeds it raises the non-committing flag 128 and the host climbs
 # one rung.
 STEP_RUNG_MIN = 256
+STEP_RUNG_HEADROOM = 4.0
+STEP_TUNE_MIN_QUANTA = 8
 
 # The sharded exchange's per-destination bucket (JAX ``wave_loop.py:
 # 27-70``): ``slack`` percent of the even share of the compaction buffer,
@@ -164,27 +179,102 @@ def next_step_lanes(cur: int, full: int) -> Optional[int]:
     return next_rung(cur, full, STEP_RUNG_MIN)
 
 
+def downshift_rung(cur: int, full: int, floor: int, peak: float,
+                   min_rung: int, headroom: float) -> Optional[int]:
+    """The downshift both tuners share: the rung holding the measured
+    ``peak`` at ``headroom`` times, at least ``floor`` (a rung this run
+    climbed past) and ``min_rung``, at most ``full``; None unless it at
+    least halves the current rung."""
+    want = max(min_rung, int(floor), _pow2_ceil(max(1, int(peak * headroom) + 1)))
+    want = min(want, full)
+    if want * 2 <= cur:
+        return want
+    return None
+
+
 def climb_step_rung(eng, full: int) -> Optional[str]:
     """Flag 128: climb the step rung one rung toward ``full`` (the chunk
-    size) and return the grow note; None at the full chunk, where the flag
+    size), record the overflow-proven floor and peak the step tuner reads,
+    and return the grow note; None at the full chunk, where the flag
     cannot fire."""
-    nxt = next_step_lanes(eng._step_width(), full)
+    cur = eng._step_width()
+    nxt = next_step_lanes(cur, full)
     if nxt is None:
         return None
     eng._step_lanes = nxt
+    eng._step_rung_floor = nxt
+    eng._step_peak_frontier = max(getattr(eng, "_step_peak_frontier", 0.0), cur)
     return f"step_lanes={nxt}"
 
 
 def climb_sort_rung(eng, full: int) -> Optional[str]:
     """Flag 4 at a rung below the full buffer: climb one rung toward
-    ``full`` and return the grow note; None when the rung already spans
-    the full buffer.  (The JAX helper also records the evidence its
-    density tuner reads; the tuner is not ported.)"""
-    nxt = next_sort_lanes(eng._sort_width(), full)
+    ``full``, record the overflow-proven floor and peak the density tuner
+    reads, and return the grow note; None when the rung already spans the
+    full buffer."""
+    cur = eng._sort_width()
+    nxt = next_sort_lanes(cur, full)
     if nxt is None:
         return None
     eng._sort_lanes = nxt
+    eng._sort_rung_floor = nxt
+    eng._sort_peak_valid = max(getattr(eng, "_sort_peak_valid", 0.0), cur)
     return f"sort_lanes={nxt}"
+
+
+# What each tuner reads and writes on the engine (JAX ``_SORT_NS`` and
+# ``_STEP_NS``): the sort tuner's evidence is the valid density scaled to
+# lanes, the step tuner's the remaining level.
+_SORT_NS = dict(
+    apply="_wl_apply_sort_rung", tune="_sort_tune",
+    full="_wl_full_sort_lanes", width="_sort_width",
+    quanta="_sort_quanta", peak="_sort_peak_valid",
+    floor="_sort_rung_floor", min_rung=SORT_RUNG_MIN,
+    headroom=SORT_RUNG_HEADROOM, min_quanta=SORT_TUNE_MIN_QUANTA,
+    scale_by_full=True,
+)
+_STEP_NS = dict(
+    apply="_wl_apply_step_rung", tune="_step_tune",
+    full="_wl_full_step_lanes", width="_step_width",
+    quanta="_step_quanta", peak="_step_peak_frontier",
+    floor="_step_rung_floor", min_rung=STEP_RUNG_MIN,
+    headroom=STEP_RUNG_HEADROOM, min_quanta=STEP_TUNE_MIN_QUANTA,
+    scale_by_full=False,
+)
+
+
+def _maybe_retune(eng, measured, ns: dict) -> bool:
+    """Fold one committed wave's measurement into the engine's peak and,
+    once ``min_quanta`` waves are in, apply a downshift (JAX
+    ``wave_loop.py:285-339``).  True exactly when the rung changed.  An
+    explicit rung (``_sort_tune``/``_step_tune`` false) is never tuned."""
+    apply = getattr(eng, ns["apply"], None)
+    if apply is None or measured is None or not getattr(eng, ns["tune"], False):
+        return False
+    full = getattr(eng, ns["full"])()
+    cur = getattr(eng, ns["width"])()
+    setattr(eng, ns["quanta"], getattr(eng, ns["quanta"]) + 1)
+    peak = measured * full if ns["scale_by_full"] else measured
+    setattr(eng, ns["peak"], max(getattr(eng, ns["peak"]), peak))
+    if getattr(eng, ns["quanta"]) < ns["min_quanta"]:
+        return False
+    want = downshift_rung(cur, full, getattr(eng, ns["floor"]),
+                          getattr(eng, ns["peak"]), ns["min_rung"],
+                          ns["headroom"])
+    if want is None:
+        return False
+    apply(want)
+    return True
+
+
+def maybe_retune_sort(eng, density) -> bool:
+    """The density -> sort-rung downshift after a committed wave."""
+    return _maybe_retune(eng, density, _SORT_NS)
+
+
+def maybe_retune_step(eng, remaining) -> bool:
+    """The remaining level -> step-rung downshift after a committed wave."""
+    return _maybe_retune(eng, remaining, _STEP_NS)
 
 
 def fall_back_to_sort(eng) -> str:
@@ -194,10 +284,14 @@ def fall_back_to_sort(eng) -> str:
     return "sortless=0"
 
 
-def reset_sort_rung_to_full(eng) -> None:
+def reset_sort_rung_to_full(eng, old_full: int = 0) -> None:
     """After a full-buffer flag 4 relaxed ``dedup_factor``: the rung
-    resets to the new full width."""
+    resets to the new full width, and the tuner's evidence records that a
+    wave held at least ``old_full`` valid lanes."""
     eng._sort_lanes = None
+    if old_full:
+        eng._sort_peak_valid = max(getattr(eng, "_sort_peak_valid", 0.0),
+                                   old_full)
 
 
 def relax_dedup_geometry(chunk, dedup_factor, lanes_of, lane_cap,
@@ -475,6 +569,7 @@ class WaveLoop:
         cadence = CheckpointCadence(eng._ckpt_every_waves, eng._ckpt_every_sec)
         journal_geometry(eng)
         after_commit = getattr(eng, "_wl_after_commit", None)
+        retune = getattr(eng, "_wl_retune", None)
         retryable = getattr(eng, "_wl_retryable_flags", lambda: RETRYABLE_FLAGS)()
         waves = 0
         eng._wl_publish()
@@ -544,6 +639,9 @@ class WaveLoop:
                 if after_commit is not None:
                     with span("spill"):
                         after_commit()
+                if retune is not None:
+                    with span("retune"):
+                        retune(vitals.last_density, eng._wl_remaining())
                 if (
                     not traced and eng._checkpoint_path is not None
                     and cadence.due(1)

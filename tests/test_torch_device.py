@@ -163,6 +163,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "c = TwoPhaseSys(rm_count=3).checker().spawn_gpu_sharded("
         "mesh=['cpu'] * 2, capacity=1 << 13, chunk_size=1 << 6).join()\n"
         "assert c.unique_state_count() == 288, c.unique_state_count()\n"
+        "import stateright_tpu_torch.tiered.sharded_engine\n"
+        "import stateright_tpu_torch.tiered.reshard\n"
+        "c = TwoPhaseSys(rm_count=3).checker().spawn_gpu_tiered_sharded("
+        "mesh=['cpu'] * 2, memory_budget_mb=0.004).join()\n"
+        "assert c.unique_state_count() == 288, c.unique_state_count()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stateright_tpu' or m.startswith('stateright_tpu.'))\n"
         "assert not bad, bad\n"
@@ -188,15 +193,18 @@ def test_every_kernel_source_is_in_the_parallel_build():
 def test_spawn_gpu_defaults_to_the_card():
     """No device means CUDA: with no card the spawn raises instead of
     carrying on on the CPU; with one, rm=3 runs there.  The sharded spawn
-    with no mesh is one shard a visible card, and raises alike."""
+    with no mesh is one shard a visible card, and raises alike, as does
+    the tiered-sharded spawn."""
     builder = TwoPhaseSys(rm_count=3).checker()
+    spawns = (builder.spawn_gpu, builder.spawn_gpu_sharded,
+              builder.spawn_gpu_tiered_sharded)
     if not torch.cuda.is_available():
-        for spawn in (builder.spawn_gpu, builder.spawn_gpu_sharded):
+        for spawn in spawns:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 spawn()
         return
-    assert builder.spawn_gpu().join().unique_state_count() == 288
-    assert builder.spawn_gpu_sharded().join().unique_state_count() == 288
+    for spawn in spawns:
+        assert spawn().join().unique_state_count() == 288
 
 
 def test_port_snapshot_resumes_in_the_port(tmp_path):
@@ -1510,6 +1518,36 @@ def test_cuda_owner_bucket_matches_twin():
         )
         for k, p in zip(owner_bucket(*args), owner_bucket_plain(*args)):
             assert torch.equal(k, p.to(k.dtype)), (n, u, bkt)
+
+
+@pytest.mark.cuda
+def test_cuda_shard_log_append_matches_twin():
+    """K28 against its twin: fresh lanes with and without an origin map,
+    strided views of a packed receive buffer, rows of 2 and 42 words, a
+    tail whose appends run past the log's end (dropped), no fresh lane."""
+    from stateright_tpu_torch.parallel.exchange import (
+        shard_log_append, shard_log_append_plain,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(28)
+    for r, w, lp, p_fresh, tail, origin in (
+        (300_000, 2, 1 << 19, 0.3, 17, False), (50_000, 42, 1 << 16, 0.5, 0, True),
+        (5_000, 3, 4_096, 0.9, 4_000, True), (10, 2, 64, 0.0, 3, False),
+    ):
+        recv = _t(rng.integers(0, 2**32, size=(r, w + 3), dtype=np.uint32), dev)
+        fresh = torch.from_numpy(rng.random(r) < p_fresh).to(dev)
+        org = _t(rng.permutation(r).astype(np.uint32), dev) if origin else None
+        logs = [[_t(rng.integers(0, 2**32, size=shape, dtype=np.uint32), dev)
+                 for shape in ((lp, w), (lp,), (lp,))]]
+        logs.append([t.clone() for t in logs[0]])
+        counts = [
+            fn(fresh, org, recv[:, :w], recv[:, w], recv[:, w + 1], *log, tail)
+            for fn, log in zip((shard_log_append, shard_log_append_plain), logs)
+        ]
+        assert int(counts[0]) == int(counts[1]) == int(fresh.sum())
+        for k, p in zip(*logs):
+            assert torch.equal(k, p), (r, w)
 
 
 @pytest.mark.cuda

@@ -432,9 +432,113 @@ def test_resume_on_another_mesh_size_fails(tmp_path):
 
 
 def test_trace_and_visitors_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    """Visitors stay refused; ``trace=True`` is accepted (a fresh run; with
+    ``resume_from`` it is refused, as in the JAX engine)."""
+    ck = TwoPhaseSys(rm_count=3).checker().spawn_gpu_sharded(
+        mesh=["cpu"], trace=True, **SMALL).join()
+    assert ck.unique_state_count() == 288
+    assert ck.trace_summary()["traced_waves"] == ck.accounting()["waves"]
+    with pytest.raises(ValueError, match="resume_from"):
         TwoPhaseSys(rm_count=3).checker().spawn_gpu_sharded(
-            mesh=["cpu"], trace=True)
+            mesh=["cpu"], trace=True, resume_from="unused.npz")
     with pytest.raises(ValueError, match="visitors"):
         TwoPhaseSys(rm_count=3).checker().visitor(lambda p: None) \
             .spawn_gpu_sharded(mesh=["cpu"])
+
+
+TRACED = dict(capacity=1 << 14, chunk_size=1 << 8)  # test_obs.py:316
+
+
+@pytest.fixture(scope="module")
+def jax_traced(tmp_path_factory):
+    """The JAX engine's traced 2pc rm=3 on 4 virtual devices at
+    ``test_obs.py:316``'s arguments: its checker and journal."""
+    journal = str(tmp_path_factory.mktemp("jax_traced") / "j.jsonl")
+    ck = JaxTwoPhaseSys(rm_count=3).checker().spawn_tpu_sharded(
+        mesh=_mesh(4), trace=True, journal=journal, **TRACED).join()
+    return ck, jax_read_journal(journal)
+
+
+def test_traced_sharded_matches_jax(jax_traced, tmp_path):
+    """``test_obs.py:316`` against the JAX engine's traced run: counts,
+    discoveries and fingerprints; the number of journal ``wave`` events
+    and each one's ``exchange_payload_bytes`` and ``exchange_occupancy``
+    (the density tuner's rung change included); the breakdown's keys; the
+    totals against the accounting; and each wave's exchange bytes the
+    port's model, summed over the card's shards."""
+    jck, jevents = jax_traced
+    model = TwoPhaseSys(rm_count=3)
+    journal = str(tmp_path / "t.jsonl")
+    ck = _port(model.checker(), 4, trace=True, journal=journal, **TRACED)
+    assert (ck.unique_state_count(), ck.state_count(), ck.max_depth()) == (
+        jck.unique_state_count(), jck.state_count(), jck.max_depth())
+    assert sorted(ck.discoveries()) == sorted(jck.discoveries())
+    assert np.array_equal(ck.discovered_fingerprints(), jck.discovered_fingerprints())
+    events = read_journal(journal)
+    waves = [e for e in events if e["event"] == "wave"]
+    jwaves = [e for e in jevents if e["event"] == "wave"]
+    assert len(waves) == len(jwaves) == ck.accounting()["waves"]
+    for got, want in zip(waves, jwaves):
+        for k in ("exchange_payload_bytes", "exchange_occupancy", "unique",
+                  "states", "depth", "remaining", "probe_rounds"):
+            assert got[k] == want[k], (k, got["waves"])
+    assert [e["sort_lanes"] for e in events if e["event"] == "geometry"] == [
+        e["sort_lanes"] for e in jevents if e["event"] == "geometry"]
+    s = ck.trace_summary()
+    assert set(s["wave_breakdown"]) == set(jck.trace_summary()["wave_breakdown"]) == {
+        "step", "canon", "dedup", "exchange", "append", "readback"}
+    assert sum(w["exchange_payload_bytes"] for w in waves) == \
+        s["exchange_payload_bytes"] == ck.accounting()["exchange_payload_bytes_total"]
+    assert ck.accounting() == jck.accounting()
+    assert ck.metrics()["trace_summary"]["traced_waves"] == len(waves)
+    assert [e["event"] for e in events][-2:] == ["trace_summary", "engine_done"]
+    # The exchange term of the port's model, summed over the card's four
+    # shards: K26 (9 bytes a buffer lane, 16 + 4W a representative, the
+    # send buffer written), the slice copies read and written, K1 over
+    # each owner's n * bkt receive rows.  Only the senders' buffer widths
+    # are not in the journal: what is left is 9 bytes a lane of them.
+    n, w = 4, model.compiled().state_width
+    bkt = size = None
+    for e in events:
+        if e["event"] == "geometry":
+            bkt, size = e["exchange_bucket_lanes"], e["sort_lanes"]
+        if e["event"] != "wave":
+            continue
+        b = e["bytes"]
+        assert set(b) == {"step", "canon", "dedup", "exchange", "append"}
+        reps = e["exchange_payload_bytes"] // ((w + 3) * 4)
+        known = reps * (16 + 4 * w) + n * (
+            3 * n * bkt * (w + 3) * 4 + n * bkt * (4 * w + 8))
+        rest = b["exchange"] - known
+        assert rest % 9 == 0 and 0 <= rest <= 9 * n * size, e["waves"]
+        assert 0 < e["hbm_util_frac"] and b["step"] > 0 and b["append"] > 0
+    assert s["bytes"]["exchange"] == sum(e["bytes"]["exchange"] for e in waves)
+
+
+def test_traced_one_shard_elides_the_exchange():
+    """``test_obs.py:351``: the 1-shard traced run elides the exchange --
+    its modeled bytes and payload are 0 -- and lands the single card's
+    set."""
+    model = TwoPhaseSys(rm_count=3)
+    ck = _port(model.checker(), 1, trace=True, **TRACED)
+    assert ck.unique_state_count() == 288
+    s = ck.trace_summary()
+    assert s["bytes"]["exchange"] == 0
+    assert s["exchange_payload_bytes"] == 0
+    assert ck.accounting()["exchange_elided"] is True
+    single = _single(model, capacity=1 << 14, max_frontier=1 << 8)
+    assert np.array_equal(ck.discovered_fingerprints(),
+                          single.discovered_fingerprints())
+
+
+def test_traced_forced_bucket_retry_four_shards():
+    """``test_tpu_sharded.py:235-245``: traced, ``bucket_slack=1`` trips
+    flag 32 before the insert, the wave re-runs at the next slack rung,
+    and the set is the single card's."""
+    model = TwoPhaseSys(rm_count=4)
+    fps = _single(model, capacity=1 << 14, max_frontier=1 << 7).discovered_fingerprints()
+    ck = _port(model.checker(), 4, capacity=1 << 14, chunk_size=1 << 7,
+               bucket_slack=1, trace=True)
+    assert ck.unique_state_count() == 1568
+    assert np.array_equal(ck.discovered_fingerprints(), fps)
+    assert ck.accounting()["bucket_retries"] >= 1
