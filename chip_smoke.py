@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile the twenty-five CUDA sources of ``stateright_tpu_torch/csrc``
+1. build: compile the twenty-six CUDA sources of ``stateright_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler process each, all started
    together), log each kernel entry that ``ptxas -v`` gave a stack frame
    or spills, and print the card's name, power limit and SM clock;
@@ -274,10 +274,37 @@ Phases, in order; any failure exits non-zero:
     beside the torch glue it replaced); K20, K1 and K4 on ts-paxos3's
     largest cold filter and widest owner insert; K15 on ts-sym12's; K26,
     K27, K1, K4 and K12 on tr-sh-paxos3's widest waves;
-65. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+65. the fused quantum (K29): ``2pc check 10`` and ``paxos check 3`` at
+    the default ``waves_per_call`` (256) and at 1, the same logs and
+    fingerprints either way, the quantum's readbacks fewer; each one's warm
+    seconds, readbacks, graph captures and (one profiled run) the card's
+    idle share printed beside the per-wave loop's seconds of earlier PRs;
+66. ``2pc check 10`` from a 2**20-slot table: flag 1 falls inside a
+    quantum (the quantum committed waves before it), the table grows and
+    the run ends at phase 4's fingerprints;
+67. ``2pc check 10`` under ``finish_when(ANY)``: the quantum stops inside
+    itself at the first discovery, with the discovery ids and counts of the
+    one-wave-a-call run;
+68. ``2pc check 5`` (18 waves) in one 256-wave quantum against one of 18:
+    warm medians of five, the 256 run within 1.3x -- stopped waves cost
+    nothing;
+69. K29's ``wave_load`` and ``wave_ctl`` and the device-count entries of
+    K8, K4, K1 (two-phase) and K25 against their twins on the replayed
+    widest waves of ``2pc check 10`` and ``paxos check 3`` at the card's
+    full chunk, bit-equal, timed, with bounds, appending what the runs
+    appended;
+70. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
+
+Every untraced ``spawn_gpu`` run of phases 3-47 and 52-69 goes through the
+fused quantum (``parallel/fused.py``): up to ``waves_per_call`` waves on the
+card behind one readback, one launch of a captured CUDA graph; a kernel's
+launches inside the graph count once a wave the quantum ran.  Phase 23
+holds K25 on the replayed sorted-path wave's commit (the run's commits are
+inside its quanta), and its grow notes are checked less the density
+tuners' rung climbs.
 
 Phase 23 also holds K25 against its twin on the run's widest sorted-path
 commit, and every replayed insert (phases 2, 7, 11, 14, 18, 21-23, 25-30)
@@ -330,9 +357,11 @@ RAFT_FOUND = ["Election Liveness", "Election Safety", "Log Liveness"]
 GOLDEN_PP13 = (268_435_454, 3_556_769_793, 54)
 GOLDEN_PP11 = (16_777_214, 188_743_681, 46)
 PP_FOUND = ["can reach max", "must exceed max", "must reach max"]
-# What the JAX engine's flag-4 rules write at PP11S_GEOMETRY: the claim
-# path's full buffer (425,984 lanes) falls back to the sorted path, whose
-# overflow relaxes to dedup_factor=1, halving the chunk to the band.
+# What the JAX engine's growth writes at PP11S_GEOMETRY, every note of the
+# run: the claim path's full buffer (425,984 lanes) falls back to the
+# sorted path, whose overflow relaxes to dedup_factor=1, halving the chunk
+# to the band.  No climb of a rung the density tuners cut (a sort_lanes=
+# or step_lanes= note) follows on this run.
 PP11S_NOTES = [
     "sortless=0",
     "dedup_factor=1; max_frontier=32768; max_frontier=16384; max_frontier=8192",
@@ -547,37 +576,65 @@ KERNELS = {
                      "stateright_tpu/parallel/sharded.py:789"),
     "shard_log_append": ("stateright_tpu_torch/csrc/shard_commit.cu",
                          "stateright_tpu/tiered/sharded_engine.py:289"),
+    # K29: the fused loop's chunk load and its control (the carry, the
+    # wave_body tail, wave_cond) -- the JAX run()'s while_loop.
+    "wave_load": ("stateright_tpu_torch/csrc/wave_ctl.cu",
+                  "stateright_tpu/parallel/wavefront.py:614"),
+    "wave_ctl": ("stateright_tpu_torch/csrc/wave_ctl.cu",
+                 "stateright_tpu/parallel/wavefront.py:493"),
+    # The device-count entries of K8, K4, K1 and K25 the fused wave runs.
+    "wave_eval_dev": ("stateright_tpu_torch/csrc/wave_eval.cu",
+                      "stateright_tpu/parallel/wave_common.py:282"),
+    "insert_batch_claim_dev": ("stateright_tpu_torch/csrc/hashset.cu",
+                               "stateright_tpu/parallel/hashset.py:365"),
+    "device_fp64_n": ("stateright_tpu_torch/csrc/device_fp.cu",
+                      "stateright_tpu/ops/device_fp.py:52"),
+    "append_block_dev": ("stateright_tpu_torch/csrc/append.cu",
+                         "stateright_tpu/parallel/wavefront.py:744"),
 }
+# The fused quantum's entries (K29 and the device-count entries of K8, K4
+# and K25), which every untraced spawn_gpu run launches; the per-wave
+# loop's host entries of K8, K4 and K25 (traced and tiered runs).
+FUSED_ENTRIES = ("wave_load", "wave_ctl", "wave_eval_dev",
+                 "insert_batch_claim_dev", "append_block_dev")
+HOST_ENTRIES = ("wave_eval", "insert_batch_claim", "append_block")
 # The kernels each path must launch; the kernels line has a row for each.
+# An untraced run's rows are the entries it launches, measured on one of
+# its waves (the single-phase waves hash through K1's whole-buffer entry,
+# the two-phase ones through its counted entry); the host entries'
+# measurements at rm10's and paxos3's shapes are the traced runs' rows.
 PATH_KERNELS = {
-    "rm10": ("device_fp64", "twophase_step", "compact", "insert_batch_claim",
-             "wave_eval", "append_block"),
-    "paxos3": ("device_fp64", "compact", "insert_batch_claim",
-               "paxos_step_valid", "paxos_conds", "paxos_step_lane",
-               "wave_eval", "append_block"),
-    "paxos6": ("device_fp64", "compact", "insert_batch_claim",
-               "paxos_step_valid", "paxos_conds", "paxos_step_lane",
-               "wave_eval"),
+    "rm10": ("device_fp64", "twophase_step", "compact") + FUSED_ENTRIES,
+    "paxos3": ("compact", "paxos_step_valid", "paxos_conds",
+               "paxos_step_lane", "device_fp64_n") + FUSED_ENTRIES,
+    "paxos6": ("compact", "paxos_step_valid", "paxos_conds",
+               "paxos_step_lane", "wave_eval_dev", "insert_batch_claim_dev",
+               "device_fp64_n"),
     "sc4": ("device_fp64", "single_copy_step", "compact",
-            "insert_batch_claim", "wave_eval"),
-    "abd3o": ("device_fp64", "abd_step", "compact", "insert_batch_claim",
-              "wave_eval"),
-    "raft": ("device_fp64", "raft_step", "compact", "insert_batch_claim",
-             "wave_eval"),
-    "pp13": ("device_fp64", "ping_pong_step", "compact", "insert_batch_claim",
-             "wave_eval"),
-    "pp11s": ("device_fp64", "ping_pong_step", "compact", "insert_batch_claim",
-              "wave_eval", "prededup", "append_block"),
-    "paxos3b": ("device_fp64", "compact", "insert_batch_claim", "paxos_step",
-                "paxos_conds", "wave_eval"),
-    "raft10s": ("device_fp64", "raft_step", "compact", "insert_batch_claim",
-                "wave_eval", "prededup"),
+            "insert_batch_claim_dev", "wave_eval_dev"),
+    "abd3o": ("device_fp64", "abd_step", "compact", "insert_batch_claim_dev",
+              "wave_eval_dev"),
+    "raft": ("device_fp64", "raft_step", "compact", "insert_batch_claim_dev",
+             "wave_eval_dev"),
+    "pp13": ("device_fp64", "ping_pong_step", "compact",
+             "insert_batch_claim_dev", "wave_eval_dev"),
+    "pp11s": ("device_fp64", "ping_pong_step", "compact",
+              "insert_batch_claim_dev", "wave_eval_dev", "prededup",
+              "append_block_dev"),
+    "paxos3b": ("device_fp64", "compact", "insert_batch_claim_dev",
+                "paxos_step", "paxos_conds", "wave_eval_dev"),
+    "raft10s": ("device_fp64", "raft_step", "compact",
+                "insert_batch_claim_dev", "wave_eval_dev", "prededup"),
     "sym12": ("device_fp64", "twophase_step", "canonicalize_rows", "compact",
-              "insert_batch_claim", "wave_eval"),
-    "lww": ("device_fp64", "lww_step", "compact", "insert_batch_claim",
-            "wave_eval", "prededup"),
-    "trap": ("device_fp64", "trap_step", "compact", "insert_batch_claim",
-             "wave_eval"),
+              "insert_batch_claim_dev", "wave_eval_dev"),
+    "lww": ("device_fp64", "lww_step", "compact", "insert_batch_claim_dev",
+            "wave_eval_dev", "prededup"),
+    "trap": ("device_fp64", "trap_step", "compact", "insert_batch_claim_dev",
+             "wave_eval_dev"),
+    # The traced runs of rm10 and paxos3 keep the per-wave loop: the host
+    # entries of K8, K4 and K25 (and K1's whole-buffer entry two-phase).
+    "tr-rm10": HOST_ENTRIES,
+    "tr-paxos3": ("device_fp64",) + HOST_ENTRIES,
     "sim-rm10": ("device_fp64", "twophase_step", "walker_keys", "walk_init",
                  "walk_step", "walk_finish"),
     "sim-raft": ("device_fp64", "raft_step", "walker_keys", "walk_init",
@@ -616,12 +673,25 @@ PATH_KERNELS = {
                   "device_fp64", "insert_batch_claim"),
     "ts-sym12": ("shard_log_append", "canonicalize_rows"),
 }
+# The per-wave path's kernels besides the host entries.
+PER_WAVE_2PC = ("device_fp64", "twophase_step", "compact")
+PER_WAVE_PAXOS = ("device_fp64", "compact", "paxos_step_valid", "paxos_conds",
+                  "paxos_step_lane")
 ALSO_LAUNCHED = {
-    "tiered-paxos3": PATH_KERNELS["paxos3"],
-    "tiered-raft": PATH_KERNELS["raft"],
-    "incr-grid": ("device_fp64", "compact", "insert_batch_claim", "wave_eval"),
+    # The untraced runs' K29 and K25 entries with no row on their path.
+    **{path: ("wave_load", "wave_ctl", "append_block_dev")
+       for path in ("paxos6", "sc4", "abd3o", "raft", "pp13", "paxos3b",
+                    "raft10s", "sym12", "lww", "trap")},
+    "pp11s": ("wave_load", "wave_ctl"),
+    "tr-rm10": PER_WAVE_2PC,
+    "tr-paxos3": PER_WAVE_PAXOS,
+    # The tiered checker keeps the per-wave loop: no K29, the host entries.
+    "tiered-paxos3": PER_WAVE_PAXOS + HOST_ENTRIES,
+    "tiered-raft": ("device_fp64", "raft_step", "compact", "insert_batch_claim",
+                    "wave_eval"),
+    "incr-grid": ("device_fp64", "compact") + FUSED_ENTRIES,
     "incr-paxos3": PATH_KERNELS["paxos3"],
-    "cap-solo": ("device_fp64", "compact", "insert_batch_claim", "wave_eval"),
+    "cap-solo": ("device_fp64", "compact") + FUSED_ENTRIES,
     "sh-paxos3": ("compact", "paxos_step_valid", "paxos_conds",
                   "paxos_step_lane", "wave_eval"),
     "sh-rm10": ("twophase_step", "compact", "wave_eval"),
@@ -776,7 +846,9 @@ def probe_bytes(torch, keys, hi, lo, active) -> int:
 def phase_kernels(torch, rows):
     """The ``2pc check 10`` path's kernels against their twins at that
     path's shapes; adds their rows of the kernels line to ``rows``
-    (launches filled in later)."""
+    (launches filled in later): the host entries of K4 and K8 as the
+    traced run's rows (the untraced run's device-count entries are held
+    in :func:`phase_fused_kernels`)."""
     from stateright_tpu_torch.models.twophase import TwoPhaseSys
     from stateright_tpu_torch.models.twophase_compiled import (
         twophase_step, twophase_step_plain,
@@ -796,6 +868,7 @@ def phase_kernels(torch, rows):
     a = 2 + 5 * RM
 
     row = kernel_row(rows, "rm10")
+    host_row = kernel_row(rows, "tr-rm10")
 
     # K2 at F states.
     states = random_states(torch, gen, F, RM)
@@ -845,7 +918,7 @@ def phase_kernels(torch, rows):
     pick = torch.randint(0, CAPACITY // 2, (n,), generator=gen, device=dev)
     b_hi, b_lo = pool_hi[pick].contiguous(), pool_lo[pick].contiguous()
     active = torch.rand((n,), generator=gen, device=dev) < 0.3
-    check_insert(torch, row, base, b_hi, b_lo, active)
+    check_insert(torch, host_row, base, b_hi, b_lo, active)
     del base, pool, b_hi, b_lo, active
 
     # K8 on K2's conds and validity with 2pc's property kinds (no
@@ -863,32 +936,36 @@ def phase_kernels(torch, rows):
     p8 = wave_eval_plain(conds, valid.clone(), eb, 0, kinds, 0)
     torch.cuda.synchronize()
     n_props = conds.shape[1]
-    row("wave_eval", max_abs_err(torch, zip(k8, p8)),
-        time_ms(torch, lambda: wave_eval(conds, gated, eb, 0, kinds, 0), 10,
-                setup=fresh),
-        time_ms(torch, lambda: wave_eval_plain(conds, valid, eb, 0, kinds, 0), 2),
-        F * n_props + 2 * F * a + 2 * F * 4 + n_props * 8)
+    host_row("wave_eval", max_abs_err(torch, zip(k8, p8)),
+             time_ms(torch, lambda: wave_eval(conds, gated, eb, 0, kinds, 0),
+                     10, setup=fresh),
+             time_ms(torch, lambda: wave_eval_plain(conds, valid, eb, 0, kinds,
+                                                    0), 2),
+             F * n_props + 2 * F * a + 2 * F * 4 + n_props * 8)
     log(f"  wave_eval: candidates {k8[2].tolist()}")
 
 
 def kernel_row(rows, path):
     """A recorder of ``path``'s kernels-line rows into ``rows``, keyed by
-    (kernel, path); raises on a kernel that disagrees with its twin.  A
-    row's bound is the larger of its bytes over the memory rate and its
-    INT32 operations over :func:`int32_rate`."""
+    (kernel, path) (with ``path`` None: logged, not recorded, for an entry
+    the path does not launch); raises on a kernel that disagrees with its
+    twin.  A row's bound is the larger of its bytes over the memory rate
+    and its INT32 operations over :func:`int32_rate`."""
     ops_per_sec = int32_rate()
 
     def row(name, err, ms, plain_ms, nbytes, library_ms=None, ops=0):
         bytes_ms = nbytes / HBM_BYTES_PER_SEC * 1e3
         ops_ms = ops / ops_per_sec * 1e3
-        rows[name, path] = r = dict(
+        r = dict(
             name=name, path=path, route="cuda", max_abs_err=err,
             bit_equal=err == 0, ms=ms, plain_ms=plain_ms,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="operations" if ops_ms > bytes_ms else "bytes",
             library_ms=library_ms,
         )
-        log(f"  {name} [{path}]: max_abs_err={err} kernel_ms={ms:.4f} "
+        if path is not None:
+            rows[name, path] = r
+        log(f"  {name} [{path or 'checked'}]: max_abs_err={err} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}: bytes={nbytes} -> {bytes_ms:.4f} ms, "
             f"int32 ops={ops} -> {ops_ms:.4f} ms) library_ms={library_ms}")
@@ -929,8 +1006,14 @@ def launch_counted():
     from stateright_tpu_torch.parallel.exchange import (
         owner_bucket, shard_commit, shard_log_append,
     )
+    from stateright_tpu_torch.parallel.fused import wave_ctl, wave_load
+    from stateright_tpu_torch.ops.device_fp import device_fp64_n
+    from stateright_tpu_torch.parallel.append import append_block_dev
+    from stateright_tpu_torch.parallel.hashset import insert_batch_claim_dev
+    from stateright_tpu_torch.parallel.wave_common import wave_eval_dev
 
-    return (shard_log_append, owner_bucket, shard_commit, append_block, device_fp64, twophase_step, compact, insert_batch_claim,
+    return (wave_load, wave_ctl, wave_eval_dev, insert_batch_claim_dev,
+            device_fp64_n, append_block_dev, shard_log_append, owner_bucket, shard_commit, append_block, device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
             single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
             paxos_step, canonicalize_rows, lww_step, trap_step,
@@ -1063,13 +1146,14 @@ def run_paxos3(torch):
     return checker, elapsed
 
 
-def replay_wave(torch, checker, geometry):
+def replay_wave(torch, checker, geometry, with_level_end=False):
     """One real wave of a card run at ``geometry``: the first chunk of its
     widest expanded level.  Returns its rows, start position,
     eventually-bits, discovered mask, the run's table as it stood when the
     wave ran (every state of the levels before, rebuilt from the log, the
     canonical rows' fingerprints under symmetry), and the positions the
-    run appended from that wave."""
+    run appended from that wave; with ``with_level_end`` also the level's
+    end (the tail when the wave ran)."""
     from stateright_tpu_torch.ops.device_fp import device_fp64
     from stateright_tpu_torch.parallel.hashset import HashSet, insert_batch_claim
     from stateright_tpu_torch.parallel.wave_common import NO_ID
@@ -1107,13 +1191,18 @@ def replay_wave(torch, checker, geometry):
     log(f"  replayed wave: level {widest} of {int(sizes[widest])} states, "
         f"log positions {start}..{start + n}, table of {level_end} states, "
         f"discovered mask {discovered}, {appended.numel()} states appended")
-    return states, start, carry.ebits[start : start + n], discovered, table, appended
+    out = (states, start, carry.ebits[start : start + n], discovered, table,
+           appended)
+    return out + (level_end,) if with_level_end else out
 
 
-def phase_paxos_kernels(torch, checker, rows, path, geometry):
+def phase_paxos_kernels(torch, checker, rows, path, geometry, host_path=None):
     """A paxos path's kernels against their twins on one real wave of its
-    run (:func:`replay_wave`), each called as the engine calls it; the
-    replayed wave must append what the run appended."""
+    run (:func:`replay_wave`), each called as the engine calls it -- the
+    untraced run's device-count entries of K8, K1 and K4 (rows of
+    ``path``) and the per-wave loop's host entries (rows of ``host_path``,
+    the traced run's; checked only without one); the replayed wave must
+    append what the run appended."""
     from stateright_tpu_torch.models.paxos_compiled import (
         _codec, paxos_conds, paxos_conds_plain, paxos_step_lane,
         paxos_step_lane_plain, paxos_step_valid, paxos_step_valid_plain,
@@ -1129,6 +1218,7 @@ def phase_paxos_kernels(torch, checker, rows, path, geometry):
     )
 
     row = kernel_row(rows, path)
+    host_row = kernel_row(rows, host_path)
     cm = checker._compiled
     c, w, m = cm.c, cm.state_width, cm.m
     carry = checker._carry
@@ -1167,13 +1257,18 @@ def phase_paxos_kernels(torch, checker, rows, path, geometry):
     k8 = wave_eval(k6, valid, eb, start, kinds, discovered)
     p8 = wave_eval_plain(k6, k5.clone(), eb, start, kinds, discovered)
     torch.cuda.synchronize()
-    row("wave_eval", max_abs_err(torch, zip(k8, p8)),
-        time_ms(torch, lambda: wave_eval(k6, valid, eb, start, kinds,
-                                         discovered), 10, setup=fresh),
-        time_ms(torch, lambda: wave_eval_plain(k6, k5, eb, start, kinds,
-                                               discovered), 2),
-        f * n_props + 2 * f * m + 2 * f * 4 + n_props * 8)
+    host_row("wave_eval", max_abs_err(torch, zip(k8, p8)),
+             time_ms(torch, lambda: wave_eval(k6, valid, eb, start, kinds,
+                                              discovered), 10, setup=fresh),
+             time_ms(torch, lambda: wave_eval_plain(k6, k5, eb, start, kinds,
+                                                    discovered), 2),
+             f * n_props + 2 * f * m + 2 * f * 4 + n_props * 8)
     log(f"  wave_eval: candidates {k8[2].tolist()}")
+    stats = replay_stats(torch, n_props, start, discovered, states.device)
+    active = torch.ones((f,), dtype=torch.bool, device=states.device)
+    k8d = check_wave_eval_dev(torch, row, k6, k5, eb, stats, active, kinds)
+    if not all(torch.equal(x, y) for x, y in zip(k8, k8d)):
+        raise AssertionError("K8's device entry disagrees with its host entry")
 
     # K3 runs twice a wave: on the F * M lane validity (through
     # compact_valid_indices), then on the U-lane "new" mask after K4.  Its
@@ -1203,18 +1298,26 @@ def phase_paxos_kernels(torch, checker, rows, path, geometry):
         f"{parents} parent rows, {int(k_flags.sum())} flagged")
     del p_rows, p_flags
 
-    # K1 on the whole U-row successor buffer, as the engine hashes it.
+    # K1 on the whole U-row successor buffer, as the per-wave loop hashes
+    # it, and on its n_valid rows, as the fused wave does.
     k1 = device_fp64(k_rows)
     p1 = device_fp64_plain(k_rows)
     torch.cuda.synchronize()
-    row("device_fp64", max_abs_err(torch, zip(k1, p1)),
-        time_ms(torch, lambda: device_fp64(k_rows), 10),
-        time_ms(torch, lambda: device_fp64_plain(k_rows), 2),
-        size * (w * 4 + 8))
+    host_row("device_fp64", max_abs_err(torch, zip(k1, p1)),
+             time_ms(torch, lambda: device_fp64(k_rows), 10),
+             time_ms(torch, lambda: device_fp64_plain(k_rows), 2),
+             size * (w * 4 + 8))
     hi, lo = k1
+    k1n = check_fp_n(torch, row, k_rows, n_valid)
+    if not (torch.equal(k1n[0][:n], hi[:n]) and torch.equal(k1n[1][:n], lo[:n])):
+        raise AssertionError("K1's counted entry disagrees with its whole-buffer entry")
 
-    # K4 into the table as it stood when the wave ran.
-    k_new = check_insert(torch, row, table, hi, lo, v_act)
+    # K4 into the table as it stood when the wave ran: the device-epoch
+    # entry (which leaves the table as it was), then the host entry.
+    k_new_d, _ok = check_insert_dev(torch, row, table, hi, lo, v_act)
+    k_new = check_insert(torch, host_row, table, hi, lo, v_act)
+    if not torch.equal(k_new, k_new_d):
+        raise AssertionError("K4's device-epoch entry disagrees with its host entry")
     n_new = int(k_new.sum())
 
     k3_new = measure_compact(torch, k_new, size)
@@ -1300,6 +1403,108 @@ def check_insert(torch, row, table, hi, lo, active):
     return k_new
 
 
+def replay_stats(torch, p, start, discovered, dev):
+    """A stats vector (``parallel/fused.py``) for a replayed wave that K8's
+    device entry reads: ``level_start`` at ``start``, ``disc[q]`` set for
+    each bit of ``discovered``."""
+    from stateright_tpu_torch.parallel import fused
+    from stateright_tpu_torch.parallel.wave_common import NO_ID
+
+    disc = [0 if discovered >> q & 1 else NO_ID for q in range(p)]
+    words = [start] + [0] * (fused.STAT_DISC - 1) + disc
+    words += [0] * fused.CTL_WORDS
+    return torch.tensor([((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+                         for x in words], dtype=torch.int32, device=dev)
+
+
+def check_wave_eval_dev(torch, row, conds, valid, eb, stats, active, kinds):
+    """K8's device-count entry against its twin on a wave's conds,
+    validity, eventually-bits, stats and active mask, timed on a fresh
+    copy of the validity each call (it gates it in place); records its
+    row and returns the kernel's outputs."""
+    from stateright_tpu_torch.parallel.wave_common import (
+        wave_eval_dev, wave_eval_dev_plain,
+    )
+
+    f, p = conds.shape
+    a = valid.shape[1]
+    gated = valid.clone()
+
+    def fresh():
+        gated.copy_(valid)
+
+    k8 = wave_eval_dev(conds, gated, eb, stats, active, kinds)
+    p8 = wave_eval_dev_plain(conds, valid.clone(), eb, stats, active, kinds)
+    torch.cuda.synchronize()
+    out = tuple(t.clone() for t in k8)
+    row("wave_eval_dev", max_abs_err(torch, zip(k8, p8)),
+        time_ms(torch, lambda: wave_eval_dev(conds, gated, eb, stats, active,
+                                             kinds), 10, setup=fresh),
+        time_ms(torch, lambda: wave_eval_dev_plain(conds, valid, eb, stats,
+                                                   active, kinds), 2),
+        f * p + 2 * f * a + 2 * f * 4 + p * 8 + f + (8 + p) * 4)
+    return out
+
+
+def check_insert_dev(torch, row, table, hi, lo, active):
+    """K4's device-epoch entry into ``table`` against its twin on a copy,
+    timed from the same table contents each call (the epoch word advancing
+    on the card); records its row, leaves the table as it found it, and
+    returns the kernel's new-key mask and ``probe_ok``."""
+    from stateright_tpu_torch.parallel.hashset import (
+        HashSet, insert_batch_claim_dev, insert_batch_claim_plain, keys_equal,
+    )
+
+    if table.meta is None:
+        table.meta = torch.zeros_like(table.keys)
+    epoch = torch.tensor([7], dtype=torch.int32, device=hi.device)
+    saved = table.keys.clone()
+    k_new, k_ok = insert_batch_claim_dev(table, hi, lo, active, epoch)
+    p_keys = saved.clone()
+    p_new, p_ok = insert_batch_claim_plain(p_keys, hi, lo, active)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [(k_new, p_new), (k_ok, p_ok)])
+    err += 0 if keys_equal(table, HashSet(p_keys)) else 1
+    err += 0 if int(epoch) == 8 else 1
+    del p_keys
+    # As K4's host entry (check_insert), and the epoch word read and
+    # written.
+    n_active, n_new = int(active.sum()), int(k_new.sum())
+    nbytes = (active.shape[0] * 2 + n_active * 8
+              + probe_bytes(torch, table.keys, hi, lo, active) + 8 * n_new + 8)
+
+    def restore():
+        table.keys.copy_(saved)
+
+    row("insert_batch_claim_dev", err,
+        time_ms(torch, lambda: insert_batch_claim_dev(table, hi, lo, active,
+                                                      epoch), 10, setup=restore),
+        time_ms(torch, lambda: insert_batch_claim_plain(table.keys, hi, lo, active),
+                2, setup=restore),
+        nbytes)
+    restore()
+    log(f"  insert_batch_claim_dev: {n_active} active lanes, {n_new} new")
+    return k_new, k_ok
+
+
+def check_fp_n(torch, row, ident, n_valid):
+    """K1's counted entry against its twin on the first ``n_valid`` rows
+    of ``ident``; records its row and returns its ``(hi, lo)``."""
+    from stateright_tpu_torch.ops.device_fp import device_fp64_n, device_fp64_n_plain
+
+    nv, fpw = int(n_valid), ident.shape[1]
+    k1 = device_fp64_n(ident, n_valid)
+    p1 = device_fp64_n_plain(ident, n_valid)
+    torch.cuda.synchronize()
+    row("device_fp64_n", max_abs_err(torch, [(k1[0][:nv], p1[0][:nv]),
+                                             (k1[1][:nv], p1[1][:nv])]),
+        time_ms(torch, lambda: device_fp64_n(ident, n_valid), 10),
+        time_ms(torch, lambda: device_fp64_n_plain(ident, n_valid), 2),
+        nv * (4 * fpw + 8) + 8)
+    log(f"  device_fp64_n: {nv} of the {ident.shape[0]}-row buffer")
+    return k1
+
+
 class AppendCapture:
     """While entered, keeps the inputs of the wave commit (K25) with the
     most new states among those ``want`` accepts (the last such), and where
@@ -1340,16 +1545,22 @@ class AppendCapture:
         GpuChecker._wave_commit = self._orig
 
 
-def phase_append_kernel(torch, rows, path, checker, cap):
-    """K25 against its twin on the captured commit (:class:`AppendCapture`),
+def phase_append_kernel(torch, rows, path, checker, cap, dev_path=None):
+    """K25 against its twin on the captured commit (:class:`AppendCapture`,
+    or a replayed wave's, :func:`phase_single_phase_kernels`),
     both writing a scratch block, bit-equal to each other and to what the
     run appended at that tail; timed beside the twin and beside the torch
     glue it replaced (the lane gathers, ``index_select`` into the block,
     the parents' cast and the ebits' ``index_select``).  Bound: each new
     state's index words read once (2, or 3 through the sorted path's
     origin), its row read and written once, its parent and ebits written
-    and its parent's eventually-bits read once."""
-    from stateright_tpu_torch.parallel.append import append_block, append_block_plain
+    and its parent's eventually-bits read once.  The row is ``path``'s
+    (checked only with ``path`` None); with ``dev_path``, K25's
+    device-count entry is held and timed the same way, as its row."""
+    from stateright_tpu_torch.parallel.append import (
+        append_block, append_block_dev, append_block_dev_plain,
+        append_block_plain,
+    )
 
     wv = cap.wave
     if wv is None:
@@ -1393,11 +1604,29 @@ def phase_append_kernel(torch, rows, path, checker, cap):
         f"{', sorted path' if origin is not None else ''}), bit-equal to the "
         "twin, the glue and the run's log")
     row = kernel_row(rows, path)
+    nbytes = n * (4 * (2 if origin is None else 3) + 8 * w + 12)
     row("append_block", err,
         time_ms(torch, lambda: append_block(*k, *args), 10),
         time_ms(torch, lambda: append_block_plain(*p, *args), 10),
-        n * (4 * (2 if origin is None else 3) + 8 * w + 12),
-        library_ms=time_ms(torch, glue, 10))
+        nbytes, library_ms=time_ms(torch, glue, 10))
+    if dev_path is None:
+        return
+    # The device-count entry: (lo_pos, tail, n_new) from a record on the
+    # card, as K29 writes it, into a scratch block at tail 0.
+    rec = torch.tensor([lo_pos, 0, n], dtype=torch.int32, device=dev)
+    dargs = (sel, origin, v_orig, cand_rows, eb, rec, a, two_phase)
+    kd, pd = block(), block()
+    append_block_dev(*kd, *dargs)
+    append_block_dev_plain(*pd, *dargs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(kd, ran)):
+        raise AssertionError(f"{dev_path}: K25's device entry does not write "
+                             "what the run appended")
+    kernel_row(rows, dev_path)(
+        "append_block_dev", max_abs_err(torch, zip(kd, pd)),
+        time_ms(torch, lambda: append_block_dev(*kd, *dargs), 10),
+        time_ms(torch, lambda: append_block_dev_plain(*pd, *dargs), 10),
+        nbytes + 12, library_ms=time_ms(torch, glue, 10))
 
 
 def device_fps(torch, checker):
@@ -1478,7 +1707,7 @@ def phase_traced_rm10(torch, gpu, rows, want_counts, want_logs, want_fps):
             ).join()
             return checker, time.monotonic() - t0
 
-        _launches, checker = run_full(torch, gpu, "rm10", run)
+        launches, checker = run_full(torch, gpu, "tr-rm10", run)
         traced_checks("traced 2pc check 10", checker, journal)
     got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
     if got != want_counts:
@@ -1488,7 +1717,8 @@ def phase_traced_rm10(torch, gpu, rows, want_counts, want_logs, want_fps):
         raise AssertionError("traced rm=10 fingerprints differ from the untraced run's")
     log("  traced 2pc check 10: counts, row log, parents, ebits and "
         "fingerprints equal to phase 4's untraced run")
-    phase_append_kernel(torch, rows, "rm10", checker, cap)
+    phase_append_kernel(torch, rows, "tr-rm10", checker, cap)
+    return launches
 
 
 def phase_traced_paxos3(torch, gpu, rows, want_counts, want_logs, want_fps):
@@ -1504,7 +1734,7 @@ def phase_traced_paxos3(torch, gpu, rows, want_counts, want_logs, want_fps):
                 trace=True, journal=journal, **PAXOS3_GEOMETRY).join()
             return checker, time.monotonic() - t0
 
-        _launches, checker = run_full(torch, gpu, "paxos3", run)
+        launches, checker = run_full(torch, gpu, "tr-paxos3", run)
         traced_checks("traced paxos check 3", checker, journal)
     got = (checker.unique_state_count(), checker.state_count(), checker.max_depth())
     if got != want_counts:
@@ -1514,7 +1744,8 @@ def phase_traced_paxos3(torch, gpu, rows, want_counts, want_logs, want_fps):
         raise AssertionError("traced paxos3 fingerprints differ from the untraced run's")
     log("  traced paxos check 3: counts, row log, parents, ebits and "
         "fingerprints equal to phase 6's untraced run")
-    phase_append_kernel(torch, rows, "paxos3", checker, cap)
+    phase_append_kernel(torch, rows, "tr-paxos3", checker, cap)
+    return launches
 
 
 def phase_traced_tiered_paxos3(torch, gpu, want_counts, want_fps):
@@ -1739,8 +1970,9 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     (``step``, twin ``step_plain``), K8, K1, K3 and K4, and K12 where the
     run ended on the sorted path -- against their twins on one real wave
     of its run (:func:`replay_wave`), called as the single-phase wave
-    calls them (K1 on each row's identity prefix); the wave must append
-    what the run did.  ``step`` returns ``(nexts, valid, conds, flag)``,
+    calls them (K1 on each row's identity prefix; K8 and K4 through the
+    device-count entries the untraced run launches, and held to their
+    host entries); the wave must append what the run did.  ``step`` returns ``(nexts, valid, conds, flag)``,
     or with ``conds`` -- ``(name, fn, plain)`` of a separate conds kernel
     -- ``(nexts, valid, flag)``.  Under a symmetry with a non-empty spec,
     K15 is held to its twin on the wave's candidate rows.  The step's operation count is the DP's
@@ -1761,6 +1993,7 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     )
 
     row = kernel_row(rows, path)
+    checked = kernel_row(rows, None)  # the host entries the run does not launch
     cm = checker._compiled
     w, m = cm.state_width, cm.max_actions
     carry = checker._carry
@@ -1803,12 +2036,17 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     k8 = wave_eval(cond_t, gated, eb, start, kinds, discovered)
     p8 = wave_eval_plain(cond_t, valid.clone(), eb, start, kinds, discovered)
     torch.cuda.synchronize()
-    row("wave_eval", max_abs_err(torch, zip(k8, p8)),
-        time_ms(torch, lambda: wave_eval(cond_t, gated, eb, start, kinds,
-                                         discovered), 10, setup=fresh),
-        time_ms(torch, lambda: wave_eval_plain(cond_t, valid, eb, start, kinds,
-                                               discovered), 2),
-        f * n_props + 2 * f * m + 2 * f * 4 + n_props * 8)
+    checked("wave_eval", max_abs_err(torch, zip(k8, p8)),
+            time_ms(torch, lambda: wave_eval(cond_t, gated, eb, start, kinds,
+                                             discovered), 10, setup=fresh),
+            time_ms(torch, lambda: wave_eval_plain(cond_t, valid, eb, start,
+                                                   kinds, discovered), 2),
+            f * n_props + 2 * f * m + 2 * f * 4 + n_props * 8)
+    stats = replay_stats(torch, n_props, start, discovered, states.device)
+    active = torch.ones((f,), dtype=torch.bool, device=states.device)
+    k8d = check_wave_eval_dev(torch, row, cond_t, valid, eb, stats, active, kinds)
+    if not all(torch.equal(x, y) for x, y in zip(k8, k8d)):
+        raise AssertionError("K8's device entry disagrees with its host entry")
 
     # K1 on every candidate row's identity prefix, as the single-phase
     # wave hashes them (in place: the prefix is a strided view; of the
@@ -1846,7 +2084,8 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
     if k3_valid[0] or not (k3_valid[5] == v_orig).all():
         raise AssertionError("compact_valid disagrees with its twin")
     if checker._sortless:
-        k_new = check_insert(torch, row, table, v_hi, v_lo, v_act)
+        k_new_d, _ok = check_insert_dev(torch, row, table, v_hi, v_lo, v_act)
+        k_new = check_insert(torch, checked, table, v_hi, v_lo, v_act)
         origin = None
     else:
         # The sorted path: K12 (+ K3) elects each key's lowest lane in
@@ -1868,7 +2107,10 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
         log(f"  prededup: {n_act} active lanes of a {size}-lane buffer, "
             f"{n_rep} distinct keys")
         u_hi, u_lo, origin, u_act, _ovf = got
-        k_new = check_insert(torch, row, table, u_hi, u_lo, u_act)
+        k_new_d, _ok = check_insert_dev(torch, row, table, u_hi, u_lo, u_act)
+        k_new = check_insert(torch, checked, table, u_hi, u_lo, u_act)
+    if not torch.equal(k_new, k_new_d):
+        raise AssertionError("K4's device-epoch entry disagrees with its host entry")
     n_new = int(k_new.sum())
     k3_new = measure_compact(torch, k_new, k_new.shape[0])
     (e1, t1, q1, l1, b1, _), (e2, t2, q2, l2, b2, sel) = k3_valid, k3_new
@@ -1880,6 +2122,11 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
         lanes = origin[lanes].long()
     idxs = v_orig[lanes].long()
     check_appends(torch, carry, appended, cand_rows[idxs], idxs, m, start, k8[1])
+    # The replayed wave's commit, as K25 takes it (phase_append_kernel).
+    return dict(sel=sel, origin=origin, v_orig=v_orig, cand_rows=cand_rows,
+                eb=k8[1], lo_pos=start,
+                tail=int(appended[0]) if n_new else carry.tail, n_new=n_new,
+                a=m, two_phase=False)
 
 
 def abd_model(c, ordered, fault=None):
@@ -2150,13 +2397,14 @@ def final_geometry(checker, geometry):
 
 def phase_ping_pong_kernels(torch, checker, rows, path, geometry):
     """A ping-pong path's kernels against their twins on one real wave of
-    its run (:func:`phase_single_phase_kernels`)."""
+    its run (:func:`phase_single_phase_kernels`); returns that wave's
+    commit, as K25 takes it."""
     from stateright_tpu_torch.models.ping_pong_compiled import (
         ping_pong_step, ping_pong_step_plain,
     )
 
     cm = checker._compiled
-    phase_single_phase_kernels(
+    return phase_single_phase_kernels(
         torch, checker, rows, path, final_geometry(checker, geometry),
         "ping_pong_step",
         lambda states: ping_pong_step(states, cm.max_nat, cm.lossy),
@@ -3666,11 +3914,18 @@ def edited_raft(torch):
     model = raft_model()
     codec = model.compiled()
     init_row = codec.init_packed()[0]
+    on_device = {}
 
     class Edited(type(codec)):
         def property_conds(self, states):
             conds = super().property_conds(states)
-            same = (states == from_numpy_u32(init_row, states.device)).all(1)
+            # The init row is uploaded once a device: the quantum's graph
+            # capture takes no host copy.
+            row = on_device.get(states.device)
+            if row is None:
+                row = on_device[states.device] = from_numpy_u32(
+                    init_row, states.device)
+            same = (states == row).all(1)
             return torch.cat([conds, same[:, None]], dim=1)
 
     model.property(Expectation.ALWAYS, "at the init row",
@@ -4531,6 +4786,338 @@ def phase_ts_kernels(torch, rows, path, checker, cap):
     check_insert(torch, row, HashSet(ins["keys"]), ins["hi"], ins["lo"], ins["rv"])
 
 
+# --- the fused wave loop (K29, phases 65-69) ----------------------------------
+
+# The per-wave loop's warm seconds of these runs before the fused quantum
+# (gpu_profile.py medians, H100 80GB HBM3 at 700 W: rm10 PR 12, paxos3 PR
+# 6; PERF.md).
+PER_WAVE_S = {"rm10": 0.273, "paxos3": 0.03405}
+
+
+def profiled(torch, fn):
+    """``fn()`` under ``torch.profiler``: ``(result, wall seconds, the
+    card's busy seconds)`` -- the sum of the device-side events' own time
+    (one stream)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ) / 1e6
+    return out, wall, busy
+
+
+def rm10_geometry():
+    return dict(capacity=CAPACITY, log_capacity=LOG_CAPACITY, max_frontier=F,
+                dedup_factor=1)
+
+
+def phase_fused_quantum(torch, fused_runs):
+    """rm10 and paxos3 at the default ``waves_per_call`` (256) and at 1: the
+    same logs and fingerprints, the readbacks counted; warm seconds and the
+    card's idle share (one profiled run each) printed beside the per-wave
+    loop's seconds of earlier PRs.  Fills ``fused_runs`` with the
+    numbers."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    for path, build, kw, golden in (
+        ("rm10", lambda: TwoPhaseSys(rm_count=RM).checker(), rm10_geometry(),
+         GOLDEN_RM10),
+        ("paxos3", lambda: paxos_model(3).checker(), PAXOS3_GEOMETRY,
+         GOLDEN_PAXOS3),
+    ):
+        logs, fps = {}, {}
+        for wpc in (None, 1):
+            def spawn():
+                return build().spawn_gpu(waves_per_call=wpc, **kw).join()
+
+            spawn()  # warm: allocator pools, the first capture's loads
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            checker = spawn()
+            secs = time.monotonic() - t0
+            got = (checker.unique_state_count(), checker.max_depth())
+            if got != golden:
+                raise AssertionError(f"{path} at waves_per_call={wpc}: {got}")
+            logs[wpc], fps[wpc] = card_logs(checker), device_fps(torch, checker)
+            del checker
+            checker, wall, busy = profiled(torch, spawn)
+            fused_runs[path, wpc] = r = dict(
+                seconds=secs, readbacks=checker._readbacks,
+                waves=checker._waves_run, profiled_s=wall, busy_s=busy,
+                idle_share=1 - busy / wall, captures=len(checker._capture_sec),
+                capture_s=sum(checker._capture_sec),
+            )
+            log(f"  {path} waves_per_call={wpc or 256}: {secs:.4f} s warm, "
+                f"{r['waves']} waves behind {r['readbacks']} readbacks, "
+                f"{r['captures']} graph captures ({r['capture_s']:.4f} s); "
+                f"profiled {wall:.4f} s, card busy {busy:.4f} s, idle share "
+                f"{r['idle_share']:.3f}; the per-wave loop's "
+                f"{PER_WAVE_S[path]} s (earlier PRs)")
+            del checker
+            torch.cuda.empty_cache()
+        if not all(torch.equal(x, y) for x, y in zip(logs[None], logs[1])):
+            raise AssertionError(f"{path}: the quantum's logs differ at 256 and 1")
+        if not torch.equal(fps[None], fps[1]):
+            raise AssertionError(f"{path}: fingerprints differ at 256 and 1")
+        if fused_runs[path, None]["readbacks"] >= fused_runs[path, 1]["readbacks"]:
+            raise AssertionError(f"{path}: the quantum read back as often as one "
+                                 "wave a call")
+        log(f"  {path}: logs and fingerprints equal at 256 and 1 waves a call")
+        del logs, fps
+        torch.cuda.empty_cache()
+
+
+def phase_fused_growth(torch, want_fps):
+    """rm10 with a 2**20-slot table: flag 1 falls inside a quantum (the
+    quantum committed waves before the flagged one), the table grows x16
+    twice, and the run ends at phase 4's fingerprints."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+    from stateright_tpu_torch.runtime.journal import read_journal
+
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = os.path.join(tmp, "j.jsonl")
+        t0 = time.monotonic()
+        checker = TwoPhaseSys(rm_count=RM).checker().spawn_gpu(
+            journal=journal, **dict(rm10_geometry(), capacity=1 << 20)).join()
+        elapsed = time.monotonic() - t0
+        events = [e for e in read_journal(journal) if e["event"] == "wave"]
+    got = (checker.unique_state_count(), checker.max_depth())
+    if got != GOLDEN_RM10:
+        raise AssertionError(f"rm10 grown {got} != {GOLDEN_RM10}")
+    if not torch.equal(device_fps(torch, checker), want_fps):
+        raise AssertionError("rm10 grown: fingerprints differ from phase 4's")
+    inside = [
+        e for i, e in enumerate(events) if e["flags"] & 1
+        and e["unique"] > (events[i - 1]["unique"] if i else 1)
+    ]
+    if not inside or 1 not in checker._grow_flags:
+        raise AssertionError(f"rm10 grown: no flag 1 inside a quantum "
+                             f"({checker._grow_flags})")
+    log(f"  rm10 from 2**20 slots: growths {checker._grow_notes}, flag 1 "
+        f"inside a quantum at unique {[e['unique'] for e in inside]}, "
+        f"{checker._readbacks} readbacks, {len(checker._capture_sec)} graph "
+        f"captures, {elapsed:.3f} s; phase 4's fingerprints")
+    del checker
+    torch.cuda.empty_cache()
+
+
+def phase_fused_finish_when(torch):
+    """``2pc check 10`` under ``finish_when(ANY)``: the quantum stops at the
+    wave of the first discovery, inside the quantum, with the discovery ids
+    and counts of the one-wave-a-call run."""
+    from stateright_tpu_torch.core.has_discoveries import HasDiscoveries
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    runs = {}
+    for wpc in (None, 1):
+        runs[wpc] = ck = TwoPhaseSys(rm_count=RM).checker().finish_when(
+            HasDiscoveries.ANY).spawn_gpu(waves_per_call=wpc,
+                                          **rm10_geometry()).join()
+        log(f"  waves_per_call={wpc or 256}: discoveries "
+            f"{dict(ck._discovery_slots)}, unique {ck.unique_state_count()}, "
+            f"states {ck.state_count()}, {ck._waves_run} waves behind "
+            f"{ck._readbacks} readbacks")
+    a, b = runs[None], runs[1]
+    if dict(a._discovery_slots) != dict(b._discovery_slots) or not a._discovery_slots:
+        raise AssertionError("finish_when: the discovery ids differ")
+    if (a.unique_state_count(), a.state_count()) != (
+            b.unique_state_count(), b.state_count()):
+        raise AssertionError("finish_when: the counts differ")
+    if a._readbacks != 1 or a._waves_run >= 256:
+        raise AssertionError("finish_when: the stop was not inside a quantum")
+    del runs, a, b
+    torch.cuda.empty_cache()
+
+
+def phase_fused_stopped_waves(torch, fused_runs):
+    """``2pc check 5`` in one quantum of 256 waves against one of exactly
+    its wave count: warm medians of five, alternating, the 256 run within
+    1.3x -- the waves after the stop cost nothing."""
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    geo = dict(capacity=1 << 15, max_frontier=1 << 12)  # no growth
+
+    def spawn(wpc):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ck = TwoPhaseSys(rm_count=5).checker().spawn_gpu(
+            waves_per_call=wpc, **geo).join()
+        return ck, time.monotonic() - t0
+
+    probe, _ = spawn(256)
+    n = probe._waves_run
+    if probe._readbacks != 1 or (probe.unique_state_count(),
+                                 probe.max_depth()) != GOLDEN_RM5[::2]:
+        raise AssertionError(f"rm5 in one quantum: {probe._readbacks} readbacks")
+    spawn(n)
+    times = {256: [], n: []}
+    for i in range(5):
+        for wpc in ((256, n) if i % 2 == 0 else (n, 256)):
+            ck, secs = spawn(wpc)
+            if ck._waves_run != n or ck._readbacks != 1:
+                raise AssertionError(f"rm5 at {wpc}: {ck._waves_run} waves")
+            times[wpc].append(secs)
+    med = {k: sorted(v)[2] for k, v in times.items()}
+    ratio = med[256] / med[n]
+    fused_runs["rm5-stop"] = dict(waves=n, median_256=med[256],
+                                  median_n=med[n], ratio=ratio)
+    log(f"  2pc check 5: {n} waves in one quantum; warm medians "
+        f"{med[256]:.4f} s at 256 and {med[n]:.4f} s at {n} waves a call "
+        f"(ratio {ratio:.3f}; runs {times})")
+    if ratio > 1.3:
+        raise AssertionError(f"a 256-wave quantum of {n} waves took {ratio:.2f}x")
+
+
+def phase_fused_kernels(torch, rows, path, checker, geometry):
+    """K29's two entries and the device-count entries of K1 (two-phase),
+    K4, K8 and K25 against their twins on one real wave of the run,
+    replayed from its log at the card's full chunk (:func:`replay_wave`;
+    the lanes past the level inactive): bit-equal, timed, with bounds; the
+    replayed wave appends what the run appended."""
+    from stateright_tpu_torch.ops.device_fp import device_fp64
+    from stateright_tpu_torch.ops.u32 import M32
+    from stateright_tpu_torch.parallel import fused
+    from stateright_tpu_torch.parallel.append import (
+        append_block_dev, append_block_dev_plain,
+    )
+    from stateright_tpu_torch.parallel.hashset import (
+        compact_valid, compact_valid_indices, insert_batch_claim_dev,
+    )
+    from stateright_tpu_torch.parallel.wave_common import NO_ID, compact, prop_kinds
+
+    row = kernel_row(rows, path)
+    cm = checker._compiled
+    w, a = cm.state_width, cm.max_actions
+    props = checker._properties
+    p = len(props)
+    carry = checker._carry
+    (_states, start, _eb, _discovered, table, appended, level_end) = replay_wave(
+        torch, checker, geometry, with_level_end=True)
+    f = geometry["max_frontier"]
+    count = min(f, level_end - start)
+    disc = [d if d != NO_ID and d < start else NO_ID for d in carry.disc]
+    words = [start, level_end, level_end, 0, 0, level_end, 0, 0] + disc
+    words += [8, 1, 0, 0, 0, 0, 0]
+    stats = torch.tensor([((x & M32) ^ 0x80000000) - 0x80000000 for x in words],
+                         dtype=torch.int32, device=carry.rows.device)
+    stats_bytes = 4 * stats.shape[0]
+
+    # K29 wave_load: the chunk at the card's full width.
+    k = fused.wave_load(carry.rows, carry.ebits, stats, f, w)
+    q = fused.wave_load_plain(carry.rows, carry.ebits, stats, f, w)
+    torch.cuda.synchronize()
+    row("wave_load", max_abs_err(torch, zip(k, q)),
+        time_ms(torch, lambda: fused.wave_load(carry.rows, carry.ebits, stats, f, w), 10),
+        time_ms(torch, lambda: fused.wave_load_plain(carry.rows, carry.ebits, stats, f, w), 2),
+        count * (4 * w + 4) + f * (4 * w + 4 + 1) + 8)
+    states, eb_in, active = k
+    del q
+    log(f"  wave_load: {count} active lanes of the {f}-state chunk")
+
+    # The model's step and conds, then K8's device entry.
+    kinds = prop_kinds(props)
+    size = unique_buffer_size_of(geometry, a)
+    if checker._two_phase:
+        conds, valid = cm.property_conds(states), cm.step_valid(states)
+    else:
+        _nexts, valid, conds, _flag = cm.expand(states)
+    valid_g, eb, cands = check_wave_eval_dev(torch, row, conds, valid, eb_in,
+                                             stats, active, kinds)
+
+    if checker._two_phase:
+        v_orig, v_act, n_valid = compact_valid_indices(valid_g.view(-1),
+                                                       sort_lanes=size)
+        cand_rows, _lane_flags = cm.step_lane(states, v_orig, n_valid)
+        hi, lo = check_fp_n(torch, row, checker._identity(cand_rows), n_valid)
+    else:
+        cand_rows = _nexts.view(f * a, w)
+        hi, lo, v_orig, v_act, n_valid = compact_valid(
+            *device_fp64(checker._identity(cand_rows)), valid_g.view(-1),
+            sort_lanes=size)
+
+    # K4's device-epoch entry into the table as it stood, then the
+    # wave's insert for what follows.
+    check_insert_dev(torch, row, table, hi, lo, v_act)
+    epoch = torch.tensor([7], dtype=torch.int32, device=stats.device)
+    k_new, k_ok = insert_batch_claim_dev(table, hi, lo, v_act, epoch)
+    n_new = int(k_new.sum())
+    sel, n_new_d = compact(k_new, k_new.shape[0])
+
+    # K29 wave_ctl: close the wave on copies of the stats.
+    ctl_kw = dict(
+        waves=8, f_eff=f, f_full=f, cap=table.capacity,
+        qcap=carry.parent.shape[0], size=v_orig.shape[0],
+        target=checker._options._target_max_depth or 0,
+        fw_masks=checker._fw_masks,
+    )
+    step_flag = torch.zeros((), dtype=torch.bool, device=stats.device)
+    closing = dict(n_new=n_new_d, n_valid=n_valid, probe_ok=k_ok,
+                   step_flag=step_flag, dd_flag=None, cands=cands)
+    ks, ps = stats.clone(), stats.clone()
+    fused.wave_ctl(ks, p, begin=False, **closing, **ctl_kw)
+    fused.wave_ctl_plain(ps, p, begin=False, **closing, **ctl_kw)
+    torch.cuda.synchronize()
+    ts = stats.clone()
+
+    def reset():
+        ts.copy_(stats)
+
+    row("wave_ctl", max_abs_err(torch, [(ks, ps)]),
+        time_ms(torch, lambda: fused.wave_ctl(ts, p, begin=False, **closing,
+                                              **ctl_kw), 10, setup=reset),
+        time_ms(torch, lambda: fused.wave_ctl_plain(ts, p, begin=False, **closing,
+                                                    **ctl_kw), 2, setup=reset),
+        2 * stats_bytes + 8 + 8 + 1 + 1 + 8 * p)
+    kw_ = [int(x) & M32 for x in ks.tolist()]
+    ctl0 = fused.STAT_DISC + p
+    if kw_[fused.STAT_FLAGS] or kw_[ctl0 + fused.CTL_WAVE_NEW] != n_new:
+        raise AssertionError(f"wave_ctl did not commit the replayed wave: {kw_}")
+    log(f"  wave_ctl: committed {n_new} new states, level_start "
+        f"{start} -> {kw_[fused.STAT_LEVEL_START]}, go {kw_[ctl0 + fused.CTL_GO]}")
+
+    # K25's device entry from K29's record, into a scratch block at tail 0.
+    rec = torch.tensor([start, 0, n_new], dtype=torch.int32, device=stats.device)
+
+    def block():
+        return (torch.zeros((n_new * w,), dtype=torch.int32, device=stats.device),
+                torch.zeros((n_new,), dtype=torch.int32, device=stats.device),
+                torch.zeros((n_new,), dtype=torch.int32, device=stats.device))
+
+    kb, pb = block(), block()
+    args = (sel, None, v_orig, cand_rows, eb, rec, a, checker._two_phase)
+    append_block_dev(*kb, *args)
+    append_block_dev_plain(*pb, *args)
+    torch.cuda.synchronize()
+    t = int(appended[0])
+    ran = (carry.rows[t * w:(t + n_new) * w], carry.parent[t:t + n_new],
+           carry.ebits[t:t + n_new])
+    if appended.numel() != n_new or not all(torch.equal(x, y) for x, y in zip(kb, ran)):
+        raise AssertionError(f"{path}: K25's device entry does not write what "
+                             "the run appended")
+    row("append_block_dev", max_abs_err(torch, zip(kb, pb)),
+        time_ms(torch, lambda: append_block_dev(*kb, *args), 10),
+        time_ms(torch, lambda: append_block_dev_plain(*pb, *args), 2),
+        n_new * (4 * 2 + 8 * w + 12) + 12)
+    log(f"  append_block(wave=): {n_new} new states, equal to the run's log "
+        f"at {t}")
+
+
+def unique_buffer_size_of(geometry, a):
+    from stateright_tpu_torch.parallel.hashset import unique_buffer_size
+
+    return unique_buffer_size(geometry["max_frontier"] * a,
+                              geometry.get("dedup_factor", 8))
+
+
 def main() -> int:
     use_one_card()
     try:
@@ -4561,8 +5148,11 @@ def main() -> int:
     gpu = gpu_line()
     log(f"  card: {gpu}; derived INT32 rate {int32_rate():.4g} ops/s "
         f"(132 SMs x 64 lanes x the maximum SM clock)")
+    from stateright_tpu_torch.parallel.fused import cuda_versions
+
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+        f"device {torch.cuda.get_device_name(0)}; the kernels' CUDA runtime "
+        f"and the driver (12090 = 12.9): {cuda_versions()}")
 
     log("phase 2: the 2pc check 10 path's kernels against their twins")
     rows = {}
@@ -4594,7 +5184,8 @@ def main() -> int:
 
     log("phase 7: the paxos check 3 path's kernels against their twins on "
         "one of its waves")
-    phase_paxos_kernels(torch, checker, rows, "paxos3", PAXOS3_GEOMETRY)
+    phase_paxos_kernels(torch, checker, rows, "paxos3", PAXOS3_GEOMETRY,
+                        host_path="tr-paxos3")
     paxos3_logs = card_logs(checker)  # held against the bounded run's
     del checker
     torch.cuda.empty_cache()
@@ -4681,13 +5272,18 @@ def main() -> int:
     log("phase 23: lossy ping-pong at max_nat 11 through the sorted fallback, "
         "and its kernels (K25 on its widest sorted commit) against their "
         "twins on one of its waves")
-    with AppendCapture(want=lambda wave: wave.u_origin is not None) as cap:
-        launches["pp11s"], checker = run_full(torch, gpu, "pp11s", run_pp11s,
-                                              properties_hold=False)
+    launches["pp11s"], checker = run_full(torch, gpu, "pp11s", run_pp11s,
+                                          properties_hold=False)
     log(f"  pp11s growths: {checker._grow_notes}")
-    phase_ping_pong_kernels(torch, checker, rows, "pp11s", PP11S_GEOMETRY)
-    phase_append_kernel(torch, rows, "pp11s", checker, cap)
-    del cap
+    # The untraced run commits inside its captured quanta: K25 is held on
+    # the replayed sorted-path wave's commit.
+    commit = phase_ping_pong_kernels(torch, checker, rows, "pp11s",
+                                     PP11S_GEOMETRY)
+    if commit["origin"] is None:
+        raise AssertionError("pp11s: the replayed wave is not on the sorted path")
+    phase_append_kernel(torch, rows, None, checker,
+                        SimpleNamespace(wave=commit), dev_path="pp11s")
+    del commit
     del checker
     torch.cuda.empty_cache()
     phase_prededup_fuzz(torch)
@@ -4820,13 +5416,15 @@ def main() -> int:
 
     log("phase 48: traced 2pc check 10 against phase 4's run, and K25 on "
         "its widest commit")
-    phase_traced_rm10(torch, gpu, rows, rm10_counts, rm10_logs, rm10_fps)
+    launches["tr-rm10"] = phase_traced_rm10(torch, gpu, rows, rm10_counts,
+                                            rm10_logs, rm10_fps)
     del rm10_logs
     torch.cuda.empty_cache()
 
     log("phase 49: traced paxos check 3 against phase 6's run, and K25 on "
         "its widest commit")
-    phase_traced_paxos3(torch, gpu, rows, paxos3_counts, paxos3_logs, paxos3_fps)
+    launches["tr-paxos3"] = phase_traced_paxos3(torch, gpu, rows, paxos3_counts,
+                                                paxos3_logs, paxos3_fps)
     del paxos3_logs
     torch.cuda.empty_cache()
 
@@ -4847,7 +5445,7 @@ def main() -> int:
         "4's fingerprints")
     launches["sh-rm10"], sh_rm10, sh_rm10_cap = phase_sh_rm10(
         torch, gpu, GOLDEN_RM10, rm10_fps)
-    del rm10_fps
+    rm10_fps = rm10_fps.cpu()  # held against phase 66's run
     torch.cuda.empty_cache()
 
     log("phase 54: paxos check 3 on a 1-shard mesh: the exchange elided")
@@ -4917,6 +5515,35 @@ def main() -> int:
     del tr_sh, tr_sh_cap
     torch.cuda.empty_cache()
 
+    fused_runs = {}
+    log("phase 65: the fused quantum: rm10 and paxos3 at 256 and at 1 wave "
+        "a call")
+    phase_fused_quantum(torch, fused_runs)
+
+    log("phase 66: rm10 from a 2**20-slot table: flag 1 inside a quantum")
+    phase_fused_growth(torch, rm10_fps.to("cuda"))
+    del rm10_fps
+    torch.cuda.empty_cache()
+
+    log("phase 67: finish_when(ANY) inside a quantum")
+    phase_fused_finish_when(torch)
+
+    log("phase 68: 2pc check 5 in a 256-wave quantum and in one of its own "
+        "wave count")
+    phase_fused_stopped_waves(torch, fused_runs)
+
+    log("phase 69: K29 and the device-count entries of K1, K4, K8 and K25 "
+        "against their twins on replayed waves of rm10 and paxos3")
+    checker, _elapsed = run_rm10(torch)
+    phase_fused_kernels(torch, rows, "rm10", checker, rm10_geometry())
+    del checker
+    torch.cuda.empty_cache()
+    checker, _elapsed = run_paxos3(torch)
+    phase_fused_kernels(torch, rows, "paxos3", checker, PAXOS3_GEOMETRY)
+    del checker
+    torch.cuda.empty_cache()
+    log(f"  fused runs: {json.dumps({str(k): v for k, v in fused_runs.items()})}")
+
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []
     for path, names in PATH_KERNELS.items():
@@ -4925,7 +5552,8 @@ def main() -> int:
             source, replaces = KERNELS[name]
             kernels.append(dict(
                 name=name, path=path, route=r["route"], source=source,
-                replaces=replaces, launches=launches[path][name],
+                replaces=replaces,
+                launches=launches[path][name],
                 max_abs_err=r["max_abs_err"], bit_equal=r["bit_equal"],
                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],

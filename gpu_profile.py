@@ -4,8 +4,8 @@
     python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o|raft|
                                     pp13|pp11s|paxos3b|sym12|lww2d7|
                                     sim-rm10|sim-raft|ens-abd|
-                                    tiered-paxos3|tiered-raft]
-                           [--runs N] [--trace-dir DIR]
+                                    tiered-paxos3|tiered-raft[,...]]
+                           [--runs N] [--trace-dir DIR] [--tree DIR]
 
 Builds the port's kernels, runs one of ``chip_smoke.py``'s full checks
 through ``spawn_gpu()`` at its geometry, held to its goldens --
@@ -35,8 +35,13 @@ untraced (wall seconds of each, then median and spread), and once more
 under ``torch.profiler``: device time per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
 trace written there.  The traced run pays the
-profiler's overhead; the untraced runs are the measurement.  Prints one
-JSON line last.
+profiler's overhead; the untraced runs are the measurement.  A search's
+line also carries its stats readbacks and the waves it ran (one readback a
+wave for a checker with no fused quantum).  ``--model`` takes a
+comma-separated list, run in turn in one process; ``--tree`` profiles the
+checkout at DIR (its ``chip_smoke.py`` and package) instead of this one,
+so two commits compare on one card in one call.  Prints one JSON line per
+model, then one JSON line of them all last.
 """
 
 from __future__ import annotations
@@ -86,23 +91,40 @@ def calls_of(run) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="rm10",
-                    choices=("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o",
-                             "raft", "pp13", "pp11s", "paxos3b", "sym12",
-                             "lww2d7", "sim-rm10", "sim-raft", "ens-abd",
-                             "tiered-paxos3", "tiered-raft"))
+    ap.add_argument("--model", default="rm10")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--tree", default=None)
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("gpu_profile: no CUDA device is visible", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    root = os.path.abspath(args.tree) if args.tree else HERE
+    sys.path.insert(0, root)
     import chip_smoke
     from stateright_tpu_torch.ops import cuda
 
+    cuda.build()
+    card = chip_smoke.gpu_line()
+    results = []
+    for model in args.model.split(","):
+        results.append(profile_model(torch, chip_smoke, model, args, card, root))
+    print(json.dumps(results), flush=True)
+    return 0
+
+
+MODELS = ("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o", "raft", "pp13",
+          "pp11s", "paxos3b", "sym12", "lww2d7", "sim-rm10", "sim-raft",
+          "ens-abd", "tiered-paxos3", "tiered-raft")
+
+
+def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
+    """One model's warm runs and profiled run; prints its lines and
+    returns its JSON record."""
+    if model not in MODELS:
+        raise SystemExit(f"gpu_profile: unknown model {model!r}")
     run = {
         "rm10": chip_smoke.run_rm10,
         "paxos3": chip_smoke.run_paxos3,
@@ -121,10 +143,8 @@ def main() -> int:
         "ens-abd": lambda torch: chip_smoke.run_ens(torch, chip_smoke.ENS_WIDE),
         "tiered-paxos3": chip_smoke.run_tiered_paxos3,
         "tiered-raft": chip_smoke.run_tiered_raft,
-    }[args.model]
-    cuda.build()
-    card = chip_smoke.gpu_line()
-    print(f"card: {card}; model {args.model}", flush=True)
+    }[model]
+    print(f"card: {card}; model {model}; tree {root}", flush=True)
 
     unique = count_of(run(torch)[0])  # warm-up: library loads, pools
     times = []
@@ -144,7 +164,7 @@ def main() -> int:
     trace = None
     if args.trace_dir is not None:
         os.makedirs(args.trace_dir, exist_ok=True)
-        trace = os.path.join(args.trace_dir, f"{args.model}_trace.json")
+        trace = os.path.join(args.trace_dir, f"{model}_trace.json")
         prof.export_chrome_trace(trace)
     # Device-side events only (kernels, copies, fills): the CPU ops that
     # launched them report the same time again.  One stream, so the sum
@@ -162,7 +182,7 @@ def main() -> int:
     for name, ms in top:
         print(f"  {ms:9.2f} ms  {name[:100]}")
     tiered = {}
-    if args.model.startswith("tiered-"):
+    if model.startswith("tiered-"):
         m = _checker.metrics()
         tiered = {
             "spills": m.get("spills", 0),
@@ -179,9 +199,18 @@ def main() -> int:
             "max_frontier": m["max_frontier"],
         }
         print(f"tiered: {tiered}")
-    print(json.dumps({
+    calls = {}
+    if hasattr(_checker, "waves"):
+        waves = getattr(_checker, "_waves_run", None)
+        calls = {
+            "waves_run": _checker.waves() if waves is None else waves,
+            "readbacks": getattr(_checker, "_readbacks", _checker.waves()),
+        }
+    record = {
         "card": card,
-        "model": args.model,
+        "tree": root,
+        "model": model,
+        **calls,
         "runs_s": times,
         "median_s": median,
         "quartiles_s": [q[0], q[2]],
@@ -192,8 +221,9 @@ def main() -> int:
         "device_busy_share_of_median": busy_ms / 1e3 / median,
         "device_ms_by_kernel": dict(top),
         **({"tiered": tiered} if tiered else {}),
-    }), flush=True)
-    return 0
+    }
+    print(json.dumps(record), flush=True)
+    return record
 
 
 if __name__ == "__main__":

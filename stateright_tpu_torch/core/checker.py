@@ -85,10 +85,21 @@ class CheckerBuilder:
         evaluation run on the card in hand-written kernels.  ``device``
         defaults to ``cuda``; with no card present the spawn raises -- pass
         ``device="cpu"`` explicitly to run the plain-torch twins.  Under
-        :meth:`symmetry` the table holds canonical fingerprints.
-        ``trace=True`` times each phase of every wave and charges it
-        modeled bytes against the card's peak bandwidth (``obs/``;
-        ``trace_summary()``); a :meth:`visitor` forces it on."""
+        :meth:`symmetry` the table holds canonical fingerprints.  It takes
+        the JAX ``spawn_tpu`` arguments (``capacity``, ``log_capacity``,
+        ``max_frontier``, ``dedup_factor``, ``sort_lanes``, ``sortless``,
+        ``step_lanes``, ``waves_per_call``, ``auto_tune``, the journal and
+        checkpoint knobs, ``resume_from``) with their defaults and
+        meanings.  An untraced run is the JAX fused loop: a quantum of up
+        to ``waves_per_call`` waves (256 by default, 1 where only the host
+        can stop the run) behind one readback of the stats, the loop's
+        control on the card (K29, ``parallel/fused.py``), the quantum one
+        launch of a CUDA graph on the card and a loop over the twins on
+        the CPU; the step rung (``step_lanes``, flag 128) and the density
+        tuners run between quanta.  ``trace=True`` times each phase of
+        every wave and charges it modeled bytes against the card's peak
+        bandwidth (``obs/``; ``trace_summary()``); a :meth:`visitor`
+        forces it on.  Traced runs keep one readback a wave."""
         from ..parallel.wavefront import GpuChecker
 
         return GpuChecker(self, **kwargs)

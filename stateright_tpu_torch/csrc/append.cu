@@ -25,6 +25,13 @@
 // of whole rows); threads [n_new * W, n_new * W + n_new) write a parent
 // and an ebits word each.  The index chain is re-read by each word of a
 // row and served from L1/L2.  One launch, no scratch, no sync.
+//
+// The device-count entry (sr_append_block_dev) serves the fused wave loop
+// (K29, csrc/wave_ctl.cu): lo_pos, tail and n_new are the three words K29's
+// wave_ctl writes for the wave it just closed -- n_new is 0 for a wave
+// that did not commit, so an aborted wave appends nothing -- and the grid
+// is sized at launch for the widest append the buffer allows, each thread
+// reading the live count first.
 #include "sr_common.cuh"
 
 namespace {
@@ -48,7 +55,13 @@ __global__ void append_kernel(uint32_t* __restrict__ rows,
                               const uint32_t* __restrict__ cand_rows,
                               const uint32_t* __restrict__ eb,
                               int64_t lo_pos, int64_t tail, int64_t n_new,
-                              int a, int w, int two_phase) {
+                              int a, int w, int two_phase,
+                              const uint32_t* __restrict__ wave) {
+  if (wave != nullptr) {  // the device-count entry: K29's closed wave
+    lo_pos = wave[0];
+    tail = wave[1];
+    n_new = wave[2];
+  }
   const int64_t row_words = n_new * w;
   const int64_t total = row_words + n_new;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -88,6 +101,25 @@ extern "C" int sr_append_block(uint32_t* rows, uint32_t* parent,
   const unsigned grid = sr::grid_for(n_new * (w + 1), kThreads);
   append_kernel<<<grid, kThreads, 0, stream>>>(
       rows, parent, ebits, sel, origin, v_orig, cand_rows, eb, lo_pos, tail,
-      n_new, a, w, two_phase);
+      n_new, a, w, two_phase, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The device-count entry: as sr_append_block, with (lo_pos, tail, n_new)
+// the three words at `wave` and at most n_max (the width of sel) new
+// states; the caller's flags kept the append inside the log.
+extern "C" int sr_append_block_dev(uint32_t* rows, uint32_t* parent,
+                                   uint32_t* ebits, const uint32_t* sel,
+                                   const uint32_t* origin,
+                                   const uint32_t* v_orig,
+                                   const uint32_t* cand_rows,
+                                   const uint32_t* eb, const uint32_t* wave,
+                                   int64_t n_max, int a, int w, int two_phase,
+                                   cudaStream_t stream) {
+  if (n_max <= 0) return 0;
+  const unsigned grid = sr::grid_for(n_max * (w + 1), kThreads);
+  append_kernel<<<grid, kThreads, 0, stream>>>(
+      rows, parent, ebits, sel, origin, v_orig, cand_rows, eb, 0, 0, 0, a, w,
+      two_phase, wave);
   return static_cast<int>(cudaGetLastError());
 }

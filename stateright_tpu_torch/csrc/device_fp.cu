@@ -16,6 +16,12 @@
 // read neighbouring rows (a warp covers 32*4*row_stride contiguous bytes) and
 // write neighbouring words of the two output planes; no shared memory
 // needed.
+//
+// The counted entry (sr_device_fp64_n) hashes only the first *count rows,
+// the count read on the card (K3's count of a two-phase wave's valid
+// lanes), so the fused wave loop (K29) hashes the n_valid successors it
+// built, not the whole compaction buffer, with no host read; rows past the
+// count are left unwritten.
 #include "sr_common.cuh"
 
 namespace {
@@ -23,7 +29,9 @@ namespace {
 __global__ void fp64_kernel(const uint32_t* __restrict__ words, int64_t n,
                             int w, int64_t row_stride,
                             uint32_t* __restrict__ hi,
-                            uint32_t* __restrict__ lo) {
+                            uint32_t* __restrict__ lo,
+                            const int64_t* __restrict__ count) {
+  if (count != nullptr && *count < n) n = *count;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
@@ -53,6 +61,18 @@ extern "C" int sr_device_fp64(const uint32_t* words, int64_t n, int w,
   if (n <= 0) return 0;
   constexpr int kThreads = 256;
   fp64_kernel<<<sr::grid_for(n, kThreads), kThreads, 0, stream>>>(
-      words, n, w, row_stride, hi, lo);
+      words, n, w, row_stride, hi, lo, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The counted entry: rows [0, min(n, *count)) of the n-row buffer.
+extern "C" int sr_device_fp64_n(const uint32_t* words, int64_t n, int w,
+                                int64_t row_stride, const int64_t* count,
+                                uint32_t* hi, uint32_t* lo,
+                                cudaStream_t stream) {
+  if (n <= 0) return 0;
+  constexpr int kThreads = 256;
+  fp64_kernel<<<sr::grid_for(n, kThreads), kThreads, 0, stream>>>(
+      words, n, w, row_stride, hi, lo, count);
   return static_cast<int>(cudaGetLastError());
 }

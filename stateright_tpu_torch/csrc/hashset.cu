@@ -35,6 +35,11 @@
 // shuffles first.  The JAX version's figure is its count of lockstep claim
 // rounds; a lane here that loses a CAS re-reads nothing, so the longest
 // chain can be lower than that count.
+// The device-epoch entry (sr_insert_claim_dev) serves the fused wave loop
+// (K29): the epoch is a word on the card that a one-thread launch advances
+// before the three kernels read it, so every wave of a replayed CUDA graph
+// tags its claims with a fresh epoch (an epoch passed by value would be
+// baked into the graph, and an earlier wave's claims would look current).
 #include "sr_common.cuh"
 
 namespace {
@@ -54,7 +59,9 @@ __global__ void insert_kernel(unsigned long long* __restrict__ keys,
                               unsigned long long epoch_tag,
                               uint32_t* __restrict__ slot_out,
                               int* __restrict__ probe_ok,
-                              unsigned long long* __restrict__ probe_stats) {
+                              unsigned long long* __restrict__ probe_stats,
+                              const uint32_t* __restrict__ epoch) {
+  if (epoch != nullptr) epoch_tag = static_cast<unsigned long long>(*epoch) << 32;
   const uint64_t mask = capacity - 1;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   unsigned long long longest = 0, slots = 0;
@@ -110,7 +117,9 @@ __global__ void insert_kernel(unsigned long long* __restrict__ keys,
 
 __global__ void elect_kernel(unsigned long long* __restrict__ meta,
                              const uint32_t* __restrict__ slot, int64_t n,
-                             unsigned long long epoch_tag) {
+                             unsigned long long epoch_tag,
+                             const uint32_t* __restrict__ epoch) {
+  if (epoch != nullptr) epoch_tag = static_cast<unsigned long long>(*epoch) << 32;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
@@ -125,7 +134,9 @@ __global__ void elect_kernel(unsigned long long* __restrict__ meta,
 __global__ void mark_kernel(const unsigned long long* __restrict__ meta,
                             const uint32_t* __restrict__ slot, int64_t n,
                             unsigned long long epoch_tag,
-                            uint8_t* __restrict__ is_new) {
+                            uint8_t* __restrict__ is_new,
+                            const uint32_t* __restrict__ epoch) {
+  if (epoch != nullptr) epoch_tag = static_cast<unsigned long long>(*epoch) << 32;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
@@ -160,8 +171,40 @@ extern "C" int sr_insert_claim(unsigned long long* keys,
   const unsigned long long tag = static_cast<unsigned long long>(epoch) << 32;
   insert_kernel<<<grid, kThreads, 0, stream>>>(keys, meta, capacity, hi, lo,
                                                active, n, tag, slot_out,
-                                               probe_ok, probe_stats);
-  elect_kernel<<<grid, kThreads, 0, stream>>>(meta, slot_out, n, tag);
-  mark_kernel<<<grid, kThreads, 0, stream>>>(meta, slot_out, n, tag, is_new);
+                                               probe_ok, probe_stats, nullptr);
+  elect_kernel<<<grid, kThreads, 0, stream>>>(meta, slot_out, n, tag, nullptr);
+  mark_kernel<<<grid, kThreads, 0, stream>>>(meta, slot_out, n, tag, is_new,
+                                             nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+__global__ void advance_epoch_kernel(uint32_t* epoch) { *epoch += 1u; }
+
+}  // namespace
+
+// The device-epoch entry: as sr_insert_claim, with the epoch the word at
+// `epoch`, advanced by one on the card first (the caller keeps it below
+// 0xFFFFFFFF and clears meta when it wraps).
+extern "C" int sr_insert_claim_dev(unsigned long long* keys,
+                                   unsigned long long* meta,
+                                   uint64_t capacity, const uint32_t* hi,
+                                   const uint32_t* lo, const uint8_t* active,
+                                   int64_t n, uint32_t* epoch,
+                                   uint32_t* slot_out, uint8_t* is_new,
+                                   int* probe_ok,
+                                   unsigned long long* probe_stats,
+                                   cudaStream_t stream) {
+  advance_epoch_kernel<<<1, 1, 0, stream>>>(epoch);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  constexpr int kThreads = 256;
+  const unsigned grid = sr::grid_for(n, kThreads);
+  insert_kernel<<<grid, kThreads, 0, stream>>>(keys, meta, capacity, hi, lo,
+                                               active, n, 0ull, slot_out,
+                                               probe_ok, probe_stats, epoch);
+  elect_kernel<<<grid, kThreads, 0, stream>>>(meta, slot_out, n, 0ull, epoch);
+  mark_kernel<<<grid, kThreads, 0, stream>>>(meta, slot_out, n, 0ull, is_new,
+                                             epoch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,6 +30,14 @@
 // warp), marking in shared memory which states keep a lane.  A tiny first
 // launch sets the candidates to NO_ID, so the caller allocates them with no
 // fill of its own.
+//
+// The device-count entry (sr_wave_eval_dev) serves the fused wave loop
+// (K29, csrc/wave_ctl.cu), whose scalars never visit the host: the wave's
+// first position and the discovered mask come from the stats vector
+// (level_start, disc[P]), and the fixed-width chunk's lanes past the level
+// come with an active mask -- an inactive state awaits nothing (no valid
+// lane) and hits nothing, as the JAX wave_eval gates them (wave_common.py:
+// 355); its eventually bits are still written.
 #include "sr_common.cuh"
 
 namespace {
@@ -56,23 +64,33 @@ __global__ void wave_eval_kernel(const uint8_t* __restrict__ conds, int64_t f,
                                  uint32_t* __restrict__ eb_out, int64_t start,
                                  uint32_t always, uint32_t sometimes,
                                  uint32_t eventually, uint32_t discovered,
-                                 unsigned long long* __restrict__ cands) {
+                                 unsigned long long* __restrict__ cands,
+                                 const uint32_t* __restrict__ stats,
+                                 const uint8_t* __restrict__ active) {
   __shared__ uint8_t awaiting_s[kThreads];
   __shared__ uint8_t any_s[kThreads];
+  if (stats != nullptr) {  // the device-count entry: scalars from the stats
+    start = stats[0];
+    discovered = 0u;
+    for (int q = 0; q < p; ++q)
+      if (stats[8 + q] != 0xFFFFFFFFu) discovered |= 1u << q;
+  }
   // One state a thread, no grid-stride loop: every lane of a warp reaches
   // the warp minimum, those past f with no hit.
   const int64_t s0 = static_cast<int64_t>(blockIdx.x) * blockDim.x;
   const int64_t s = s0 + threadIdx.x;
-  const bool live = s < f;
+  const bool in_range = s < f;
+  const bool live = in_range && (active == nullptr || active[s] != 0);
   uint32_t cbits = 0;
   uint32_t eb = 0;
   bool awaiting = false;
-  if (live) {
+  if (in_range) {
     for (int q = 0; q < p; ++q)
       cbits |= static_cast<uint32_t>(conds[s * p + q] != 0) << q;
     const uint32_t open = ~discovered;
-    awaiting = (always & open & cbits) != 0u ||
-               (sometimes & open & ~cbits) != 0u || (eventually & open) != 0u;
+    awaiting = live && ((always & open & cbits) != 0u ||
+                        (sometimes & open & ~cbits) != 0u ||
+                        (eventually & open) != 0u);
     eb = eb_in[s];
     int bit = 0;
     for (int q = 0; q < p; ++q) {
@@ -130,7 +148,28 @@ extern "C" int sr_wave_eval(const uint8_t* conds, int64_t f, int p,
     const unsigned blocks = static_cast<unsigned>((f + kThreads - 1) / kThreads);
     wave_eval_kernel<<<blocks, kThreads, 0, stream>>>(
         conds, f, p, valid, a, eb_in, eb_out, start, always, sometimes,
-        eventually, discovered, cands);
+        eventually, discovered, cands, nullptr, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The device-count entry: as sr_wave_eval, with the first position and the
+// discovered mask read from stats (level_start at [0], disc[p] at [8..])
+// and states whose active byte is 0 gated out.
+extern "C" int sr_wave_eval_dev(const uint8_t* conds, int64_t f, int p,
+                                uint8_t* valid, int a, const uint32_t* eb_in,
+                                uint32_t* eb_out, const uint32_t* stats,
+                                const uint8_t* active, uint32_t always,
+                                uint32_t sometimes, uint32_t eventually,
+                                unsigned long long* cands,
+                                cudaStream_t stream) {
+  if (p > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (p > 0) init_kernel<<<1, 32, 0, stream>>>(cands, p);
+  if (f > 0) {
+    const unsigned blocks = static_cast<unsigned>((f + kThreads - 1) / kThreads);
+    wave_eval_kernel<<<blocks, kThreads, 0, stream>>>(
+        conds, f, p, valid, a, eb_in, eb_out, 0, always, sometimes,
+        eventually, 0u, cands, stats, active);
   }
   return static_cast<int>(cudaGetLastError());
 }

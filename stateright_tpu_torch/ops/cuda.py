@@ -38,7 +38,7 @@ SOURCES = (
     "prededup", "ping_pong_step", "paxos_step",
     "canon", "lww_step", "fixtures_step",
     "walk", "fate", "cold", "recheck", "gang", "append",
-    "exchange", "shard_commit",
+    "exchange", "shard_commit", "wave_ctl",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

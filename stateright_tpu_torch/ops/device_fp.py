@@ -39,6 +39,48 @@ def device_fp64(words: torch.Tensor, out=None) -> Tuple[torch.Tensor, torch.Tens
         out[0].copy_(hi)
         out[1].copy_(lo)
         return out
+    n, w, stride, hi, lo = _fp_args(words, out)
+    fn = cuda.function(
+        "device_fp", "sr_device_fp64",
+        [cuda.P, cuda.I64, cuda.I32, cuda.I64, cuda.P, cuda.P, cuda.P],
+    )
+    device_fp64.launches += 1
+    code = fn(cuda.ptr(words), n, w, stride, cuda.ptr(hi), cuda.ptr(lo),
+              cuda.stream(hi))
+    cuda.check(code, "device_fp", "device_fp64")
+    return hi, lo
+
+
+device_fp64.launches = 0
+
+
+def device_fp64_n(words: torch.Tensor, count: torch.Tensor,
+                  out=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's counted entry, for the fused wave loop: :func:`device_fp64` of
+    rows ``[0, count)`` only, ``count`` an int64 scalar tensor on the rows'
+    device read on the card (no host sync; the two-phase wave's buffer
+    holds ``n_valid`` rows).  The rest of ``hi``/``lo`` is left as it was
+    (unwritten, for new tensors)."""
+    if words.device.type == "cpu":
+        return device_fp64_n_plain(words, count, out)
+    n, w, stride, hi, lo = _fp_args(words, out)
+    cuda.require(count, "count", torch.int64, 0, words.device)
+    fn = cuda.function(
+        "device_fp", "sr_device_fp64_n",
+        [cuda.P, cuda.I64, cuda.I32, cuda.I64, cuda.P, cuda.P, cuda.P, cuda.P],
+    )
+    device_fp64_n.launches += 1
+    code = fn(cuda.ptr(words), n, w, stride, cuda.ptr(count), cuda.ptr(hi),
+              cuda.ptr(lo), cuda.stream(hi))
+    cuda.check(code, "device_fp", "device_fp64_n")
+    return hi, lo
+
+
+device_fp64_n.launches = 0
+
+
+def _fp_args(words: torch.Tensor, out):
+    """K1's launch arguments: ``(n, w, row stride, hi, lo)``, checked."""
     if words.dim() != 2 or words.dtype != torch.int32:
         raise ValueError(
             f"words must be int32[N, W], got {words.dtype} {tuple(words.shape)}"
@@ -56,18 +98,7 @@ def device_fp64(words: torch.Tensor, out=None) -> Tuple[torch.Tensor, torch.Tens
             cuda.require(t, name, torch.int32, 1, words.device)
             if t.shape[0] != n:
                 raise ValueError(f"{name} must hold {n} fingerprints")
-    fn = cuda.function(
-        "device_fp", "sr_device_fp64",
-        [cuda.P, cuda.I64, cuda.I32, cuda.I64, cuda.P, cuda.P, cuda.P],
-    )
-    device_fp64.launches += 1
-    code = fn(cuda.ptr(words), n, w, stride, cuda.ptr(hi), cuda.ptr(lo),
-              cuda.stream(hi))
-    cuda.check(code, "device_fp", "device_fp64")
-    return hi, lo
-
-
-device_fp64.launches = 0
+    return n, w, stride, hi, lo
 
 
 def device_fp64_plain(words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,6 +116,20 @@ def device_fp64_plain(words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     h2 = fmix32(h2 ^ ((w * 0x9E3779B1) & M32))
     h1, h2 = _remap_pair(h1, h2)
     return i32(h1), i32(h2)
+
+
+def device_fp64_n_plain(words: torch.Tensor, count, out=None):
+    """Plain-torch twin of K1's counted entry (any device): rows ``[0,
+    count)`` hashed into ``out`` (or new zeroed planes); the rest kept."""
+    n = words.shape[0]
+    k = min(int(count), n)
+    if out is None:
+        out = (torch.zeros((n,), dtype=torch.int32, device=words.device),
+               torch.zeros((n,), dtype=torch.int32, device=words.device))
+    hi, lo = device_fp64_plain(words[:k])
+    out[0][:k] = hi
+    out[1][:k] = lo
+    return out
 
 
 def _remap_pair(h1: torch.Tensor, h2: torch.Tensor):

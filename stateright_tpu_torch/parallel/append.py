@@ -97,3 +97,53 @@ def append_block_plain(rows, parent, ebits, sel, u_origin, v_orig,
     rows[tail * w : (tail + n_new) * w] = rows_new.reshape(-1)
     parent[tail : tail + n_new] = i32(src + lo_pos)
     ebits[tail : tail + n_new] = eb[src]
+
+
+def append_block_dev(rows: torch.Tensor, parent: torch.Tensor,
+                     ebits: torch.Tensor, sel: torch.Tensor,
+                     u_origin: Optional[torch.Tensor], v_orig: torch.Tensor,
+                     cand_rows: torch.Tensor, eb: torch.Tensor,
+                     wave: torch.Tensor, a: int, two_phase: bool) -> None:
+    """K25's device-count entry, for the fused wave loop: :func:`append_block`
+    with ``(lo_pos, tail, n_new)`` the three int32 words of ``wave`` (K29's
+    record of the wave it closed: ``n_new`` is 0 for a wave that did not
+    commit), read on the card."""
+    if rows.device.type == "cpu":
+        append_block_dev_plain(rows, parent, ebits, sel, u_origin, v_orig,
+                               cand_rows, eb, wave, a, two_phase)
+        return
+    dev = rows.device
+    for t, name, ndim in (
+        (rows, "rows", 1), (parent, "parent", 1), (ebits, "ebits", 1),
+        (sel, "sel", 1), (v_orig, "v_orig", 1), (cand_rows, "cand_rows", 2),
+        (eb, "eb", 1), (wave, "wave", 1),
+    ):
+        cuda.require(t, name, torch.int32, ndim, dev)
+    if u_origin is not None:
+        cuda.require(u_origin, "u_origin", torch.int32, 1, dev)
+    if wave.shape[0] < 3 or a < 1:
+        raise ValueError("wave holds (lo_pos, tail, n_new); a must be positive")
+    fn = cuda.function(
+        "append", "sr_append_block_dev",
+        [cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P,
+         cuda.P, cuda.I64, cuda.I32, cuda.I32, cuda.I32, cuda.P],
+    )
+    append_block_dev.launches += 1
+    code = fn(
+        cuda.ptr(rows), cuda.ptr(parent), cuda.ptr(ebits), cuda.ptr(sel),
+        cuda.P(None) if u_origin is None else cuda.ptr(u_origin),
+        cuda.ptr(v_orig), cuda.ptr(cand_rows), cuda.ptr(eb), cuda.ptr(wave),
+        sel.shape[0], a, cand_rows.shape[1], int(two_phase), cuda.stream(rows),
+    )
+    cuda.check(code, "append", "append_block_dev")
+
+
+append_block_dev.launches = 0
+
+
+def append_block_dev_plain(rows, parent, ebits, sel, u_origin, v_orig,
+                           cand_rows, eb, wave, a, two_phase) -> None:
+    """Plain-torch twin of K25's device-count entry (any device)."""
+    lo_pos, tail, n_new = (int(x) & 0xFFFFFFFF for x in wave[:3].tolist())
+    append_block_plain(rows, parent, ebits, sel, u_origin, v_orig, cand_rows,
+                       eb, lo_pos, tail, n_new, a, two_phase)

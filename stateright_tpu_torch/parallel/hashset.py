@@ -264,24 +264,11 @@ def insert_batch_claim(
         )
         out = (new, ok) + ((probe,) if with_rounds else ())
         return out + ((slot,) if with_slots else ())
-    dev = hi.device
-    n = hi.shape[0]
-    cuda.require(table.keys, "table.keys", torch.int64, 1, dev)
-    cuda.require(hi, "hi", torch.int32, 1, dev)
-    cuda.require(lo, "lo", torch.int32, 1, dev)
-    cuda.require(active, "active", torch.bool, 1, dev)
-    if lo.shape[0] != n or active.shape[0] != n:
-        raise ValueError("hi, lo and active differ in length")
-    if n >= 1 << 32:
-        raise ValueError("at most 2**32 - 1 lanes per insert")
+    n, slot, is_new, ok, probe = _claim_args(table, hi, lo, active, with_rounds)
     if table.meta is None or table.epoch >= _EPOCH_MAX:
         table.meta = torch.zeros_like(table.keys)
         table.epoch = 0
     table.epoch += 1
-    slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    is_new = torch.empty((n,), dtype=torch.bool, device=dev)
-    ok = torch.ones((), dtype=torch.int32, device=dev)
-    probe = torch.zeros((2,), dtype=torch.int64, device=dev) if with_rounds else None
     fn = cuda.function(
         "hashset", "sr_insert_claim",
         [cuda.P, cuda.P, cuda.U64, cuda.P, cuda.P, cuda.P, cuda.I64,
@@ -300,6 +287,63 @@ def insert_batch_claim(
 
 
 insert_batch_claim.launches = 0
+
+
+def insert_batch_claim_dev(table: HashSet, hi: torch.Tensor, lo: torch.Tensor,
+                           active: torch.Tensor, epoch: torch.Tensor,
+                           with_rounds: bool = False):
+    """K4's device-epoch entry, for the fused wave loop: the answer of
+    :func:`insert_batch_claim`, with the claim epoch a one-word int32
+    tensor on the card (K29's epoch word) holding the last call's epoch,
+    which the call advances by one on the card and tags its claims with,
+    so a replayed graph tags every wave afresh.  The caller keeps
+    ``table.meta`` allocated and clears it before the word wraps.  The
+    twin advances the word too."""
+    if hi.device.type == "cpu":
+        epoch += 1
+        return insert_batch_claim(table, hi, lo, active, with_rounds=with_rounds)
+    n, slot, is_new, ok, probe = _claim_args(table, hi, lo, active, with_rounds)
+    cuda.require(epoch, "epoch", torch.int32, 1, hi.device)
+    if table.meta is None:
+        raise ValueError("the device-epoch entry needs table.meta")
+    fn = cuda.function(
+        "hashset", "sr_insert_claim_dev",
+        [cuda.P, cuda.P, cuda.U64, cuda.P, cuda.P, cuda.P, cuda.I64,
+         cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P],
+    )
+    insert_batch_claim_dev.launches += 1
+    code = fn(
+        cuda.ptr(table.keys), cuda.ptr(table.meta), table.capacity,
+        cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, cuda.ptr(epoch),
+        cuda.ptr(slot), cuda.ptr(is_new), cuda.ptr(ok),
+        cuda.P(None) if probe is None else cuda.ptr(probe),
+        cuda.stream(table.keys),
+    )
+    cuda.check(code, "hashset", "insert_batch_claim_dev")
+    return (is_new, ok != 0) + ((probe,) if with_rounds else ())
+
+
+insert_batch_claim_dev.launches = 0
+
+
+def _claim_args(table: HashSet, hi, lo, active, with_rounds: bool):
+    """K4's checked inputs and new outputs: ``(n, slot, is_new, ok,
+    probe)``."""
+    dev = hi.device
+    n = hi.shape[0]
+    cuda.require(table.keys, "table.keys", torch.int64, 1, dev)
+    cuda.require(hi, "hi", torch.int32, 1, dev)
+    cuda.require(lo, "lo", torch.int32, 1, dev)
+    cuda.require(active, "active", torch.bool, 1, dev)
+    if lo.shape[0] != n or active.shape[0] != n:
+        raise ValueError("hi, lo and active differ in length")
+    if n >= 1 << 32:
+        raise ValueError("at most 2**32 - 1 lanes per insert")
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    is_new = torch.empty((n,), dtype=torch.bool, device=dev)
+    ok = torch.ones((), dtype=torch.int32, device=dev)
+    probe = torch.zeros((2,), dtype=torch.int64, device=dev) if with_rounds else None
+    return n, slot, is_new, ok, probe
 
 
 def insert_batch_claim_plain(
@@ -354,7 +398,7 @@ def insert_batch_claim_plain(
 
 def insert_batch_compact(table: HashSet, hi, lo, active,
                          dedup_factor: int = 4, sort_lanes=None,
-                         with_rounds: bool = False):
+                         with_rounds: bool = False, epoch=None):
     """Sorted insert-if-absent, IN PLACE, in the compact form: the JAX
     ``insert_batch_compact`` -- :func:`prededup`, then K4 on the
     representatives, which are distinct keys, so each absent one is new.
@@ -366,13 +410,19 @@ def insert_batch_compact(table: HashSet, hi, lo, active,
     :func:`prededup`.  The JAX version also returns each key's slot; the
     engine never reads it, and on this path slots may differ (see the
     module docstring).  ``with_rounds=True`` appends K4's probe figures
-    (:func:`insert_batch_claim`)."""
+    and ``epoch`` takes K4's device-epoch entry
+    (:func:`insert_batch_claim_dev`)."""
     u_hi, u_lo, u_origin, u_active, overflow = prededup(
         hi, lo, active, dedup_factor, sort_lanes
     )
-    u_new, probe_ok, *probe = insert_batch_claim(
-        table, u_hi, u_lo, u_active, with_rounds=with_rounds
-    )
+    if epoch is None:
+        u_new, probe_ok, *probe = insert_batch_claim(
+            table, u_hi, u_lo, u_active, with_rounds=with_rounds
+        )
+    else:
+        u_new, probe_ok, *probe = insert_batch_claim_dev(
+            table, u_hi, u_lo, u_active, epoch, with_rounds=with_rounds
+        )
     return (u_new, u_origin, u_active, probe_ok, overflow, *probe)
 
 

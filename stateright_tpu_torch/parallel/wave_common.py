@@ -136,6 +136,37 @@ def make_finish_when_device(fw, props):
     return matched
 
 
+def finish_when_masks(fw, props) -> Tuple[int, int]:
+    """The card's form of :func:`make_finish_when_device`: ``(all, any)``
+    property bit masks such that the policy matches a found set ``found``
+    (bit p for property p) exactly when ``all`` is nonzero and every bit of
+    it is found, or some bit of ``any`` is -- for all six kinds and their
+    empty-set cases (a policy that matches with zero discoveries gives
+    ``(0, 0)``, as the mirror gives False)."""
+    n_props = len(props)
+    every = (1 << n_props) - 1
+    fail = sum(
+        1 << i for i, p in enumerate(props) if p.expectation.discovery_is_failure
+    )
+    name_idx = {p.name: i for i, p in enumerate(props)}
+    named = sum(1 << name_idx[n] for n in fw._names if n in name_idx)
+    kind = fw._kind
+    if kind == "all":
+        return every, 0
+    if kind == "any":
+        return 0, every
+    if kind == "any_failures":
+        return 0, fail
+    if kind == "all_failures":
+        return fail, 0
+    if kind == "all_of":
+        known = all(n in name_idx for n in fw._names)
+        return (named if known else 0), 0
+    if kind == "any_of":
+        return 0, named
+    raise ValueError(kind)
+
+
 def prop_kinds(props) -> Tuple[int, int, int]:
     """``(always, sometimes, eventually)``: bit p set in the mask of
     property p's expectation."""
@@ -188,15 +219,21 @@ def wave_eval(conds: torch.Tensor, valid: torch.Tensor, eb: torch.Tensor,
 wave_eval.launches = 0
 
 
-def wave_eval_plain(conds, valid, eb, start_id: int, kinds, discovered: int):
-    """Plain-torch twin of the K8 kernel (any device)."""
+def wave_eval_plain(conds, valid, eb, start_id: int, kinds, discovered: int,
+                    active=None):
+    """Plain-torch twin of the K8 kernel (any device); ``active`` (bool[F],
+    the device-count entry's) gates states out as :func:`wave_eval_dev`
+    does."""
     always, sometimes, eventually = kinds
     f, p = conds.shape
     dev = conds.device
     no_id = torch.tensor(NO_ID, dtype=torch.int64, device=dev)
     cands = [no_id] * p
+    live = (torch.ones((f,), dtype=torch.bool, device=dev)
+            if active is None else active)
 
     def first_hit(hit):
+        hit = hit & live
         # argmax of a bool vector is its first True lane.
         idx = torch.argmax(hit.to(torch.uint8)).to(torch.int64) + start_id
         return torch.where(hit.any(), idx, no_id)
@@ -225,7 +262,7 @@ def wave_eval_plain(conds, valid, eb, start_id: int, kinds, discovered: int):
     # Clear this state's own satisfied eventually bits.
     for bit, q in enumerate(ev):
         eb = eb & ~(conds[:, q].to(torch.int32) << bit)
-    valid = valid & awaiting[:, None]
+    valid = valid & (awaiting & live)[:, None]
 
     # Terminal states with leftover ebits -> eventually counterexamples
     # (src/checker/bfs.rs:326-333).
@@ -238,3 +275,60 @@ def wave_eval_plain(conds, valid, eb, start_id: int, kinds, discovered: int):
         else torch.empty((0,), dtype=torch.int64, device=dev)
     )
     return valid, eb, stacked
+
+
+def _stats_scalars(stats: torch.Tensor, p: int) -> Tuple[int, int]:
+    """The wave's first position and discovered mask from a stats vector
+    (``parallel/fused.py``): ``level_start`` and ``disc[P]``."""
+    words = [int(x) & 0xFFFFFFFF for x in stats[: 8 + p].tolist()]
+    return words[0], sum(1 << q for q in range(p) if words[8 + q] != NO_ID)
+
+
+def wave_eval_dev(conds: torch.Tensor, valid: torch.Tensor, eb: torch.Tensor,
+                  stats: torch.Tensor, active: torch.Tensor,
+                  kinds: Tuple[int, int, int]):
+    """K8's device-count entry, for the fused wave loop: :func:`wave_eval`
+    with the first position and the discovered mask read on the card from
+    ``stats`` (int32, the JAX stats layout: ``level_start`` at 0,
+    ``disc[P]`` from 8) and the states whose ``active`` (bool[F]) is False
+    gated out -- they await nothing and hit nothing, as the JAX
+    ``wave_eval`` gates its padded chunk."""
+    if conds.device.type == "cpu":
+        return wave_eval_dev_plain(conds, valid, eb, stats, active, kinds)
+    dev = conds.device
+    cuda.require(conds, "conds", torch.bool, 2, dev)
+    cuda.require(valid, "valid", torch.bool, 2, dev)
+    cuda.require(eb, "eb", torch.int32, 1, dev)
+    cuda.require(stats, "stats", torch.int32, 1, dev)
+    cuda.require(active, "active", torch.bool, 1, dev)
+    f, p = conds.shape
+    if valid.shape[0] != f or eb.shape[0] != f or active.shape[0] != f:
+        raise ValueError("conds, valid, eb and active differ in state count")
+    if p > 32 or stats.shape[0] < 8 + p:
+        raise ValueError("at most 32 properties, and stats must hold disc[P]")
+    eb_out = torch.empty_like(eb)
+    cands = torch.empty((p,), dtype=torch.int64, device=dev)
+    fn = cuda.function(
+        "wave_eval", "sr_wave_eval_dev",
+        [cuda.P, cuda.I64, cuda.I32, cuda.P, cuda.I32, cuda.P, cuda.P,
+         cuda.P, cuda.P, cuda.U32, cuda.U32, cuda.U32, cuda.P, cuda.P],
+    )
+    wave_eval_dev.launches += 1
+    always, sometimes, eventually = kinds
+    code = fn(
+        cuda.ptr(conds), f, p, cuda.ptr(valid), valid.shape[1], cuda.ptr(eb),
+        cuda.ptr(eb_out), cuda.ptr(stats), cuda.ptr(active), always,
+        sometimes, eventually, cuda.ptr(cands), cuda.stream(conds),
+    )
+    cuda.check(code, "wave_eval", "wave_eval_dev")
+    return valid, eb_out, cands
+
+
+wave_eval_dev.launches = 0
+
+
+def wave_eval_dev_plain(conds, valid, eb, stats, active, kinds):
+    """Plain-torch twin of K8's device-count entry (any device)."""
+    start, discovered = _stats_scalars(stats, conds.shape[1])
+    return wave_eval_plain(conds, valid, eb, start, kinds, discovered,
+                           active=active)

@@ -1,13 +1,17 @@
 """The host wave loop: run a wave, publish its counts, grow on overflow,
 stop when the search is done.
 
-The counterpart of the quantum loop of ``stateright_tpu/parallel/
-wave_loop.py`` (``FusedWaveLoop``, ``loop_should_break``, ``finalize_run``,
+The counterpart of ``stateright_tpu/parallel/wave_loop.py``
+(``FusedWaveLoop``, ``WaveView``, ``loop_should_break``, ``finalize_run``,
 ``log_grow``, ``CheckpointCadence``, ``LoopVitals``) and its
-``fingerprints_of_rows``.  The JAX loop runs up to ``waves_per_call`` waves
-inside one device program between stats readbacks; this port reads one
-small stats tensor back per wave, and checks before each wave what the JAX
-program checks in its loop condition.  Ported: the flag-4 rules of the
+``fingerprints_of_rows``.  :class:`FusedWaveLoop` is the JAX fused loop:
+the engine runs up to ``waves_per_call`` waves between two readbacks of
+one stats tensor (the untraced single-card checker, ``parallel/fused.py``)
+and the loop journals, tunes, checkpoints, grows and stops per quantum.
+:class:`WaveLoop` reads one stats tensor back per wave and checks before
+each wave what the JAX program checks in its loop condition: the traced
+mode's loop (and the tiered checker's, whose JAX counterpart drives one
+host wave per call).  Ported: the flag-4 rules of the
 sort-rung ladder and the sorted fallback, the wall deadline of a builder
 ``timeout`` and a ``request_stop``, the optional after-commit rung (the
 tiered engine's spill), the checkpoint cadence, the metrics the loop
@@ -28,8 +32,9 @@ host spans, and skips the mid-run checkpoint cadence, as the JAX traced
 loop does.  The density tuners (``maybe_retune_sort``,
 ``maybe_retune_step``) run where an engine asks for them (``_wl_retune``,
 the tiered-sharded engine; the traced sharded loop calls them itself), as
-the JAX loops run them after each committed quantum; the single-card
-engines do not tune.  Not ported: the knob cache.  The sharded engine's
+the JAX loops run them after each committed quantum; the fused loop runs
+them after each committed quantum, as the JAX fused loop does.  Not
+ported: the knob cache.  The sharded engine's
 ladders are
 here: the exchange buckets' slack (``exchange_bucket_lanes``,
 ``next_bucket_slack``, flag 32) and the step rung (``climb_step_rung``,
@@ -76,7 +81,7 @@ from __future__ import annotations
 import logging
 import time
 from contextlib import nullcontext
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -279,19 +284,25 @@ def maybe_retune_step(eng, remaining) -> bool:
 
 def fall_back_to_sort(eng) -> str:
     """The sortless -> sorted fallback: the flagged wave committed nothing,
-    so its re-run on the sorted path is exact."""
+    so its re-run on the sorted path is exact.  The geometry is
+    re-journaled, as the JAX helper does."""
     eng._sortless = False
+    if eng._journal:
+        eng._journal.append("geometry", **eng._wl_geometry())
     return "sortless=0"
 
 
 def reset_sort_rung_to_full(eng, old_full: int = 0) -> None:
     """After a full-buffer flag 4 relaxed ``dedup_factor``: the rung
-    resets to the new full width, and the tuner's evidence records that a
-    wave held at least ``old_full`` valid lanes."""
+    resets to the new full width, the tuner's evidence records that a
+    wave held at least ``old_full`` valid lanes, and the geometry is
+    re-journaled (the JAX helper's)."""
     eng._sort_lanes = None
     if old_full:
         eng._sort_peak_valid = max(getattr(eng, "_sort_peak_valid", 0.0),
                                    old_full)
+    if eng._journal:
+        eng._journal.append("geometry", **eng._wl_geometry())
 
 
 def relax_dedup_geometry(chunk, dedup_factor, lanes_of, lane_cap,
@@ -376,8 +387,9 @@ class LoopVitals:
     device read.  One instance per engine run; writes land in the
     engine's :class:`~stateright_tpu_torch.obs.metrics.MetricsRegistry`:
 
-    - ``wave_latency_sec`` histogram — per-wave wall latency (the port
-      reads back every wave, so each quantum is one wave);
+    - ``wave_latency_sec`` histogram — per-wave wall latency (a fused
+      quantum records its mean latency with weight ``waves_per_call``;
+      the per-wave loop records each wave);
     - ``waves_per_grow`` histogram — committed waves between
       overflow-triggered recoveries (how long a geometry survived
       before overflowing);
@@ -680,6 +692,130 @@ class WaveLoop:
             # The last tail has no next wave to account it.
             vitals.record_host(spans.finish(time.monotonic()))
         return waves
+
+
+class WaveView(NamedTuple):
+    """What one quantum's readback says (the JAX ``WaveView``): everything
+    the fused loop journals, checkpoints, grows and stops on."""
+
+    waves_this_call: int  # counted as the JAX loop counts: waves_per_call
+    remaining: int  # states left in the current level
+    depth: int
+    flags: int
+    unique: int
+    states: int
+    occupancy: float  # the table's load
+    discoveries: tuple  # ((property name, position), ...)
+    extra: dict  # the wave event's engine fields (the tail)
+
+
+class FusedWaveLoop:
+    """The fused host loop (the JAX ``FusedWaveLoop``,
+    ``stateright_tpu/parallel/wave_loop.py:628-807``): one engine call runs
+    a quantum of up to ``waves_per_call`` waves on the card, one readback
+    decodes it into a :class:`WaveView`, and the host journals it (one
+    ``wave`` event a quantum, JAX's fields), runs the density tuners after
+    a committed quantum, keeps the checkpoint cadence in quanta, grows on
+    a flagged quantum (whose flagged wave committed nothing) and stops on
+    :func:`loop_should_break`.  The engine adapter provides
+    ``_wl_call()``, ``_wl_view() -> WaveView``, ``_wl_publish()``,
+    ``_wl_grow(flags)``, ``_wl_retryable_flags()``,
+    ``_wl_overflow_message(flags)``, ``_wl_abort_cleanup()``,
+    ``_wl_write_checkpoint()`` and ``_wl_cand_lanes()``, and the tuners'
+    hooks (``_wl_apply_sort_rung``, ``_wl_apply_step_rung``)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    def run(self, deadline: Optional[float] = None) -> int:
+        """Run to the end of the search, or to the wall ``deadline`` or a
+        stop request; returns the waves counted (``waves_per_call`` a
+        quantum, re-runs after growth included)."""
+        eng = self.eng
+        cadence = CheckpointCadence(eng._ckpt_every_waves, eng._ckpt_every_sec)
+        eng._wl_publish()
+        vitals = LoopVitals(eng._metrics, initial_unique=eng._unique_count,
+                            initial_states=eng._state_count)
+        spans = SpanRecorder(eng._journal, eng._metrics)
+        journal_geometry(eng)
+        waves_total = 0
+        while True:
+            spans.quantum_start(time.monotonic())
+            t_call = time.monotonic()
+            vitals.call_started(t_call)
+            with spans.step():
+                eng._wl_call()
+            with spans.span("readback"):
+                view = eng._wl_view()
+            spans.collect(eng)
+            t_done = time.monotonic()
+            call_sec = t_done - t_call
+            vitals.call_ended(t_done)
+            spans.tail_start(t_done)
+            vitals.record_quantum(
+                call_sec, view.waves_this_call, view.unique,
+                committed=view.flags == 0, states=view.states,
+                cand_lanes=eng._wl_cand_lanes(), occupancy=view.occupancy,
+            )
+            waves_total += view.waves_this_call
+            eng._wl_publish()
+            if eng._journal:
+                with spans.span("journal"):
+                    eng._journal.append(
+                        "wave", waves=waves_total, remaining=view.remaining,
+                        unique=view.unique, states=view.states,
+                        depth=view.depth, flags=view.flags,
+                        call_sec=round(call_sec, 4), mono=round(t_call, 6),
+                        occupancy=round(view.occupancy, 6),
+                        **(
+                            {"density": round(vitals.last_density, 6)}
+                            if vitals.last_density is not None else {}
+                        ),
+                        **view.extra,
+                    )
+            eng._metrics.update(waves=waves_total,
+                                table_occupancy=round(view.occupancy, 6),
+                                last_call_sec=round(call_sec, 6))
+            eng._metrics.inc("device_call_sec_total", call_sec)
+            eng._metrics.inc("device_calls", 1)
+            if view.flags == 0:
+                with spans.span("retune"):
+                    maybe_retune_sort(eng, vitals.last_density)
+                    # remaining == 0: the run is about to stop.
+                    maybe_retune_step(eng, view.remaining or None)
+            if (
+                eng._checkpoint_path is not None and view.flags == 0
+                and cadence.due(view.waves_this_call)
+            ):
+                with spans.span("checkpoint"):
+                    t_ck = time.monotonic()
+                    extra = eng._wl_write_checkpoint()
+                    cadence.mark()
+                    if eng._journal:
+                        eng._journal.append(
+                            "checkpoint", path=eng._checkpoint_path,
+                            unique=view.unique, depth=view.depth,
+                            write_sec=round(time.monotonic() - t_ck, 4),
+                            **extra,
+                        )
+            if view.flags:
+                fatal = view.flags & ~eng._wl_retryable_flags()
+                if fatal:
+                    raise RuntimeError(eng._wl_overflow_message(fatal))
+                # A run past its budget (or asked to stop) keeps its
+                # partial result; the flagged wave's aborted insert may
+                # have written keys, which the cleanup erases.
+                if past_deadline_or_stopped(eng, deadline):
+                    eng._wl_abort_cleanup()
+                    break
+                with spans.span("grow"):
+                    eng._wl_grow(view.flags)
+                vitals.record_overflow_recovery()
+                continue
+            if loop_should_break(eng, view.remaining, view.depth, deadline):
+                break
+        vitals.record_host(spans.finish(time.monotonic()))
+        return waves_total
 
 
 def finalize_run(eng) -> None:

@@ -54,12 +54,20 @@ bit (row log, parents, ebits, counts, discoveries):
 - discoveries are first-writer-wins in wave order; paths are rebuilt by
   walking the parent chain, decoding rows and re-executing the host model.
 
-The host reads one small stats tensor per wave and keeps the scalar carry
-(level bounds, tail, counts, depth, discoveries); an overflowing wave
-(flags 1/2/4/8) commits nothing, and growth rebuilds the table from the
-committed log before the same chunk runs again.  A wave runs in phases
-(expand, fingerprint, insert and compact, the readback, the commit through
-K25), so an engine built on this one -- the tiered checker,
+An untraced run is the JAX engine's fused loop (``_build_run``): a
+QUANTUM of up to ``waves_per_call`` waves runs behind one readback of one
+stats tensor (the JAX stats layout, ``parallel/fused.py``), every scalar
+of the carry and every per-wave decision -- flags, commit, the discovery
+fold, the level roll, the loop condition -- on the card (K29, with the
+device-count entries of K1, K4, K8 and K25); on the card the quantum is
+one launch of a CUDA graph (the captured wave inside a WHILE node), on
+the CPU a Python loop over the twins.  The host refreshes its scalar
+carry from each readback.  An overflowing wave (flags 1/2/4/8/128)
+commits nothing and ends the quantum, and growth rebuilds the table from
+the committed log before the same chunk runs again.  Traced runs, a
+visitor and the tiered checker keep the per-wave loop: a wave runs in
+phases (expand, fingerprint, insert and compact, the readback, the commit
+through K25), so an engine built on this one -- the tiered checker,
 ``tiered/engine.py`` -- folds values into the readback and filters the new
 lanes between the readback and the append.  Around the loop sit the JAX
 engine's surface: ``metrics()`` (with the vitals' histograms),
@@ -90,23 +98,32 @@ from ..obs.metrics import MetricsRegistry
 from ..obs.roofline import slot_bytes, sort_bytes
 from ..obs.trace import NO_CLOCK, PhaseClock, WaveTracer
 from ..ops.cuda import resolve_device
-from ..ops.device_fp import device_fp64
+from ..ops.device_fp import device_fp64, device_fp64_n
 from ..ops.u32 import M32, from_numpy_u32, to_numpy_u32
 from ..runtime.journal import as_journal
-from .append import append_block
+from .append import append_block, append_block_dev
 from .canon import make_canon
 from .compiled import CompiledModel, compiled_model_for, two_phase_capable
+from .fused import (
+    CTL_EPOCH, CTL_GO, CTL_WAVE_LO, CTL_WAVES_RUN, STAT_DEPTH, STAT_DISC,
+    STAT_FLAGS, STAT_LEVEL_END, STAT_LEVEL_START, STAT_SC_HI, STAT_SC_LO,
+    STAT_TAIL, STAT_UNIQUE, WhileGraph, ctl_index, stats_words,
+    wave_ctl, wave_load,
+)
 from .hashset import (
-    HashSet, compact_valid, compact_valid_indices, insert_batch_claim,
-    insert_batch_compact, unique_buffer_size,
+    _EPOCH_MAX, HashSet, compact_valid, compact_valid_indices,
+    insert_batch_claim, insert_batch_claim_dev, insert_batch_compact,
+    unique_buffer_size,
 )
 from .wave_common import (
-    NO_ID, compact, make_finish_when_device, prop_kinds, wave_eval,
+    NO_ID, compact, default_waves_per_call, finish_when_masks,
+    make_finish_when_device, prop_kinds, wave_eval, wave_eval_dev,
 )
 from .wave_loop import (
-    WaveLoop, clamp_sort_lanes, climb_sort_rung, fall_back_to_sort,
-    finalize_run, fingerprints_of_rows, log_grow, relax_dedup_geometry,
-    reset_sort_rung_to_full,
+    SORT_RUNG_MIN, STEP_RUNG_MIN, FusedWaveLoop, WaveLoop, WaveView,
+    clamp_sort_lanes, clamp_step_lanes, climb_sort_rung, climb_step_rung,
+    fall_back_to_sort, finalize_run, fingerprints_of_rows, log_grow,
+    relax_dedup_geometry, reset_sort_rung_to_full,
 )
 
 # Growth bounds, sized for one 80 GB card: a table slot costs 16 bytes there
@@ -155,8 +172,9 @@ def snapshot_engine_key(cm, properties, symmetric: bool = False) -> str:
 
 @dataclass
 class Carry:
-    """The whole run state: the device table and logs plus the host-side
-    scalars the JAX engine keeps in its stats vector."""
+    """The whole run state: the device table and logs plus the host's copy
+    of the scalars the JAX engine keeps in its stats vector (the fused
+    loop refreshes them from each quantum's readback)."""
 
     table: HashSet
     rows: torch.Tensor  # int32[log_capacity * W], positions in BFS order
@@ -374,6 +392,8 @@ class GpuChecker(Checker):
         log_capacity: Optional[int] = None,
         sort_lanes: Optional[int] = None,
         sortless: Optional[bool] = None,
+        step_lanes: Optional[int] = None,
+        waves_per_call: Optional[int] = None,
         auto_tune: bool = True,
         journal=None,
         checkpoint_path: Optional[str] = None,
@@ -402,12 +422,30 @@ class GpuChecker(Checker):
         sorted fallback (K12 + K3 + K4, new states appended in sorted-key
         order within a wave); it defaults to ``sort_lanes is None``, as in
         the JAX engine.  ``sort_lanes`` pins the compaction width to a
-        power-of-two rung below the full buffer.  Wherever flag 4 can fire
+        power-of-two rung below the full buffer; without it the density
+        tuner downshifts the rung between committed quanta of the fused
+        loop (``maybe_retune_sort``), as the JAX engine's does.
+        ``step_lanes`` is the JAX step rung: a power-of-two chunk width
+        below ``max_frontier``; a wave whose level outgrows it raises the
+        non-committing flag 128 and the rung climbs (``climb_step_rung``);
+        without it the frontier tuner downshifts between quanta
+        (``maybe_retune_step``).  Wherever flag 4 can fire
         (``dedup_factor > 1``, a rung, or the sorted path) the spawn halves
         ``max_frontier`` until the buffer fits the JAX band, so which wave
         overflows -- and on the sorted path the row log -- is the JAX
         engine's at the same arguments; at ``dedup_factor=1`` on the claim
         path the caller's chunk stands (the log does not depend on it).
+
+        ``waves_per_call``: the waves of one quantum of an untraced run --
+        the JAX fused loop's, 256 by default and 1 where only the host can
+        stop the run (a ``timeout``, ``target_state_count`` or a
+        trivially-true ``finish_when``, ``default_waves_per_call``).  A
+        quantum runs on the card behind one readback of the stats; on the
+        card it is one launch of a CUDA graph (captured at first use and
+        again after growth or a rung change, journaled as a ``compile``
+        event), on the CPU a loop over the twins.  The journal's ``wave``
+        event, the vitals, ``waves()`` and the checkpoint cadence count
+        waves as the JAX loop does: ``waves_per_call`` a quantum.
 
         ``journal`` (a :class:`~stateright_tpu_torch.runtime.journal.
         Journal` or a path) streams the run's ``geometry``, ``wave``,
@@ -434,8 +472,8 @@ class GpuChecker(Checker):
         among it).  Traced runs grow, stop and time out through the same
         loop as untraced ones; like the JAX engine's they refuse
         ``resume_from`` and skip the mid-run checkpoint cadence (the
-        completion checkpoint still lands).  The port has no density or
-        step-rung tuner yet, so neither loop calls one.  A builder
+        completion checkpoint still lands).  Like the JAX traced loop, the
+        traced loop runs no density tuner.  A builder
         ``visitor()`` forces ``trace`` on: each expanded state is visited
         once, as a single-state path, in BFS level order across waves and
         log order within a wave, from the traced readback.
@@ -482,16 +520,29 @@ class GpuChecker(Checker):
         self._log_capacity_explicit = log_capacity is not None
         self._max_frontier = max_frontier
         self._dedup_factor = dedup_factor
-        # The sort-geometry rung and the dedup path, as the JAX engine
-        # sets them (``wavefront.py:369-390``); the density tuner that
-        # would downshift a defaulted rung is not ported, so _sort_tune
-        # only tells an explicit claim budget from a defaulted rung.
+        # The sort-geometry rung, the dedup path and the step rung, with
+        # their tuners' evidence, as the JAX engine sets them
+        # (``wavefront.py:369-397``): an explicit rung is never tuned.
         self._sort_lanes = (
             None if sort_lanes is None else clamp_sort_lanes(sort_lanes)
         )
         self._sort_tune = sort_lanes is None
+        self._sort_rung_floor = SORT_RUNG_MIN
+        self._sort_peak_valid = 0.0
+        self._sort_quanta = 0
         self._sortless = (
             (sort_lanes is None) if sortless is None else bool(sortless)
+        )
+        self._step_lanes = (
+            None if step_lanes is None else clamp_step_lanes(step_lanes)
+        )
+        self._step_tune = step_lanes is None
+        self._step_rung_floor = STEP_RUNG_MIN
+        self._step_peak_frontier = 0.0
+        self._step_quanta = 0
+        self._waves_per_call = (
+            default_waves_per_call(options) if waves_per_call is None
+            else int(waves_per_call)
         )
         self._auto_tune = bool(auto_tune)
         self._resume_from = resume_from
@@ -512,6 +563,7 @@ class GpuChecker(Checker):
         self._fw_matched = make_finish_when_device(
             options._finish_when, self._properties
         )
+        self._fw_masks = finish_when_masks(options._finish_when, self._properties)
         self._metrics = MetricsRegistry()
         self._journal = as_journal(journal)
         self._checkpoint_path = checkpoint_path
@@ -533,6 +585,20 @@ class GpuChecker(Checker):
         self._unique_count = 0
         self._max_depth = 0
         self._carry: Optional[Carry] = None
+        # The fused loop's device stats (``parallel/fused.py``), its
+        # captured quantum (one: growth, a rung change or a resume moves
+        # the buffers it holds), that graph's key and memory pool, and its
+        # counts: stats readbacks, waves run (not counted as the JAX loop
+        # counts them).
+        self._stats: Optional[torch.Tensor] = None
+        self._graph: Optional[WhileGraph] = None
+        self._graph_at: Optional[tuple] = None
+        self._graph_pool = None
+        self._quantum_graph: Optional[WhileGraph] = None
+        self._quantum_eager = 0
+        self._readbacks = 0
+        self._waves_run = 0
+        self._capture_sec: List[float] = []
         self._waves = 0
         self._grow_flags: List[int] = []  # overflow flags of each growth
         self._grow_notes: List[str] = []  # what each growth changed
@@ -579,10 +645,38 @@ class GpuChecker(Checker):
         return rows[:, : self._fp_words]
 
     def _wl_full_sort_lanes(self) -> int:
-        """The worst-case compaction buffer U of a full chunk."""
+        """The worst-case compaction buffer U of a full chunk at the live
+        step rung (the JAX engine's)."""
         return unique_buffer_size(
-            self._max_frontier * self._compiled.max_actions, self._dedup_factor
+            self._step_width() * self._compiled.max_actions, self._dedup_factor
         )
+
+    def _step_width(self) -> int:
+        """The live chunk width: the step rung capped at ``max_frontier``
+        (growth may halve it), or ``max_frontier``."""
+        if self._step_lanes is None:
+            return self._max_frontier
+        return min(self._step_lanes, self._max_frontier)
+
+    def _wl_full_step_lanes(self) -> int:
+        return self._max_frontier
+
+    def _wl_apply_sort_rung(self, rung: int) -> None:
+        """A density-tuner downshift (``maybe_retune_sort``): the new rung,
+        fresh evidence, the geometry re-journaled; the next quantum
+        captures its graph at the new width."""
+        self._sort_lanes = int(rung)
+        self._sort_quanta = 0
+        if self._journal:
+            self._journal.append("geometry", **self._wl_geometry())
+
+    def _wl_apply_step_rung(self, rung: int) -> None:
+        """A frontier-tuner downshift (``maybe_retune_step``), as
+        :meth:`_wl_apply_sort_rung`."""
+        self._step_lanes = int(rung)
+        self._step_quanta = 0
+        if self._journal:
+            self._journal.append("geometry", **self._wl_geometry())
 
     def _sort_width(self) -> int:
         """The live compaction width: the rung capped at U, or U."""
@@ -604,7 +698,10 @@ class GpuChecker(Checker):
             )
             if self._trace:
                 self._tracer = WaveTracer(self._device, self.engine_name)
-            self._waves = WaveLoop(self).run(deadline)
+            if self._trace or not self._fused:
+                self._waves = WaveLoop(self).run(deadline)
+            else:
+                self._waves = FusedWaveLoop(self).run(deadline)
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
             if self._tracer is not None and self._journal:
@@ -613,6 +710,8 @@ class GpuChecker(Checker):
         except BaseException as e:  # propagate at join, like the host engine
             self._errors.append(e)
         finally:
+            self._drop_graph()
+            self._quantum_graph = None
             self._done.set()
 
     def _seed(self) -> Carry:
@@ -763,12 +862,249 @@ class GpuChecker(Checker):
             "dedup_factor": self._dedup_factor,
             "sortless": self._sortless,
             "sort_lanes": self._sort_width(),
+            "step_lanes": self._step_width(),
             "u_lanes": self._wl_full_sort_lanes(),
+            "waves_per_call": self._waves_per_call,
         }
 
     def _wl_write_checkpoint(self) -> dict:
         self._write_snapshot(self._checkpoint_path)
         return {"tail": self._carry.tail}
+
+    # --- the fused quantum (FusedWaveLoop's adapter) ---------------------
+
+    # Whether an untraced run goes through the fused quantum; the tiered
+    # checker keeps the per-wave loop (its JAX counterpart drives one host
+    # wave per call).
+    _fused = True
+
+    def _stats_from_carry(self) -> torch.Tensor:
+        """The device stats tensor (``parallel/fused.py``) written from the
+        host carry: after the seed, or a resume."""
+        c = self._carry
+        p = len(self._properties)
+        words = [0] * stats_words(p)
+        words[STAT_LEVEL_START:STAT_FLAGS] = [
+            c.level_start, c.level_end, c.tail, c.state_count & M32,
+            c.state_count >> 32, c.unique_count, c.depth,
+        ]
+        words[STAT_DISC : STAT_DISC + p] = c.disc
+        words[ctl_index(p, CTL_EPOCH)] = c.table.epoch
+        signed = [((x & M32) ^ 0x80000000) - 0x80000000 for x in words]
+        return torch.tensor(signed, dtype=torch.int32).to(self._device)
+
+    def _ctl_args(self) -> dict:
+        """The constants K29's ``wave_ctl`` closes a wave with."""
+        return dict(
+            waves=self._waves_per_call, f_eff=self._step_width(),
+            f_full=self._max_frontier, cap=self._capacity,
+            qcap=self._log_capacity, size=self._sort_width(),
+            target=self._options._target_max_depth or 0,
+            fw_masks=self._fw_masks,
+        )
+
+    def _ctl_word(self, word: int) -> torch.Tensor:
+        i = ctl_index(len(self._properties), word)
+        return self._stats[i : i + 1]
+
+    def _fused_rows(self) -> int:
+        """The rows a quantum's wave expands: the chunk (the step rung) on
+        the card, whose captured wave has one width; on the CPU the
+        level's live lanes of it, since the twins' cost follows the rows
+        they are given.  The lanes past the level are inactive, so both
+        widths write the same logs (``tests/test_torch_fused.py`` runs
+        the CPU at the card's width)."""
+        f = self._step_width()
+        if self._device.type == "cuda":
+            return f
+        ls, le = (int(x) & M32 for x in self._stats[:2].tolist())
+        return max(1, min(le - ls, f))
+
+    def _fused_wave(self) -> None:
+        """One wave of a quantum, every scalar on the card: K29's
+        ``wave_load``, the model's step and conds, K8's device entry, the
+        compaction (K3), K1 (after K15 under symmetry; two-phase through
+        its counted entry), the insert (K4's device-epoch entry, after K12
+        and K3 on the sorted path), K3 on the new mask, K29's
+        ``wave_ctl`` and K25's device entry -- no host read, so the card
+        can replay it as a graph.  The JAX ``wave_body``."""
+        c = self._carry
+        cm = self._compiled
+        w, a = cm.state_width, cm.max_actions
+        p = len(self._properties)
+        stats = self._stats
+        f = self._fused_rows()
+        size = self._sort_width()
+        states, eb_in, active = wave_load(c.rows, c.ebits, stats, f, w)
+        if self._two_phase:
+            valid, eb, cands = wave_eval_dev(
+                cm.property_conds(states), cm.step_valid(states), eb_in,
+                stats, active, self._kinds,
+            )
+            v_orig, v_act, n_valid = compact_valid_indices(
+                valid.view(-1), sort_lanes=size
+            )
+            cand_rows, lane_flags = cm.step_lane(states, v_orig, n_valid)
+            step_flag = lane_flags.any()
+            hi, lo = device_fp64_n(self._identity(cand_rows), n_valid)
+        else:
+            nexts, valid, conds, step_flag = cm.expand(states)
+            valid, eb, cands = wave_eval_dev(
+                conds, valid, eb_in, stats, active, self._kinds
+            )
+            cand_rows = nexts.view(f * a, w)
+            hi, lo = device_fp64(self._identity(cand_rows))
+            hi, lo, v_orig, v_act, n_valid = compact_valid(
+                hi, lo, valid.view(-1), sort_lanes=size
+            )
+        epoch = self._ctl_word(CTL_EPOCH)
+        if self._sortless:
+            is_new, probe_ok = insert_batch_claim_dev(
+                c.table, hi, lo, v_act, epoch
+            )
+            u_origin = dd_flag = None
+        else:
+            is_new, u_origin, _u_act, probe_ok, dd_flag = insert_batch_compact(
+                c.table, hi, lo, v_act, dedup_factor=1, epoch=epoch
+            )
+        sel, n_new = compact(is_new, is_new.shape[0])
+        wave_ctl(
+            stats, p, begin=False, n_new=n_new, n_valid=n_valid,
+            probe_ok=probe_ok, step_flag=step_flag, dd_flag=dd_flag,
+            cands=cands, **self._ctl_args(),
+        )
+        i = ctl_index(p, CTL_WAVE_LO)
+        append_block_dev(
+            c.rows, c.parent, c.ebits, sel, u_origin, v_orig, cand_rows, eb,
+            stats[i : i + 3], a, self._two_phase,
+        )
+
+    def _go(self) -> bool:
+        """K29's go word, read on the host."""
+        return bool(int(self._ctl_word(CTL_GO).item()))
+
+    def _graph_key(self) -> tuple:
+        """The captured quantum's key: the JAX program key's knobs
+        (``wavefront.py:881-917``) and the buffers the graph holds."""
+        c = self._carry
+        return (
+            self._capacity, self._log_capacity, self._max_frontier,
+            self._dedup_factor, self._sortless, self._sort_width(),
+            self._step_width(), self._waves_per_call,
+            self._options._target_max_depth or 0, self._fw_masks,
+            c.table.keys.data_ptr(), c.table.meta.data_ptr(),
+            c.rows.data_ptr(), c.parent.data_ptr(), c.ebits.data_ptr(),
+            self._stats.data_ptr(),
+        )
+
+    def _key_provenance(self) -> dict:
+        """The knobs behind a captured quantum, for its ``compile`` event."""
+        return {
+            "model": type(self._compiled).__name__,
+            "capacity": self._capacity,
+            "log_capacity": self._log_capacity,
+            "max_frontier": self._max_frontier,
+            "dedup_factor": self._dedup_factor,
+            "sortless": self._sortless,
+            "sort_lanes": self._sort_width(),
+            "step_lanes": self._step_width(),
+            "waves_per_call": self._waves_per_call,
+            "symmetry": self._canon is not None,
+        }
+
+    def _wl_call(self) -> None:
+        """Run one quantum: K29 opens it on the card, then up to
+        ``waves_per_call`` waves run while its go word holds -- the
+        captured graph's one launch on the card (captured on the first
+        quantum of a geometry, after that quantum's first wave ran
+        eagerly, which loads every kernel the capture records), a loop
+        over the twins on the CPU."""
+        c = self._carry
+        if self._stats is None:
+            self._stats = self._stats_from_carry()
+        table = c.table
+        if self._device.type == "cuda":
+            if table.meta is None:
+                table.meta = torch.zeros_like(table.keys)
+            if table.epoch + self._waves_per_call + 1 >= _EPOCH_MAX:
+                table.meta.zero_()
+                table.epoch = 0
+        self._ctl_word(CTL_EPOCH).fill_(table.epoch)
+        wave_ctl(self._stats, len(self._properties), begin=True,
+                 **self._ctl_args())
+        self._quantum_graph = None
+        self._quantum_eager = 0
+        if self._device.type != "cuda":
+            while self._go():
+                self._fused_wave()
+            return
+        key = self._graph_key()
+        if self._graph_at != key:
+            self._drop_graph()
+            # A capture syncs the card anyway; a quantum that cannot start
+            # captures nothing.
+            if not self._go():
+                return
+            self._fused_wave()
+            self._quantum_eager = 1
+            t0 = time.monotonic()
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph = WhileGraph(self._fused_wave, self._ctl_word(CTL_GO),
+                                     pool=self._graph_pool)
+            self._graph_at = key
+            sec = time.monotonic() - t0
+            self._capture_sec.append(sec)
+            if self._journal:
+                self._journal.append(
+                    "compile", label=f"{type(self).__name__}.fused",
+                    sec=round(sec, 4), cache_size=1,
+                    provenance=self._key_provenance(),
+                )
+        self._graph.launch()
+        self._quantum_graph = self._graph
+
+    def _drop_graph(self) -> None:
+        """Close the captured quantum (its key no longer holds)."""
+        if self._graph is not None:
+            self._graph.close()
+        self._graph = self._graph_at = None
+
+    def _wl_view(self) -> WaveView:
+        """The quantum's one readback (the stats and K29's words in one
+        copy), decoded; the host carry is refreshed from it."""
+        p = len(self._properties)
+        words = [int(x) & M32 for x in self._stats.tolist()]
+        self._readbacks += 1
+        ran = words[ctl_index(p, CTL_WAVES_RUN)]
+        self._waves_run += ran
+        if self._quantum_graph is not None:
+            self._quantum_graph.count_waves(ran - self._quantum_eager)
+            self._quantum_graph = None
+        c = self._carry
+        c.level_start, c.level_end, c.tail = (
+            words[STAT_LEVEL_START], words[STAT_LEVEL_END], words[STAT_TAIL]
+        )
+        c.state_count = (words[STAT_SC_HI] << 32) | words[STAT_SC_LO]
+        c.unique_count = words[STAT_UNIQUE]
+        c.depth = words[STAT_DEPTH]
+        c.disc = words[STAT_DISC : STAT_DISC + p]
+        c.table.epoch = words[ctl_index(p, CTL_EPOCH)]
+        return WaveView(
+            waves_this_call=self._waves_per_call,
+            remaining=c.level_end - c.level_start,
+            depth=c.depth,
+            flags=words[STAT_FLAGS],
+            unique=c.unique_count,
+            states=c.state_count,
+            occupancy=c.unique_count / self._capacity,
+            discoveries=tuple(
+                (prop.name, c.disc[i])
+                for i, prop in enumerate(self._properties)
+                if c.disc[i] != NO_ID
+            ),
+            extra={"tail": c.tail},
+        )
 
     # The phase an engine's _wave_filter is timed as in a traced wave (the
     # tiered engine's cold merge-join); the in-HBM engine has no filter.
@@ -783,7 +1119,7 @@ class GpuChecker(Checker):
         committed, records its phase seconds and modeled bytes."""
         clock = PhaseClock(self._device) if self._tracer is not None else NO_CLOCK
         c = self._carry
-        count = min(c.level_end - c.level_start, self._max_frontier)
+        count = min(c.level_end - c.level_start, self._step_width())
         # The compaction buffer: the rung, or the worst case U of a FULL
         # chunk -- sized from max_frontier, as the JAX engine's padded
         # chunk is, so flag 4 fires where it fires there.
@@ -964,6 +1300,9 @@ class GpuChecker(Checker):
             flags |= 4
         if wave.s_flag:
             flags |= 8
+        f_eff = self._step_width()
+        if f_eff < self._max_frontier and self._wl_remaining() > f_eff:
+            flags |= 128
         return flags
 
     def _wave_filter(self, wave: Wave) -> None:
@@ -1029,8 +1368,14 @@ class GpuChecker(Checker):
         c = self._carry
         c.table = self._rehash(c.rows, c.tail)
 
+    def _wl_retryable_flags(self) -> int:
+        """1, 2 and 4 grow in place and 128 climbs the step rung; 8 (the
+        encoding overflow) never retries."""
+        return 1 | 2 | 4 | 128
+
     def _wl_grow(self, flags: int) -> None:
         """Grow the tripped buffers in place, then reset the table."""
+        self._drop_graph()  # it holds the buffers that move
         qcap = self._log_capacity
         note = "; ".join(self._grow_knobs(flags, qcap))
         self._grow_flags.append(flags)
@@ -1051,13 +1396,16 @@ class GpuChecker(Checker):
                "compaction buffer holds; lower spawn_gpu(dedup_factor=...) "
                f"(now {self._dedup_factor}; 1 with no sort_lanes is always "
                "safe)",
+            128: "the step-rung ladder clamped a wave at the full chunk "
+                 "width -- impossible by construction (the clamp flag "
+                 "cannot fire at the top rung); please report",
         }[bit]
 
     def _grow_knobs(self, flags: int, qcap: int) -> List[str]:
-        """Grow the knob of each tripped flag (1, 2, 4, in that order);
-        returns the notes, or raises where a knob cannot grow."""
+        """Grow the knob of each tripped flag (1, 2, 4, 128, in that
+        order); returns the notes, or raises where a knob cannot grow."""
         grown = []
-        for bit in (1, 2, 4):
+        for bit in (1, 2, 4, 128):
             if not flags & bit:
                 continue
             if bit == 2 and self._log_capacity > qcap:
@@ -1101,6 +1449,11 @@ class GpuChecker(Checker):
                 return None
             self._log_capacity = min(self._log_capacity * 2, log_bound)
             return f"log_capacity={self._log_capacity}"
+        if flag == 128:
+            # The step rung: the level outgrew the chunk rung; climb one
+            # rung toward max_frontier (the climbed rung is the floor the
+            # frontier tuner never revisits).
+            return climb_step_rung(self, self._max_frontier)
         # Flag 4, in the JAX engine's order (wavefront.py:1096-1171).
         # An explicit claim budget (sortless with a pinned rung) falls back
         # to the sorted path rather than climbing.
@@ -1126,7 +1479,7 @@ class GpuChecker(Checker):
         if relaxed is None:
             return None
         self._dedup_factor, self._max_frontier, note = relaxed
-        reset_sort_rung_to_full(self)
+        reset_sort_rung_to_full(self, full)
         return note
 
     def _identity_fingerprints(self, rows: torch.Tensor, start: int, end: int):
@@ -1219,8 +1572,11 @@ class GpuChecker(Checker):
             dedup_factor=self._dedup_factor,
             sortless=self._sortless,
             sort_lanes=self._sort_width(),
-            # The pinned rung (0 = the full buffer).
+            # The pinned rungs (0 = the full buffer, the tuner armed).
             sort_lanes_rung=self._sort_lanes or 0,
+            step_lanes=self._step_width(),
+            step_lanes_rung=self._step_lanes or 0,
+            waves_per_call=self._waves_per_call,
         )
         snap = self._metrics.snapshot()
         out["table_load_factor"] = snap.get("table_occupancy", 0.0)
@@ -1254,8 +1610,9 @@ class GpuChecker(Checker):
         """Spawn kwargs right-sized to this run's final counts, so a fresh
         spawn of the same workload runs without growth: the table at least
         twice the unique count, the log the count plus slack, the chunk,
-        dedup factor and dedup path the run ended with, and the sort rung
-        when one was pinned on the sorted path."""
+        dedup factor and dedup path the run ended with, the sort rung when
+        one was pinned on the sorted path, and the step rung when one was
+        pinned (the JAX engine's)."""
         self.join()
         u = max(1, self._unique_count)
         return dict(
@@ -1269,6 +1626,10 @@ class GpuChecker(Checker):
                 if self._sort_lanes is not None and not self._sortless
                 else {}
             ),
+            **(
+                {"step_lanes": self._step_width()}
+                if self._step_lanes is not None else {}
+            ),
         )
 
     def table_load_factor(self) -> float:
@@ -1277,7 +1638,9 @@ class GpuChecker(Checker):
         return self._carry.table.load_factor()
 
     def waves(self) -> int:
-        """Waves the finished run executed (re-runs after growth included)."""
+        """Waves the finished run counted, as the JAX engine counts them
+        (re-runs after growth included; ``waves_per_call`` a quantum of
+        the fused loop)."""
         self.join()
         return self._waves
 

@@ -81,6 +81,9 @@ class TieredGpuChecker(GpuChecker):
 
     engine_name = "gpu-tiered"
     spawn_name = "spawn_gpu_tiered()"
+    # One wave a call, as the JAX tiered engine drives its loop: the cold
+    # filter runs on the host between a wave's readback and its append.
+    _fused = False
 
     def __init__(
         self,

@@ -235,9 +235,10 @@ def test_dd1_claim_log_is_the_same_at_a_clamped_chunk(tmp_path, monkeypatch):
     clamped = TwoPhaseSys(rm_count=6).checker().spawn_gpu(device="cpu", **geo).join()
     assert clamped._max_frontier == 2048
     wide = TwoPhaseSys(rm_count=6).checker().spawn_gpu(
-        device="cpu", dedup_factor=1, **geo).join()
+        device="cpu", dedup_factor=1, waves_per_call=1, **geo).join()
     narrow = TwoPhaseSys(rm_count=6).checker().spawn_gpu(
-        device="cpu", dedup_factor=1, capacity=1 << 17, max_frontier=2048).join()
+        device="cpu", dedup_factor=1, waves_per_call=1, capacity=1 << 17,
+        max_frontier=2048).join()
     assert wide._max_frontier == 1 << 13 and narrow.waves() > wide.waves()
     a, b = _logs(wide, tmp_path / "w.npz"), _logs(narrow, tmp_path / "n.npz")
     for k in a:

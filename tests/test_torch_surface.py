@@ -47,7 +47,8 @@ def test_metrics_tuned_kwargs_and_journal_match_jax(tmp_path):
     jt = JaxTwoPhaseSys(rm_count=4).checker().spawn_tpu(
         waves_per_call=1, journal=str(tmp_path / "jax.jsonl"), **GROWING).join()
     t = TwoPhaseSys(rm_count=4).checker().spawn_gpu(
-        device="cpu", journal=str(tmp_path / "port.jsonl"), **GROWING).join()
+        device="cpu", waves_per_call=1, journal=str(tmp_path / "port.jsonl"),
+        **GROWING).join()
     m, jm = t.metrics(), jt.metrics()
     assert (m["engine"], jm["engine"]) == ("gpu-wavefront", "tpu-wavefront")
     assert {k: m[k] for k in SHARED_METRICS} == {k: jm[k] for k in SHARED_METRICS}

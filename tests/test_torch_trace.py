@@ -374,18 +374,17 @@ def test_trace_with_resume_raises_and_untraced_has_no_summary():
 
 
 def test_histogram_keys_match_jax(rm3, tmp_path):
-    """The vitals' histogram keys, traced and untraced.  The untraced JAX
-    loop also times its density tuner (``host_retune_sec``), which the
-    port does not have."""
+    """The vitals' histogram keys, traced and untraced (both untraced
+    loops also time their density tuners, ``host_retune_sec``)."""
     traced = rm3["port"]["checker"].metrics()["histograms"]
     assert set(traced) == set(rm3["jax"]["checker"].metrics()["histograms"])
     journal = str(tmp_path / "untraced.jsonl")
     ours = TwoPhaseSys(rm_count=3).checker().spawn_gpu(
-        device="cpu", journal=journal, **GEOMETRY).join().metrics()
+        device="cpu", waves_per_call=1, journal=journal, **GEOMETRY).join().metrics()
     theirs = JTwoPhaseSys(rm_count=3).checker().spawn_tpu(
         waves_per_call=1, journal=str(tmp_path / "jax.jsonl"),
         **GEOMETRY).join().metrics()
-    assert set(ours["histograms"]) == set(theirs["histograms"]) - {"host_retune_sec"}
+    assert set(ours["histograms"]) == set(theirs["histograms"])
     for key in ("valid_density_ema", "uniq_per_sec_ema", "waves_per_sec_ema",
                 "host_sec_total"):
         assert key in ours and key in theirs
