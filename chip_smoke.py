@@ -90,9 +90,12 @@ Phases, in order; any failure exits non-zero:
     (``sortless=0``, K12) and then relaxes to ``dedup_factor=1`` at 8,192
     states a chunk, as the JAX engine's rules do at these arguments;
     16,777,214 / 188,743,681 / depth 46; then its kernels, K12 among them,
-    against their twins on one real wave of its sorted path, and K12 on
-    fuzzed batches (hi >= 2**31, the all-ones key, all duplicates, no
-    active lane, sizes up to 2**22 that are no power of two);
+    against their twins on one real wave of its sorted path (K12's sort
+    alone and in its wrapper, its prefix and mask entries, beside
+    ``torch.sort`` of the buffer and of the prefix), and
+    K12 on fuzzed batches (hi >= 2**31, the all-ones key, all
+    duplicates, no active lane, sizes up to 2**22 that are no power of
+    two; the prefix entry at six counts each);
 24. the reference's ping-pong goldens (14 lossy at ``max_nat`` 1, 11
     lossless at 5, 4,094 lossy at 5) and lossy ``max_nat`` 6 at 4,096
     states a chunk, which falls back to the sorted path, each bit-equal
@@ -293,7 +296,12 @@ Phases, in order; any failure exits non-zero:
     widest waves of ``2pc check 10`` and ``paxos check 3`` at the card's
     full chunk, bit-equal, timed, with bounds, appending what the runs
     appended;
-70. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+70. ``paxos check 2`` on four shards on the sorted path
+    (``sortless=False``): the senders' dedup through K12's prefix entry,
+    the owners' insert through its mask entry, the single card's
+    fingerprints, and K12's mask entry against its twin on the widest
+    owner batch;
+71. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -526,6 +534,10 @@ KERNELS = {
                   "stateright_tpu/models/raft_compiled.py:418"),
     "prededup": ("stateright_tpu_torch/csrc/prededup.cu",
                  "stateright_tpu/parallel/hashset.py:232"),
+    # K12's prefix entry: the sorted path's buffers, whose active lanes are
+    # compact_valid's prefix of n_valid lanes.
+    "prededup_prefix": ("stateright_tpu_torch/csrc/prededup.cu",
+                        "stateright_tpu/parallel/hashset.py:232"),
     "ping_pong_step": ("stateright_tpu_torch/csrc/ping_pong_step.cu",
                        "stateright_tpu/models/ping_pong_compiled.py:138"),
     "paxos_step": ("stateright_tpu_torch/csrc/paxos_step.cu",
@@ -619,16 +631,16 @@ PATH_KERNELS = {
     "pp13": ("device_fp64", "ping_pong_step", "compact",
              "insert_batch_claim_dev", "wave_eval_dev"),
     "pp11s": ("device_fp64", "ping_pong_step", "compact",
-              "insert_batch_claim_dev", "wave_eval_dev", "prededup",
+              "insert_batch_claim_dev", "wave_eval_dev", "prededup_prefix",
               "append_block_dev"),
     "paxos3b": ("device_fp64", "compact", "insert_batch_claim_dev",
                 "paxos_step", "paxos_conds", "wave_eval_dev"),
     "raft10s": ("device_fp64", "raft_step", "compact",
-                "insert_batch_claim_dev", "wave_eval_dev", "prededup"),
+                "insert_batch_claim_dev", "wave_eval_dev", "prededup_prefix"),
     "sym12": ("device_fp64", "twophase_step", "canonicalize_rows", "compact",
               "insert_batch_claim_dev", "wave_eval_dev"),
     "lww": ("device_fp64", "lww_step", "compact", "insert_batch_claim_dev",
-            "wave_eval_dev", "prededup"),
+            "wave_eval_dev", "prededup_prefix"),
     "trap": ("device_fp64", "trap_step", "compact", "insert_batch_claim_dev",
              "wave_eval_dev"),
     # The traced runs of rm10 and paxos3 keep the per-wave loop: the host
@@ -657,14 +669,17 @@ PATH_KERNELS = {
     "gang-cap": ("cap_counter_gang", "gang_eval", "device_fp64"),
     "cap-solo": ("cap_counter",),
     # The sharded paths on four shards of the card: K26 and K27, and K1, K4
-    # and K12 as the sharded wave runs them (K12 on every sender, K1 and K4
-    # on every owner's receive buffer); K15 under symmetry.
+    # and K12 as the sharded wave runs them (K12's prefix entry on every
+    # sender, K1 and K4 on every owner's receive buffer); K15 under
+    # symmetry.  sh-paxos2s is the sorted path, whose owners insert
+    # through K12's mask entry (the received validity is no prefix).
     "sh-paxos3": ("owner_bucket", "shard_commit", "device_fp64",
-                  "insert_batch_claim", "prededup"),
+                  "insert_batch_claim", "prededup_prefix"),
     "sh-rm10": ("owner_bucket", "shard_commit", "device_fp64",
-                "insert_batch_claim", "prededup"),
+                "insert_batch_claim", "prededup_prefix"),
     "sh-sym12": ("owner_bucket", "shard_commit", "device_fp64",
-                 "insert_batch_claim", "prededup", "canonicalize_rows"),
+                 "insert_batch_claim", "prededup_prefix", "canonicalize_rows"),
+    "sh-paxos2s": ("prededup",),
     # Traced on four shards: K26 and K27 as the traced phases run them.
     "tr-sh-paxos3": ("owner_bucket", "shard_commit"),
     # Tiered-sharded on four shards: K28 appends (no K27), K20 filters, the
@@ -696,13 +711,18 @@ ALSO_LAUNCHED = {
                   "paxos_step_lane", "wave_eval"),
     "sh-rm10": ("twophase_step", "compact", "wave_eval"),
     "sh-sym12": ("twophase_step", "compact", "wave_eval"),
-    "tr-sh-paxos3": ("device_fp64", "insert_batch_claim", "prededup",
+    "sh-paxos2s": ("prededup_prefix", "owner_bucket", "shard_commit",
+                   "device_fp64", "insert_batch_claim", "compact",
+                   "paxos_step_valid", "paxos_conds", "paxos_step_lane",
+                   "wave_eval"),
+    "tr-sh-paxos3": ("device_fp64", "insert_batch_claim", "prededup_prefix",
                      "compact", "paxos_step_valid", "paxos_conds",
                      "paxos_step_lane", "wave_eval"),
-    "ts-paxos3": ("owner_bucket", "prededup", "compact", "paxos_step_valid",
-                  "paxos_conds", "paxos_step_lane", "wave_eval"),
+    "ts-paxos3": ("owner_bucket", "prededup_prefix", "compact",
+                  "paxos_step_valid", "paxos_conds", "paxos_step_lane",
+                  "wave_eval"),
     "ts-sym12": ("owner_bucket", "device_fp64", "insert_batch_claim",
-                 "prededup", "twophase_step", "compact", "wave_eval",
+                 "prededup_prefix", "twophase_step", "compact", "wave_eval",
                  "cold_query", "cold_probe"),
 }
 
@@ -988,7 +1008,9 @@ def launch_counted():
     from stateright_tpu_torch.models.twophase_compiled import twophase_step
     from stateright_tpu_torch.ops.device_fp import device_fp64
     from stateright_tpu_torch.parallel.canon import canonicalize_rows
-    from stateright_tpu_torch.parallel.hashset import insert_batch_claim, prededup
+    from stateright_tpu_torch.parallel.hashset import (
+        insert_batch_claim, prededup, prededup_prefix,
+    )
     from stateright_tpu_torch.parallel.wave_common import compact, wave_eval
     from stateright_tpu_torch.ensemble.fate import fate_mask
     from stateright_tpu_torch.parallel.simulation_gpu import (
@@ -1015,7 +1037,8 @@ def launch_counted():
     return (wave_load, wave_ctl, wave_eval_dev, insert_batch_claim_dev,
             device_fp64_n, append_block_dev, shard_log_append, owner_bucket, shard_commit, append_block, device_fp64, twophase_step, compact, insert_batch_claim,
             paxos_step_valid, paxos_conds, paxos_step_lane, wave_eval,
-            single_copy_step, abd_step, raft_step, prededup, ping_pong_step,
+            single_copy_step, abd_step, raft_step, prededup, prededup_prefix,
+            ping_pong_step,
             paxos_step, canonicalize_rows, lww_step, trap_step,
             walker_keys, walk_init, walk_step, walk_finish, fate_mask,
             cold_query, cold_probe, grid_walk, twophase_conds, first_hits,
@@ -1986,7 +2009,7 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
         canonicalize_rows, canonicalize_rows_plain, is_identity,
     )
     from stateright_tpu_torch.parallel.hashset import (
-        compact_valid, prededup, prededup_plain, unique_buffer_size,
+        compact_valid, unique_buffer_size,
     )
     from stateright_tpu_torch.parallel.wave_common import (
         prop_kinds, wave_eval, wave_eval_plain,
@@ -2088,24 +2111,11 @@ def phase_single_phase_kernels(torch, checker, rows, path, geometry, name,
         k_new = check_insert(torch, checked, table, v_hi, v_lo, v_act)
         origin = None
     else:
-        # The sorted path: K12 (+ K3) elects each key's lowest lane in
-        # sorted-key order, then K4 inserts the representatives.
-        got = prededup(v_hi, v_lo, v_act, 1)
-        want = prededup_plain(v_hi, v_lo, v_act, 1)
-        torch.cuda.synchronize()
-        n_act = int(v_act.sum())
-        n_rep = int(got[3].sum())
-        skey = v_hi.long() * (1 << 32) + (v_lo.long() & 0xFFFFFFFF)
-        # Each input lane's key, lane and active flag read once; each
-        # representative's key, origin and filled flag written once.
-        row("prededup", max_abs_err(torch, zip(got, want)),
-            time_ms(torch, lambda: prededup(v_hi, v_lo, v_act, 1), 10),
-            time_ms(torch, lambda: prededup_plain(v_hi, v_lo, v_act, 1), 2),
-            size * (4 + 4 + 1) + size * (4 + 4 + 4 + 1),
-            library_ms=time_ms(
-                torch, lambda: torch.sort(skey ^ (-(1 << 63)), stable=True), 10))
-        log(f"  prededup: {n_act} active lanes of a {size}-lane buffer, "
-            f"{n_rep} distinct keys")
+        # The sorted path: K12's prefix entry (+ K3) elects each key's
+        # lowest lane in sorted-key order, then K4 inserts the
+        # representatives.
+        got = check_prededup(torch, row, checked, path, v_hi, v_lo,
+                             count=_n_valid)
         u_hi, u_lo, origin, u_act, _ovf = got
         k_new_d, _ok = check_insert_dev(torch, row, table, u_hi, u_lo, u_act)
         k_new = check_insert(torch, checked, table, u_hi, u_lo, u_act)
@@ -2429,16 +2439,87 @@ def phase_ping_pong_goldens(torch):
             f"{gpu._grow_notes}")
 
 
+def check_prededup(torch, row, checked, path, v_hi, v_lo, count=None,
+                   active=None):
+    """K12 on one replayed batch against its twin: timed alone (the sort,
+    ``_sorted_runs*``) and inside the whole wrapper (K12, K3 and the
+    gathers), beside ``torch.sort(stable=True)`` of the whole buffer and
+    of the active prefix.  With ``count`` (the batch's active lanes are
+    that prefix, as on the sorted path) the path's row is the prefix
+    entry's, and the mask entry is checked and timed on the same batch
+    (``checked``); with ``active`` alone the row is the mask entry's.
+    Bytes: each input read once (the keys, and the mask or the count),
+    each output written once (the sorted keys and lanes, rep).  Returns
+    the wrapper's answer."""
+    from stateright_tpu_torch.parallel.hashset import (
+        _sorted_runs, _sorted_runs_plain, _sorted_runs_prefix,
+        prededup, prededup_plain, prededup_prefix,
+    )
+
+    size = v_hi.shape[0]
+    if count is not None:
+        m = min(int(count), size)
+        active = torch.arange(size, device=v_hi.device) < m
+    else:
+        m = int(active.sum())
+    skey = torch.where(
+        active, v_hi.long() * (1 << 32) + (v_lo.long() & 0xFFFFFFFF), -1
+    ) ^ (-(1 << 63))
+    head = skey[:m]
+    whole_ms = time_ms(torch, lambda: torch.sort(skey, stable=True), 10)
+    want_runs = _sorted_runs_plain(v_hi, v_lo, active)
+    want = prededup_plain(v_hi, v_lo, active, 1)
+    plain_ms = time_ms(torch, lambda: _sorted_runs_plain(v_hi, v_lo, active), 2)
+    got_runs = _sorted_runs(v_hi, v_lo, active)
+    got = prededup(v_hi, v_lo, active, 1)
+    torch.cuda.synchronize()
+    n_rep = int(want[3].sum())
+    (row if count is None else checked)(
+        "prededup",
+        max_abs_err(torch, zip(got_runs, want_runs)) +
+        max_abs_err(torch, zip(got, want)),
+        time_ms(torch, lambda: _sorted_runs(v_hi, v_lo, active), 10),
+        plain_ms, size * (4 + 4 + 1) + size * (8 + 4 + 1),
+        library_ms=whole_ms)
+    log(f"  prededup [{path}]: {m} active lanes of {size}, {n_rep} distinct "
+        f"keys; the mask entry's wrapper (K12, K3, gathers) "
+        f"{time_ms(torch, lambda: prededup(v_hi, v_lo, active, 1), 10):.4f} "
+        f"ms; torch.sort(stable=True) of the whole buffer {whole_ms:.4f} ms")
+    if count is None:
+        return got
+    prefix_ms = time_ms(torch, lambda: torch.sort(head, stable=True), 10)
+    got_runs = _sorted_runs_prefix(v_hi, v_lo, count)
+    got = prededup_prefix(v_hi, v_lo, count, 1)
+    torch.cuda.synchronize()
+    # The prefix entry leaves keys and lanes past the count unwritten.
+    row("prededup_prefix",
+        max_abs_err(torch, zip((got_runs[0][:m], got_runs[1][:m], got_runs[2]),
+                               (want_runs[0][:m], want_runs[1][:m], want_runs[2])))
+        + max_abs_err(torch, zip(got, want)),
+        time_ms(torch, lambda: _sorted_runs_prefix(v_hi, v_lo, count), 10),
+        plain_ms, m * (4 + 4) + 8 + m * (8 + 4) + size,
+        library_ms=prefix_ms)
+    log(f"  prededup_prefix [{path}]: the wrapper (K12, K3, gathers) "
+        f"{time_ms(torch, lambda: prededup_prefix(v_hi, v_lo, count, 1), 10):.4f} "
+        f"ms; torch.sort(stable=True) of the {m}-lane prefix {prefix_ms:.4f} ms")
+    return got
+
+
 def phase_prededup_fuzz(torch):
     """K12 (+ K3) against its twin on fuzzed batches: keys with hi >= 2**31
     beside small ones, an active all-ones key (never a representative),
     an all-duplicate batch, a batch with no active lane, and sizes that
     are no power of two, up to 2**22 lanes; at dedup_factor 1 and 4 and a
-    256-lane rung."""
+    256-lane rung; the mask entry on the batch's mask, the prefix entry
+    at counts 0, 1, a third, one ending inside a tile, all and past
+    all."""
     import numpy as np
 
     from stateright_tpu_torch.ops.u32 import from_numpy_u32
-    from stateright_tpu_torch.parallel.hashset import prededup, prededup_plain
+    from stateright_tpu_torch.parallel.hashset import (
+        _sorted_runs_plain, _sorted_runs_prefix, prededup, prededup_plain,
+        prededup_prefix,
+    )
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -2458,8 +2539,27 @@ def phase_prededup_fuzz(torch):
             if not all(torch.equal(g, w) for g, w in zip(got, want)):
                 raise AssertionError(f"prededup disagrees with its twin at n={n}, "
                                      f"dedup_factor={dd}, sort_lanes={rung}")
+        counts = sorted({0, 1, n // 3, min(n, 2048 + 777), n, n + 5})
+        for m in counts:
+            count = torch.tensor(m, device=dev)
+            mask = torch.arange(n, device=dev) < m
+            runs = _sorted_runs_prefix(hi, lo, count)
+            want_runs = _sorted_runs_plain(hi, lo, mask)
+            k = min(m, n)
+            if not (torch.equal(runs[0][:k], want_runs[0][:k])
+                    and torch.equal(runs[1][:k], want_runs[1][:k])
+                    and torch.equal(runs[2], want_runs[2])):
+                raise AssertionError(f"K12's prefix entry disagrees with its "
+                                     f"twin at n={n}, count={m}")
+            for dd, rung in ((1, None), (4, None), (1, 256)):
+                got = prededup_prefix(hi, lo, count, dd, rung)
+                want = prededup_plain(hi, lo, mask, dd, rung)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(
+                        f"prededup_prefix disagrees with its twin at n={n}, "
+                        f"count={m}, dedup_factor={dd}, sort_lanes={rung}")
         log(f"  prededup: {n} lanes, {int(active.sum())} active, equal to the "
-            f"twin at three geometries")
+            f"twin at three geometries; the prefix entry at counts {counts}")
 
 
 def bounded_paxos_model(c, max_round):
@@ -3687,6 +3787,7 @@ def phase_incr_kernels(torch, rows, captured):
     on those conds with the edited model's property kinds."""
     from stateright_tpu_torch.incr.recheck import first_hits, first_hits_plain
     from stateright_tpu_torch.models.fixtures import grid_walk, grid_walk_plain
+    from stateright_tpu_torch.ops import cuda
     from stateright_tpu_torch.models.twophase_compiled import (
         twophase_conds, twophase_conds_plain,
     )
@@ -3731,9 +3832,27 @@ def phase_incr_kernels(torch, rows, captured):
     bits = torch.tensor([1, 2, 4, 8], device=conds.device)
     hit = (((always & bits) != 0) & ~conds) | (((sometimes & bits) != 0) & conds)
     hit_u8 = hit.to(torch.uint8)
-    log(f"  first_hits on {n} rows: {kh.tolist()}")
-    row("first_hits", max_abs_err(torch, [(kh, ph)]),
-        time_ms(torch, lambda: first_hits(conds, n, always, sometimes, start), 10),
+    # The row times the kernel alone, on slots filled once (its atomicMin
+    # leaves them as they are); the wrapper adds the slot fill.
+    kernel = cuda.function(
+        "recheck", "sr_first_hits",
+        [cuda.P, cuda.I64, cuda.I32, cuda.U32, cuda.U32, cuda.I64, cuda.P,
+         cuda.P],
+    )
+    slots = kh.clone()
+
+    def alone():
+        code = kernel(cuda.ptr(conds), n, n_props, always, sometimes, start,
+                      cuda.ptr(slots), cuda.stream(conds))
+        cuda.check(code, "recheck", "first_hits")
+
+    kernel_ms = time_ms(torch, alone, 10)
+    if not torch.equal(slots, kh):
+        raise AssertionError("first_hits moved slots it had already set")
+    log(f"  first_hits on {n} rows: {kh.tolist()}; the kernel alone "
+        f"{kernel_ms:.4f} ms, with the slot fill (the wrapper) "
+        f"{time_ms(torch, lambda: first_hits(conds, n, always, sometimes, start), 10):.4f} ms")
+    row("first_hits", max_abs_err(torch, [(kh, ph)]), kernel_ms,
         time_ms(torch, lambda: first_hits_plain(conds, n, always, sometimes, start), 3),
         n * n_props + n_props * 8,
         library_ms=time_ms(torch, lambda: torch.argmax(hit_u8, dim=0), 10))
@@ -4126,16 +4245,18 @@ def sharded_device_fps(torch, checker):
 
 class ShardCapture:
     """While entered, keeps the inputs of the widest committed waves of a
-    sharded run: the senders' K12 and K26 calls of the wave that sent the
-    most representatives, and the owners' K4 and K27 calls of the wave that
-    committed the most new states (with each owner's tail then)."""
+    sharded run: the senders' K12 (prefix entry) and K26 calls of the wave
+    that sent the most representatives, and the owners' K4 and K27 calls
+    (and K12's mask entry on the sorted path) of the wave that committed
+    the most new states (with each owner's tail then)."""
 
     def __enter__(self):
         import stateright_tpu_torch.parallel.sharded as sharded
 
         self.mod = sharded
         self.saved = {k: getattr(sharded, k) for k in (
-            "prededup", "owner_bucket", "insert_batch_claim", "shard_commit")}
+            "prededup", "prededup_prefix", "owner_bucket", "insert_batch_claim",
+            "shard_commit")}
         self.saved_host = sharded.ShardedGpuChecker._wave_host
         self.cur = {k: [] for k in self.saved}
         self.send = self.recv = None
@@ -4162,12 +4283,13 @@ class ShardCapture:
                 new = sum(r[0] for r in got)
                 if reps > cap.best_reps:
                     cap.best_reps = reps
-                    cap.send = dict(prededup=cap.cur["prededup"],
+                    cap.send = dict(prededup=cap.cur["prededup_prefix"],
                                     bucket=cap.cur["owner_bucket"])
                 if new > cap.best_new:
                     cap.best_new = new
                     cap.recv = dict(insert=cap.cur["insert_batch_claim"][-n:],
-                                    commit=cap.cur["shard_commit"][-n:])
+                                    commit=cap.cur["shard_commit"][-n:],
+                                    sorted=cap.cur["prededup"][-n:])
             cap.cur = {k: [] for k in cap.saved}
             return flags
 
@@ -4252,7 +4374,8 @@ def phase_sh1_paxos3(torch, gpu, want_counts, want_fps):
         torch, gpu, "sh1-paxos3", paxos_model(3).checker,
         dict(mesh=sharded_mesh(1), capacity=1 << 22, chunk_size=1 << 14),
         want_counts)
-    if launches["owner_bucket"] or launches["prededup"]:
+    if (launches["owner_bucket"] or launches["prededup"]
+            or launches["prededup_prefix"]):
         raise AssertionError("a 1-shard mesh launched K26 or K12")
     if not launches["shard_commit"] or not checker.accounting()["exchange_elided"]:
         raise AssertionError("the 1-shard mesh did not commit through K27 "
@@ -4286,6 +4409,29 @@ def phase_sh_paxos2(torch, gpu):
     same_fps("forced bucket retry", forced.discovered_fingerprints(), want)
     if forced.accounting()["bucket_retries"] < 1:
         raise AssertionError("bucket_slack=1 at 2 shards never retried")
+
+
+def phase_sh_sorted(torch, gpu, rows):
+    """The paxos C = 2 pin on four shards on the sorted path
+    (``sortless=False``): the senders' dedup through K12's prefix entry,
+    the owners' insert through its mask entry (the received validity is no
+    prefix), the single-card run's fingerprints; K12's mask entry against
+    its twin on the widest owner batch.  Returns its launches."""
+    single = paxos_model(2).checker().spawn_gpu(
+        capacity=1 << 16, max_frontier=1 << 9).join()
+    with ShardCapture() as cap:
+        launches, checker, _ = run_sharded(
+            torch, gpu, "sh-paxos2s", paxos_model(2).checker,
+            dict(mesh=sharded_mesh(), sortless=False, **SH_PAXOS2),
+            GOLDEN_PAXOS2[:1])
+    same_fps("paxos check 2 on four shards, sorted", checker.discovered_fingerprints(),
+             single.discovered_fingerprints())
+    if cap.recv is None or not cap.recv["sorted"]:
+        raise AssertionError("sh-paxos2s: no sorted owner insert was captured")
+    args, _kw = max(cap.recv["sorted"], key=lambda c: int(c[0][2].sum()))
+    check_prededup(torch, kernel_row(rows, "sh-paxos2s"), None, "sh-paxos2s",
+                   args[0], args[1], active=args[2])
+    return launches
 
 
 def phase_sh_sym12(torch, gpu):
@@ -4334,16 +4480,15 @@ def phase_shard_kernels(torch, rows, path, checker, cap):
     the most active lanes), K1, K4 and K27 on the owner that committed the
     most of its widest committed wave -- each against its twin, bit-equal,
     timed; K26 beside ``torch.sort(stable=True)`` of its owner keys, K12
-    beside the same sort of its keys; K27 replayed into fresh tables and
-    held against what the run wrote at those slots and queue positions."""
+    beside the same sort of its keys (:func:`check_prededup`); K27
+    replayed into fresh tables and held against what the run wrote at
+    those slots and queue positions."""
     from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
     from stateright_tpu_torch.parallel.exchange import (
         owner_bucket, owner_bucket_plain, owner_mix, shard_commit,
         shard_commit_plain,
     )
-    from stateright_tpu_torch.parallel.hashset import (
-        HashSet, insert_batch_claim, prededup, prededup_plain,
-    )
+    from stateright_tpu_torch.parallel.hashset import HashSet, insert_batch_claim
 
     if cap.send is None or cap.recv is None:
         raise AssertionError(f"{path}: no committed wave was captured")
@@ -4352,21 +4497,12 @@ def phase_shard_kernels(torch, rows, path, checker, cap):
     fpw = checker._fp_words
     n = checker._n
 
-    # K12: the sender batch with the most active lanes.
-    pd = max(cap.send["prededup"], key=lambda c: int(c[0][2].sum()))
-    v_hi, v_lo, v_act = pd[0][:3]
-    got = prededup(v_hi, v_lo, v_act, 1)
-    want = prededup_plain(v_hi, v_lo, v_act, 1)
-    size = v_hi.shape[0]
-    skey = v_hi.long() * (1 << 32) + (v_lo.long() & 0xFFFFFFFF)
-    row("prededup", max_abs_err(torch, zip(got, want)),
-        time_ms(torch, lambda: prededup(v_hi, v_lo, v_act, 1), 10),
-        time_ms(torch, lambda: prededup_plain(v_hi, v_lo, v_act, 1), 2),
-        size * (4 + 4 + 1) + size * (4 + 4 + 4 + 1),
-        library_ms=time_ms(
-            torch, lambda: torch.sort(skey ^ (-(1 << 63)), stable=True), 10))
-    log(f"  prededup [{path}]: {int(v_act.sum())} active lanes of {size}, "
-        f"{int(got[3].sum())} distinct keys")
+    # K12's prefix entry: the sender batch with the most active lanes (the
+    # mask entry checked and timed on the same batch).
+    pd = max(cap.send["prededup"], key=lambda c: int(c[0][2]))
+    v_hi, v_lo, n_valid = pd[0][:3]
+    check_prededup(torch, row, kernel_row(rows, None), path, v_hi, v_lo,
+                   count=n_valid)
 
     # K26: the sender with the most representatives.
     args, _kw = max(cap.send["bucket"], key=lambda c: int(c[0][2].sum()))
@@ -5543,6 +5679,11 @@ def main() -> int:
     del checker
     torch.cuda.empty_cache()
     log(f"  fused runs: {json.dumps({str(k): v for k, v in fused_runs.items()})}")
+
+    log("phase 70: paxos check 2 on four shards on the sorted path: K12's "
+        "prefix entry on the senders, its mask entry on the owners")
+    launches["sh-paxos2s"] = phase_sh_sorted(torch, gpu, rows)
+    torch.cuda.empty_cache()
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []

@@ -2,8 +2,8 @@
 """Where the time of a full check goes on one H100.
 
     python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o|raft|
-                                    pp13|pp11s|paxos3b|sym12|lww2d7|
-                                    sim-rm10|sim-raft|ens-abd|
+                                    pp13|pp11s|paxos3b|raft10s|sym12|
+                                    lww2d7|sh-rm10|sim-rm10|sim-raft|ens-abd|
                                     tiered-paxos3|tiered-raft[,...]]
                            [--runs N] [--trace-dir DIR] [--tree DIR]
 
@@ -17,9 +17,12 @@ through ``spawn_gpu()`` at its geometry, held to its goldens --
 (``raft check``, depth 12, phase 20), ``run_pp13`` (lossy ping-pong at
 ``max_nat`` 13, phase 22), ``run_pp11s`` (lossy ping-pong at ``max_nat`` 11
 through the sorted fallback, phase 23), ``run_paxos3b`` (``paxos check
-3`` at ``max_round=3``, single-phase, phase 25), ``run_sym12`` (``2pc
+3`` at ``max_round=3``, single-phase, phase 25), ``run_raft10s`` (raft to
+depth 10 through the sorted fallback, phase 26), ``run_sym12`` (``2pc
 check-sym 12``, phase 27) or ``run_lww`` (the LWW register, 2 nodes to
-depth 7, phase 29) -- or one of the device walk's: ``sim-rm10`` (2pc rm=10
+depth 7, phase 29) -- or ``sh-rm10`` (``2pc check 10`` on four shards of
+the card, ``spawn_gpu_sharded``, phase 53) -- or one of the device walk's:
+``sim-rm10`` (2pc rm=10
 through ``spawn_gpu_simulation``, one round of 2**18 walkers at T = 64),
 ``sim-raft`` (raft at depth 12, 2**16 walkers a round to 10M states,
 ``run_sim_raft_wide``, phase 32) or ``ens-abd`` (``run_ensemble`` over
@@ -30,7 +33,8 @@ under a 2 MB budget, ``run_tiered_paxos3``, phase 34) or ``tiered-raft``
 host's cold filter (windowing, chunk copies, K20's launches and the fresh
 count's readback: the ``cold_probe_sec_total`` metric), the copies by
 direction (host to card, card to host, on the card) and K20's kernels
-are shown apart -- ``--runs`` times
+are shown apart; for ``sh-rm10`` the profiled run's waves, retries,
+grows and host seconds by span -- ``--runs`` times
 untraced (wall seconds of each, then median and spread), and once more
 under ``torch.profiler``: device time per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
@@ -71,17 +75,37 @@ def run_sim_rm10_wide(torch):
     return checker, time.monotonic() - t0
 
 
+def run_sh_rm10(torch):
+    """``2pc check 10`` on four shards of the card (phase 53)."""
+    import chip_smoke
+    from stateright_tpu_torch.models.twophase import TwoPhaseSys
+
+    _launches, checker, elapsed = chip_smoke.run_sharded(
+        torch, chip_smoke.gpu_line(), "sh-rm10",
+        TwoPhaseSys(rm_count=chip_smoke.RM).checker,
+        dict(mesh=chip_smoke.sharded_mesh(), **chip_smoke.SH_RM10),
+        chip_smoke.GOLDEN_RM10)
+    return checker, elapsed
+
+
+def is_search(run) -> bool:
+    """A search (single-card or sharded), not a walk or an ensemble."""
+    return hasattr(run, "waves") or hasattr(run, "accounting")
+
+
 def count_of(run) -> int:
     """The states a run checked: unique states of a search, states walked
     by a walk or an ensemble."""
     if hasattr(run, "states_walked"):
         return run.states_walked
-    if hasattr(run, "waves"):
+    if is_search(run):
         return run.unique_state_count()
     return run.state_count()
 
 
 def calls_of(run) -> str:
+    if hasattr(run, "accounting"):
+        return f"{run.accounting()['waves']} waves"
     if hasattr(run, "waves"):
         return f"{run.waves()} waves"
     if hasattr(run, "rounds"):
@@ -116,7 +140,8 @@ def main() -> int:
 
 
 MODELS = ("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o", "raft", "pp13",
-          "pp11s", "paxos3b", "sym12", "lww2d7", "sim-rm10", "sim-raft",
+          "pp11s", "paxos3b", "raft10s", "sym12", "lww2d7", "sh-rm10",
+          "sim-rm10", "sim-raft",
           "ens-abd", "tiered-paxos3", "tiered-raft")
 
 
@@ -136,8 +161,10 @@ def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
         "pp13": chip_smoke.run_pp13,
         "pp11s": chip_smoke.run_pp11s,
         "paxos3b": chip_smoke.run_paxos3b,
+        "raft10s": chip_smoke.run_raft10s,
         "sym12": chip_smoke.run_sym12,
         "lww2d7": chip_smoke.run_lww,
+        "sh-rm10": run_sh_rm10,
         "sim-rm10": run_sim_rm10_wide,
         "sim-raft": chip_smoke.run_sim_raft_wide,
         "ens-abd": lambda torch: chip_smoke.run_ens(torch, chip_smoke.ENS_WIDE),
@@ -152,7 +179,7 @@ def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
         checker, elapsed = run(torch)
         times.append(elapsed)
         print(f"run {i}: {elapsed:.4f} s, {calls_of(checker)}, "
-              f"{unique / elapsed:.1f} {'unique' if hasattr(checker, 'waves') else 'walked'} "
+              f"{unique / elapsed:.1f} {'unique' if is_search(checker) else 'walked'} "
               "states/s", flush=True)
     q = statistics.quantiles(times, n=4) if len(times) > 1 else [times[0]] * 3
 
@@ -199,6 +226,28 @@ def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
             "max_frontier": m["max_frontier"],
         }
         print(f"tiered: {tiered}")
+    sharded = {}
+    if hasattr(_checker, "accounting"):
+        # What sets a sharded run's host time: its waves, the retries and
+        # grows that re-run waves, and the untraced loop's host spans
+        # (seconds summed over the run, the density tuners' ``retune``
+        # among them) -- of the profiled run.
+        acc = _checker.accounting()
+        m = _checker.metrics()
+        sharded = {
+            **{k: acc[k] for k in ("waves", "sort_lanes", "step_lanes",
+                                   "sort_retries", "step_retries",
+                                   "bucket_retries")},
+            "grows": m.get("grows", 0),
+            "overflow_retries": m.get("overflow_retries", 0),
+            "host_sec_total": m.get("host_sec_total", 0.0),
+            "host_span_sec": {
+                k[len("host_"):-len("_sec")]: h["sum"]
+                for k, h in m["histograms"].items()
+                if k.startswith("host_") and k.endswith("_sec")
+            },
+        }
+        print(f"sharded: {sharded}")
     calls = {}
     if hasattr(_checker, "waves"):
         waves = getattr(_checker, "_waves_run", None)
@@ -214,13 +263,14 @@ def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
         "runs_s": times,
         "median_s": median,
         "quartiles_s": [q[0], q[2]],
-        ("unique_per_s_median" if hasattr(_checker, "waves")
+        ("unique_per_s_median" if is_search(_checker)
          else "walked_per_s_median"): unique / median,
         "traced_s": traced_s,
         "device_busy_ms": busy_ms,
         "device_busy_share_of_median": busy_ms / 1e3 / median,
         "device_ms_by_kernel": dict(top),
         **({"tiered": tiered} if tiered else {}),
+        **({"sharded": sharded} if sharded else {}),
     }
     print(json.dumps(record), flush=True)
     return record

@@ -25,13 +25,15 @@ inherits them:
   consecutive passes over one buffer partly hit the 50 MB L2, and
   counting every kernel's inputs and outputs read above the card's peak
   on small waves (1.18 on a 2pc rm=10 wave on the H100);
-- the sorted path's K12 is an LSD radix sort (``csrc/prededup.cu``):
-  eight passes of 8 bits, each reading and writing the 12-byte
-  (key, lane) pair of every lane once -- :func:`sort_bytes`.  The
-  pass's second read of its tile (histogram, then scatter) is charged
-  once, as it hits L2.  The JAX engine charges a bitonic network of
-  ``k(k+1)/2`` passes over three planes for its XLA sort, which would
-  read above the card's peak applied to K12;
+- the sorted path's K12 is a one-sweep LSD radix sort
+  (``csrc/prededup.cu``) over the lanes it sorts -- on the sorted path
+  the ``n_valid`` active prefix of the buffer, not the whole buffer: an
+  upfront pass reads each key once for every pass's histogram, then
+  eight passes of 8 bits each read and write the 12-byte (key, lane)
+  pair of each sorted lane once -- :func:`sort_bytes`.  The JAX engine
+  charges a bitonic network of ``k(k+1)/2`` passes over three planes of
+  the whole buffer for its XLA sort, which would read above the card's
+  peak applied to K12;
 - the insert's probes: K4 (``csrc/hashset.cu``) walks each active lane's
   probe chain on its own, so the model charges 8 bytes a slot it reads,
   from the count of slots the wave's lanes read (``probe_slots``, summed
@@ -118,9 +120,10 @@ def hbm_util_frac(bytes_touched: float, seconds: float,
 
 def sort_bytes(lanes: int, passes: int = SORT_PASSES,
                pair_bytes: int = SORT_PAIR_BYTES) -> int:
-    """Bytes K12 streams sorting ``lanes`` (key, lane) pairs: every pass
-    reads and writes every pair once."""
-    return 2 * passes * lanes * pair_bytes
+    """Bytes K12 streams sorting ``lanes`` keys: the upfront histogram
+    reads each 8-byte key once, then every pass reads and writes each
+    (key, lane) pair once."""
+    return lanes * (8 + 2 * passes * pair_bytes)
 
 
 def probe_bytes(lanes: int, rounds: int, word_bytes: int = 4) -> int:

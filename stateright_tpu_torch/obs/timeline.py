@@ -42,11 +42,12 @@ import torch
 # The journal event one wave's host tail folds into.
 SPAN_EVENT = "host_span"
 
-# The host-tail spans (between waves: ``journal``, ``spill``,
-# ``checkpoint``, ``grow``, and the residual ``other`` and the previous
-# record's own ``flush`` write) sum to the wave's ``host_sec`` gap, the gap
-# LoopVitals accounts into ``host_sec_total``.  (The JAX loop's ``retune``
-# span times its density tuner, which is not ported.)  Spans measured
+# The host-tail spans (between waves: ``journal``, ``spill``, ``retune``
+# -- the density tuners, in the fused loop and in every untraced per-wave
+# loop that has them, the sharded one's among them -- ``checkpoint``,
+# ``grow``, and the residual ``other`` and the previous record's own
+# ``flush`` write) sum to the wave's ``host_sec`` gap, the gap LoopVitals
+# accounts into ``host_sec_total``.  Spans measured
 # INSIDE the wave (host-observed, part of the wave's call time, not the
 # host tail): the readback and the tiered cold filter.
 CALL_PHASES = ("readback", "cold_probe")

@@ -160,6 +160,27 @@ def function(lib_name: str, symbol: str, argtypes):
     fn = _FUNCS.get((lib_name, symbol))
     if fn is not None:
         return fn
+    fn = getattr(_library(lib_name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = I32
+    entry = _FUNCS[(lib_name, symbol)] = _Entry(fn)
+    return entry
+
+
+def host_function(lib_name: str, symbol: str, argtypes, restype):
+    """A C helper of ``lib<lib_name>.so`` that launches nothing (a size
+    query), looked up once and called directly, with no stream."""
+    fn = _FUNCS.get((lib_name, symbol))
+    if fn is None:
+        fn = getattr(_library(lib_name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _FUNCS[(lib_name, symbol)] = fn
+    return fn
+
+
+def _library(lib_name: str) -> ctypes.CDLL:
+    """``lib<lib_name>.so``, built and loaded on first use."""
     lib = _LIBS.get(lib_name)
     if lib is None:
         build([lib_name])
@@ -167,11 +188,7 @@ def function(lib_name: str, symbol: str, argtypes):
         lib.sr_error_string.argtypes = [I32]
         lib.sr_error_string.restype = ctypes.c_char_p
         _LIBS[lib_name] = lib
-    fn = getattr(lib, symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = I32
-    entry = _FUNCS[(lib_name, symbol)] = _Entry(fn)
-    return entry
+    return lib
 
 
 def check(code: int, lib_name: str, what: str) -> None:

@@ -17,8 +17,9 @@ The insert is IN PLACE: :func:`insert_batch_claim` mutates the table it is
 given (the JAX version returns a new one), so a wave holds one table, not
 two.  Both dedup paths are ported: the sortless claim path (K4 alone), and
 the sorted fallback -- :func:`prededup` (the K12 sort, ``csrc/prededup.cu``,
-then K3) electing one representative per key in sorted-key order, then K4
-on the representatives (:func:`insert_batch_compact`, :func:`insert_batch`).
+then K3; :func:`prededup_prefix` where the active lanes are a prefix)
+electing one representative per key in sorted-key order, then K4 on the
+representatives (:func:`insert_batch_compact`, :func:`insert_batch`).
 The representatives are distinct keys, so which of two keys contending for
 one empty slot wins it may differ from the JAX ``set`` scatter: on the
 sorted path the two engines' tables hold the same key set, and every
@@ -155,12 +156,34 @@ def prededup(hi, lo, active, dedup_factor: int = 4, sort_lanes=None):
     buffer -- exactly full at ``u``, tripped at ``u + 1``.  Keys order as
     unsigned 64-bit ``hi:lo``; the representative of a key is its lowest
     active lane; an inactive lane, and any all-ones key, is no
-    representative.  On the card the sort is K12 (``csrc/prededup.cu``)
-    and the compaction K3."""
+    representative.  On the card the sort is K12's mask entry
+    (``csrc/prededup.cu``) and the compaction K3."""
     if hi.device.type == "cpu":
         return prededup_plain(hi, lo, active, dedup_factor, sort_lanes)
     u = _effective_buffer(hi.shape[0], dedup_factor, sort_lanes)
     return _compacted(_sorted_runs(hi, lo, active), u, compact)
+
+
+prededup.launches = 0
+
+
+def prededup_prefix(hi, lo, count, dedup_factor: int = 4, sort_lanes=None):
+    """:func:`prededup` where the active lanes are the first ``count``
+    (an int64 scalar tensor on the batch's device, read on the card and
+    clamped to ``[0, B]``): the sorted path's case, whose mask is
+    ``compact_valid``'s prefix of ``n_valid`` lanes.  The answer is
+    :func:`prededup`'s over the mask ``arange(B) < count``; on the card
+    K12's prefix entry sorts only those lanes, whatever ``B`` is, with no
+    host read, so a captured graph replays it at every count."""
+    n = hi.shape[0]
+    if hi.device.type == "cpu":
+        mask = torch.arange(n, device=hi.device) < count
+        return prededup_plain(hi, lo, mask, dedup_factor, sort_lanes)
+    u = _effective_buffer(n, dedup_factor, sort_lanes)
+    return _compacted(_sorted_runs_prefix(hi, lo, count), u, compact)
+
+
+prededup_prefix.launches = 0
 
 
 def prededup_plain(hi, lo, active, dedup_factor: int = 4, sort_lanes=None):
@@ -170,7 +193,10 @@ def prededup_plain(hi, lo, active, dedup_factor: int = 4, sort_lanes=None):
 
 
 def _compacted(runs, u: int, compactor):
-    """The representatives of sorted ``runs`` compacted to ``u`` lanes."""
+    """The representatives of sorted ``runs`` compacted to ``u`` lanes.
+    Only representatives' lanes of ``runs`` are read unmasked (K3 pads
+    its indices with lane 0, whose reads ``u_active`` masks), so the
+    prefix entry's unwritten tail never reaches the answer."""
     skey, slane, rep = runs
     idx, n_rep = compactor(rep, u)
     u_active = torch.arange(u, device=rep.device) < n_rep
@@ -181,47 +207,65 @@ def _compacted(runs, u: int, compactor):
 
 
 def _sorted_runs(hi, lo, active):
-    """K12: the stable unsigned sort of the batch's keys (inactive lanes as
-    the all-ones key), returning ``(keys int64, lanes int32, rep bool)``
-    in sorted order, ``rep`` marking the first lane of each active key's
-    run."""
+    """K12's mask entry: the stable unsigned sort of the batch's keys
+    (inactive lanes as the all-ones key), returning ``(keys int64, lanes
+    int32, rep bool)`` in sorted order, ``rep`` marking the first lane of
+    each active key's run."""
+    cuda.require(active, "active", torch.bool, 1, hi.device)
+    if active.shape[0] != hi.shape[0]:
+        raise ValueError("hi, lo and active differ in length")
+    prededup.launches += 1
+    return _radix_sort(hi, lo, active, None, "prededup")
+
+
+def _sorted_runs_prefix(hi, lo, count):
+    """K12's prefix entry: :func:`_sorted_runs` of the first ``count``
+    lanes (a device int64 scalar, clamped to ``[0, B]``); keys and lanes
+    past it are unwritten and ``rep`` is False there."""
+    cuda.require(count.reshape(()), "count", torch.int64, 0, hi.device)
+    prededup_prefix.launches += 1
+    return _radix_sort(hi, lo, None, count, "prededup_prefix")
+
+
+def _radix_sort(hi, lo, active, count, what: str):
+    """One K12 launch sequence over ``hi``/``lo`` with the mask
+    ``active`` or the device count ``count`` (the other None)."""
     dev = hi.device
     n = hi.shape[0]
     cuda.require(hi, "hi", torch.int32, 1, dev)
     cuda.require(lo, "lo", torch.int32, 1, dev)
-    cuda.require(active, "active", torch.bool, 1, dev)
-    if lo.shape[0] != n or active.shape[0] != n:
-        raise ValueError("hi, lo and active differ in length")
+    if lo.shape[0] != n:
+        raise ValueError("hi and lo differ in length")
     if n >= 1 << 32:
         raise ValueError("at most 2**32 - 1 lanes per sort")
     keys = torch.empty((n,), dtype=torch.int64, device=dev)
     keys_tmp = torch.empty_like(keys)
     lanes = torch.empty((n,), dtype=torch.int32, device=dev)
     lanes_tmp = torch.empty_like(lanes)
-    counts = torch.empty((256 * ((n + 4095) // 4096),), dtype=torch.int64,
-                         device=dev)
     rep = torch.empty((n,), dtype=torch.bool, device=dev)
+    size = cuda.host_function("prededup", "sr_prededup_scratch_bytes",
+                              [cuda.I64], cuda.I64)(n)
+    scratch = torch.empty((max(size, 1),), dtype=torch.uint8, device=dev)
     fn = cuda.function(
         "prededup", "sr_prededup_sort",
-        [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.P, cuda.P, cuda.P, cuda.P,
-         cuda.P, cuda.P, cuda.P],
+        [cuda.P, cuda.P, cuda.P, cuda.P, cuda.I64, cuda.P, cuda.P, cuda.P,
+         cuda.P, cuda.P, cuda.P, cuda.P],
     )
-    prededup.launches += 1
     code = fn(
-        cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, cuda.ptr(keys),
-        cuda.ptr(keys_tmp), cuda.ptr(lanes), cuda.ptr(lanes_tmp),
-        cuda.ptr(counts), cuda.ptr(rep), cuda.stream(hi),
+        cuda.ptr(hi), cuda.ptr(lo),
+        cuda.P(None) if active is None else cuda.ptr(active),
+        cuda.P(None) if count is None else cuda.ptr(count), n,
+        cuda.ptr(keys), cuda.ptr(keys_tmp), cuda.ptr(lanes),
+        cuda.ptr(lanes_tmp), cuda.ptr(scratch), cuda.ptr(rep), cuda.stream(hi),
     )
-    cuda.check(code, "prededup", "prededup")
+    cuda.check(code, "prededup", what)
     return keys, lanes, rep
-
-
-prededup.launches = 0
 
 
 def _sorted_runs_plain(hi, lo, active):
     """Plain-torch twin of K12 (any device): a stable sort of the
-    sign-flipped key, which orders the int64 ``hi:lo`` words as unsigned."""
+    sign-flipped key, which orders the int64 ``hi:lo`` words as unsigned.
+    The prefix entry's twin is this over the mask ``arange(B) < count``."""
     key = torch.where(active, fp64_of(hi, lo), -1)
     order = torch.sort(key ^ _SIGN, stable=True).indices
     skey = key[order]
@@ -402,6 +446,10 @@ def insert_batch_compact(table: HashSet, hi, lo, active,
     """Sorted insert-if-absent, IN PLACE, in the compact form: the JAX
     ``insert_batch_compact`` -- :func:`prededup`, then K4 on the
     representatives, which are distinct keys, so each absent one is new.
+    ``active`` is the lanes' bool mask, or an int64 count scalar on the
+    card: the active lanes are that many leading lanes, as
+    ``compact_valid`` leaves them, and K12's prefix entry sorts only
+    those (:func:`prededup_prefix`).
 
     Returns ``(u_new, u_origin, u_active, probe_ok, overflow)`` over the
     ``u``-lane buffer in sorted-key order: which representatives were
@@ -412,7 +460,8 @@ def insert_batch_compact(table: HashSet, hi, lo, active,
     module docstring).  ``with_rounds=True`` appends K4's probe figures
     and ``epoch`` takes K4's device-epoch entry
     (:func:`insert_batch_claim_dev`)."""
-    u_hi, u_lo, u_origin, u_active, overflow = prededup(
+    dedup = prededup if active.dtype == torch.bool else prededup_prefix
+    u_hi, u_lo, u_origin, u_active, overflow = dedup(
         hi, lo, active, dedup_factor, sort_lanes
     )
     if epoch is None:

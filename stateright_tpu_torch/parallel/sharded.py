@@ -51,8 +51,9 @@ flag-4/32 gate on the host between the exchange and the insert, folds
 discoveries every wave, and runs the density tuners of the sort and step
 rungs after each committed wave, as the JAX traced loop does.  The
 tiered-sharded engine (``tiered/sharded_engine.py``) reuses the same phase
-functions.  Not ported here: the density tuners of the untraced loop and
-the knob cache.
+functions.  The untraced loop runs the density tuners of the sort and
+step rungs at the JAX call boundaries (:meth:`_wl_call_waves`,
+:meth:`_wl_retune`).  Not ported here: the knob cache.
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ from .compiled import CompiledModel, compiled_model_for, two_phase_capable
 from .exchange import gather_to, owner_bucket, owner_mix_host, shard_commit
 from .hashset import (
     HashSet, compact_valid, compact_valid_indices, insert_batch_claim,
-    prededup, unique_buffer_size,
+    prededup, prededup_prefix, unique_buffer_size,
 )
 from .wave_common import (
     NO_ID, default_waves_per_call, make_finish_when_device, prop_kinds,
@@ -660,8 +661,9 @@ class ShardedGpuChecker(Checker):
             ex.u_hi, ex.u_lo, ex.u_valid = ex.v_hi, ex.v_lo, ex.v_act
             ex.olane = ex.v_orig
         else:
-            ex.u_hi, ex.u_lo, origin, ex.u_valid, _ = prededup(
-                ex.v_hi, ex.v_lo, ex.v_act, dedup_factor=1
+            # The buffer's active lanes are compact_valid's prefix.
+            ex.u_hi, ex.u_lo, origin, ex.u_valid, _ = prededup_prefix(
+                ex.v_hi, ex.v_lo, ex.n_valid, dedup_factor=1
             )
             origin = origin.long()
             ex.ridx, ex.olane = ex.ridx[origin], ex.v_orig[origin]
@@ -831,10 +833,12 @@ class ShardedGpuChecker(Checker):
             new = row[_R_NEW]
             dedup = 0
             if not (self._sortless and n == 1) and u:
-                dedup += sort_bytes(u) + 12 * u
+                # K12's prefix entry sorts the buffer's valid lanes.
+                dedup += sort_bytes(min(row[_R_VALID], u)) + 13 * u
             dedup += lanes + 8 * active + slot_bytes(slots) + 8 * new + 5 * lanes
             if not self._sortless:
-                dedup += sort_bytes(lanes) + 12 * lanes
+                # The owner's mask entry sorts every received lane.
+                dedup += sort_bytes(lanes) + 13 * lanes
             exchange = 0
             if n > 1:
                 exchange = (
@@ -988,6 +992,21 @@ class ShardedGpuChecker(Checker):
         return self._tracer.summary()
 
     # --- the density tuners' hooks (wave_loop.maybe_retune_*) ---------------
+
+    def _wl_retune(self, density, remaining: int) -> None:
+        """The untraced loop's density tuners, run where the JAX
+        ``FusedWaveLoop`` runs them (``wave_loop.py:743-752``): after each
+        committed device call (:meth:`_wl_call_waves`), with the call's
+        valid density and the remaining level."""
+        maybe_retune_sort(self, density)
+        maybe_retune_step(self, remaining or None)
+
+    def _wl_call_waves(self) -> int:
+        """The waves of the JAX device call the last wave ended
+        (:meth:`_end_call`), or 0 while that call goes on."""
+        if self._waves_in_call:
+            return 0
+        return self._waves_per_call - self._waves_left
 
     def _wl_full_sort_lanes(self) -> int:
         """The per-shard worst-case width the sort rung is clamped to."""

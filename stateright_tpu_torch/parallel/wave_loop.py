@@ -29,17 +29,19 @@ times each phase of its wave itself and hands back the wave's record
 fields of ``_wl_wave_extra``); the loop then accounts the wave's
 ``readback`` phase as host time instead of the gap between waves, runs no
 host spans, and skips the mid-run checkpoint cadence, as the JAX traced
-loop does.  The density tuners (``maybe_retune_sort``,
-``maybe_retune_step``) run where an engine asks for them (``_wl_retune``,
-the tiered-sharded engine; the traced sharded loop calls them itself), as
-the JAX loops run them after each committed quantum; the fused loop runs
-them after each committed quantum, as the JAX fused loop does.  Not
-ported: the knob cache.  The sharded engine's
-ladders are
-here: the exchange buckets' slack (``exchange_bucket_lanes``,
-``next_bucket_slack``, flag 32) and the step rung (``climb_step_rung``,
-flag 128); an engine names the flags it can grow in place through
-``_wl_retryable_flags()`` (default 1, 2 and 4).
+loop does.  An engine whose waves stand for the JAX device calls of
+several waves each (the sharded engine) says where a call ends
+(``_wl_call_waves``); the loop's vitals, the wave events' ``density`` and
+the density tuners then go by calls, as the JAX ``FusedWaveLoop``'s do.
+The density tuners (``maybe_retune_sort``, ``maybe_retune_step``) run
+where an engine asks for them (``_wl_retune``: the sharded and
+tiered-sharded engines; the traced sharded loop calls them itself) after
+each committed call; the fused loop runs them after each committed
+quantum, as the JAX fused loop does.  Not ported: the knob cache.  The
+sharded engine's ladders are here: the exchange buckets' slack
+(``exchange_bucket_lanes``, ``next_bucket_slack``, flag 32) and the step
+rung (``climb_step_rung``, flag 128); an engine names the flags it can
+grow in place through ``_wl_retryable_flags()`` (default 1, 2 and 4).
 
 The engine adapter (the checker) provides:
 
@@ -59,8 +61,11 @@ The engine adapter (the checker) provides:
 - ``_wl_after_commit()`` (optional) -- called after every committed wave,
   before the checkpoint cadence, so the very next checkpoint holds what it
   changed;
+- ``_wl_call_waves() -> int`` (optional) -- after a wave, the waves of
+  the device call it ended, or 0 when the call goes on (default: every
+  wave is a call of one wave); the vitals record one quantum a call;
 - ``_wl_retune(density, remaining)`` (optional) -- called after the
-  after-commit rung of every committed wave with the wave's measured
+  after-commit rung of every committed call with the call's measured
   valid density and its remaining level: the density tuners;
 - ``_wl_occupancy() -> float``, ``_wl_wave_extra() -> dict`` (journal
   fields of a ``wave`` event), ``_wl_write_checkpoint() -> dict`` (extra
@@ -389,7 +394,8 @@ class LoopVitals:
 
     - ``wave_latency_sec`` histogram — per-wave wall latency (a fused
       quantum records its mean latency with weight ``waves_per_call``;
-      the per-wave loop records each wave);
+      the per-wave loop records each call the same way, one wave unless
+      the engine groups its waves into calls);
     - ``waves_per_grow`` histogram — committed waves between
       overflow-triggered recoveries (how long a geometry survived
       before overflowing);
@@ -582,6 +588,7 @@ class WaveLoop:
         journal_geometry(eng)
         after_commit = getattr(eng, "_wl_after_commit", None)
         retune = getattr(eng, "_wl_retune", None)
+        call_waves = getattr(eng, "_wl_call_waves", lambda: 1)
         retryable = getattr(eng, "_wl_retryable_flags", lambda: RETRYABLE_FLAGS)()
         waves = 0
         eng._wl_publish()
@@ -594,6 +601,7 @@ class WaveLoop:
         def span(name):
             return nullcontext() if spans is None else spans.span(name)
 
+        in_call_sec = 0.0  # the waves of the call so far
         while eng._wl_can_wave():
             t_call = time.monotonic()
             if spans is not None:
@@ -618,11 +626,16 @@ class WaveLoop:
             if not flags:
                 eng._wl_publish()
             occupancy = eng._wl_occupancy()
-            vitals.record_quantum(
-                call_sec, 1, eng._unique_count, committed=not flags,
-                states=eng._state_count, cand_lanes=eng._wl_cand_lanes(),
-                occupancy=occupancy,
-            )
+            ended = call_waves()
+            in_call_sec += call_sec
+            if ended:
+                vitals.record_quantum(
+                    in_call_sec, ended, eng._unique_count,
+                    committed=not flags, states=eng._state_count,
+                    cand_lanes=eng._wl_cand_lanes(), occupancy=occupancy,
+                )
+                in_call_sec = 0.0
+            density = vitals.last_density if ended else None
             if phases is not None:
                 vitals.record_host(phases.get("readback", 0.0))
             eng._metrics.update(waves=waves,
@@ -640,8 +653,8 @@ class WaveLoop:
                         mono=round(t_call, 6),
                         occupancy=round(occupancy, 6),
                         **(
-                            {"density": round(vitals.last_density, 6)}
-                            if vitals.last_density is not None else {}
+                            {"density": round(density, 6)}
+                            if density is not None else {}
                         ),
                         **eng._wl_wave_extra(),
                     )
@@ -651,9 +664,9 @@ class WaveLoop:
                 if after_commit is not None:
                     with span("spill"):
                         after_commit()
-                if retune is not None:
+                if retune is not None and ended:
                     with span("retune"):
-                        retune(vitals.last_density, eng._wl_remaining())
+                        retune(density, eng._wl_remaining())
                 if (
                     not traced and eng._checkpoint_path is not None
                     and cadence.due(1)

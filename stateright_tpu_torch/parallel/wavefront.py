@@ -222,9 +222,10 @@ def wave_bytes(*, count: int, a: int, w: int, fpw: int, n_props: int,
     - ``dedup``: the active bytes (``u``), the ``n_valid`` active lanes'
       keys and the ``probe_slots`` slots in (8 bytes each), the
       ``n_inserted`` new keys and K3's ``u``-lane compaction of the new
-      mask out; the sorted path adds K12's 8 radix passes
-      (``sort_bytes(u)``; its buffers outgrow L2) and the representatives'
-      keys in and origins out (``12u``);
+      mask out; the sorted path adds K12's passes over the ``n_valid``
+      lanes it sorts (``sort_bytes``; the prefix entry sorts no more),
+      its ``u`` representative flags, and the representatives' keys in
+      and origins out (``12u``);
     - ``append``: K25, each new state's index words (2, 3 on the sorted
       path) and its parent's eventually-bits in, its row in and out, its
       parent and ebits out.
@@ -239,9 +240,10 @@ def wave_bytes(*, count: int, a: int, w: int, fpw: int, n_props: int,
     symmetry (``4 fpw u + 8u``) on a full chunk.  The JAX ``dedup`` term
     charges every buffer lane every lockstep round (``probe_bytes``) and
     the sorted path a bitonic network of ``k(k+1)/2`` passes over three
-    planes; K4 walks only the active lanes' chains and K12 makes 8 radix
-    passes, so the port charges the slots read and
-    :func:`~stateright_tpu_torch.obs.roofline.sort_bytes`.  The JAX
+    planes of the whole buffer; K4 walks only the active lanes' chains
+    and K12 makes 8 radix passes over the active prefix, so the port
+    charges the slots read and
+    :func:`~stateright_tpu_torch.obs.roofline.sort_bytes` of ``n_valid``.  The JAX
     ``append`` term holds the new-mask compaction, which the port runs in
     ``dedup`` (its readback needs the count)."""
     b = count * a
@@ -260,7 +262,7 @@ def wave_bytes(*, count: int, a: int, w: int, fpw: int, n_props: int,
         + 4 * u
     )
     if not sortless:
-        dedup += sort_bytes(u) + 12 * u
+        dedup += sort_bytes(min(n_valid, u)) + 13 * u
     index_words = 2 if sortless else 3
     append = n_new * (4 * index_words + 8 * w + 12)
     return {"step": step, "canon": canon, "dedup": dedup, "append": append}
@@ -964,8 +966,9 @@ class GpuChecker(Checker):
             )
             u_origin = dd_flag = None
         else:
+            # The buffer's active lanes are compact_valid's prefix.
             is_new, u_origin, _u_act, probe_ok, dd_flag = insert_batch_compact(
-                c.table, hi, lo, v_act, dedup_factor=1, epoch=epoch
+                c.table, hi, lo, n_valid, dedup_factor=1, epoch=epoch
             )
         sel, n_new = compact(is_new, is_new.shape[0])
         wave_ctl(
@@ -1241,7 +1244,7 @@ class GpuChecker(Checker):
             # order (JAX wave_body at dedup_factor=1).
             (wave.is_new, wave.u_origin, _u_act, wave.probe_ok,
              wave.dd_overflow, *probe) = insert_batch_compact(
-                c.table, wave.hi, wave.lo, wave.v_act, dedup_factor=1,
+                c.table, wave.hi, wave.lo, wave.n_valid, dedup_factor=1,
                 with_rounds=rounds,
             )
         wave.probe = probe[0] if probe else None

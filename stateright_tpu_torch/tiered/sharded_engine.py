@@ -51,8 +51,7 @@ from ..parallel.sharded import (
     ShardedGpuChecker, _Shard, resolve_mesh,
 )
 from ..parallel.wave_loop import (
-    WaveLoop, finalize_run, fingerprints_of_rows, log_grow, maybe_retune_sort,
-    maybe_retune_step,
+    WaveLoop, finalize_run, fingerprints_of_rows, log_grow,
 )
 from .cold_join import cold_probe, cold_query, cold_windows, load_chunk
 from .cold_store import ColdStore
@@ -636,13 +635,13 @@ class TieredShardedGpuChecker(ShardedGpuChecker):
             )
         return f"tiered-sharded engine overflow flags={flags}"
 
-    def _wl_retune(self, density, remaining: int) -> None:
-        """The density tuners after a committed wave, as the JAX engine's
-        loop runs them."""
-        maybe_retune_sort(self, density)
-        maybe_retune_step(self, remaining or None)
-
     # --- loop surface -----------------------------------------------------------
+
+    def _wl_call_waves(self) -> int:
+        """Every wave is a device call of its own (the JAX engine runs at
+        ``waves_per_call=1``), so the density tuners run after each
+        committed wave."""
+        return 1
 
     def _wl_occupancy(self) -> float:
         """The fullest shard's budgeted table: the binding constraint."""

@@ -82,6 +82,30 @@ def test_prededup_matches_jax(b, pool, dd):
     assert np.uint64(0xFFFFFFFFFFFFFFFF) not in keys
 
 
+@pytest.mark.parametrize("count,dd", [
+    (0, 1), (1, 1), (5000, 1), (2048 + 777, 1), (2048 + 777, 4), (6000, 1),
+])
+def test_prededup_prefix_matches_jax(count, dd):
+    """K12's prefix entry (its twin here) sorts the first ``count`` lanes
+    (clamped to the batch): JAX ``prededup`` over the mask of that
+    prefix, bit for bit -- no lane, one lane, the whole batch, a count
+    ending inside K12's 2,048-lane tile, one past the batch; keys with hi
+    >= 2**31 and an active all-ones key inside the prefix."""
+    b = 5000
+    (hi, lo), _ = _batch(count + 17, b, 1500)
+    active = np.arange(b) < count
+    assert active[: min(count, b)].all() and not active[count:].any()
+    want = jhs.prededup(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(active), dd)
+    got = hs.prededup_prefix(_t(hi), _t(lo), torch.tensor(count), dd)
+    for g, w in zip(got[:3], want[:3]):
+        assert np.array_equal(to_numpy_u32(g), np.asarray(w))
+    assert np.array_equal(got[3].numpy(), np.asarray(want[3]))
+    assert bool(got[4]) == bool(want[4])
+    if count > b // 3:  # the all-ones lane is active and represents nothing
+        assert hi[b // 3] == lo[b // 3] == 0xFFFFFFFF
+        assert b // 3 not in got[2][: int(got[3].sum())].tolist()
+
+
 def test_prededup_no_active_lane_and_all_duplicates():
     (hi, lo), _ = _batch(5, 513, 40)
     _same_prededup(hi, lo, np.zeros(513, bool), 1)

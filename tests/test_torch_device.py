@@ -42,8 +42,9 @@ from stateright_tpu_torch.models.twophase_compiled import (
 from stateright_tpu_torch.ops.device_fp import device_fp64, device_fp64_plain
 from stateright_tpu_torch.ops.u32 import from_numpy_u32
 from stateright_tpu_torch.parallel.hashset import (
-    HashSet, insert_batch_claim, insert_batch_claim_plain, keys_equal,
-    prededup, prededup_plain,
+    HashSet, _sorted_runs_plain, _sorted_runs_prefix, insert_batch_claim,
+    insert_batch_claim_plain, keys_equal, prededup, prededup_plain,
+    prededup_prefix,
 )
 from stateright_tpu_torch.parallel import canon
 from stateright_tpu_torch.parallel.wave_common import (
@@ -862,6 +863,32 @@ def test_cuda_prededup_matches_twin():
                 assert torch.equal(g, w)
 
 
+@pytest.mark.cuda
+def test_cuda_prededup_prefix_matches_twin():
+    """K12's prefix entry against the twin over the mask of the first
+    ``count`` lanes on the card, at counts 0, 1, a third, one ending
+    inside a tile, all and past all: the sort on the prefix (keys and
+    lanes past it are left unwritten), ``rep`` on every lane, and the
+    wrapper at dedup_factor 1 and 4 and a 256-lane rung."""
+    dev = _card()
+    for hi, lo, _active in prededup_batches(np.random.default_rng(43), dev):
+        n = hi.shape[0]
+        for m in sorted({0, 1, n // 3, min(n, 2048 + 777), n, n + 5}):
+            count = torch.tensor(m, device=dev)
+            mask = torch.arange(n, device=dev) < m
+            keys, lanes, rep = _sorted_runs_prefix(hi, lo, count)
+            want_keys, want_lanes, want_rep = _sorted_runs_plain(hi, lo, mask)
+            k = min(m, n)
+            assert torch.equal(keys[:k], want_keys[:k])
+            assert torch.equal(lanes[:k], want_lanes[:k])
+            assert torch.equal(rep, want_rep)
+            for dd, rung in ((1, None), (4, None), (1, 256)):
+                got = prededup_prefix(hi, lo, count, dd, rung)
+                want = prededup_plain(hi, lo, mask, dd, rung)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
+
+
 def ping_pong_rows(rng, n, max_nat):
     """Random ping-pong rows: counters in range and past it, random
     envelope sets and markers, and random words."""
@@ -1245,6 +1272,29 @@ def test_cuda_first_hits_matches_twin():
         conds[0, 1] = True
         assert int(first_hits(conds, r, always, sometimes, 7)[1]) == 7
         assert int(first_hits(conds, 0, always, sometimes, 0)[1]) == NO_SLOT
+
+
+@pytest.mark.cuda
+def test_cuda_first_hits_unaligned_conds():
+    """K22 reads its rows 16 bytes a load after a byte-wise head: conds
+    whose first byte lies 1 to 15 bytes past a 16-byte boundary, at
+    chunk lengths shorter and longer than a load, equal to the twin."""
+    from stateright_tpu_torch.incr.recheck import first_hits, first_hits_plain
+
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    r, p = 4099, 5
+    for off in (1, 3, 8, 15):
+        raw = torch.zeros((r * p + off,), dtype=torch.bool, device=dev)
+        raw[off:] = torch.rand((r * p,), generator=gen, device=dev) < 0.01
+        conds = raw[off:].view(r, p)
+        assert conds.data_ptr() % 16 == off
+        for n in (1, 3, 17, r):
+            for always, sometimes in ((0b00101, 0b11010), (0, 0b11111)):
+                got = first_hits(conds, n, always, sometimes, 11)
+                assert torch.equal(got, first_hits_plain(conds, n, always,
+                                                         sometimes, 11))
 
 
 @pytest.mark.cuda

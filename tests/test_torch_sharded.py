@@ -268,6 +268,100 @@ def test_per_shard_state_matches_jax(n, jax_rm3, tmp_path):
         assert _path_fps(model, ck.discoveries()[name]) == _path_fps(model, path)
 
 
+# The sorted path, where the JAX untraced loop's tuners downshift after
+# their eighth committed call: 2pc rm=3 at one wave a call (the sort
+# rung), and GridWalk at four waves a call, whose levels are narrow and
+# many (the sort rung, then the step rung), so a retune after every wave,
+# or a density over the wrong wave count, moves or changes its
+# ``geometry`` events.
+RETUNED = {
+    "rm3-w1": (lambda pkg: pkg[0](rm_count=3),
+               dict(capacity=1 << 14, chunk_size=1 << 8, waves_per_call=1,
+                    sortless=False), 288),
+    "grid-w4": (lambda pkg: pkg[1](bound=40),
+                dict(capacity=1 << 13, chunk_size=1 << 11, waves_per_call=4,
+                     sortless=False), 41 * 41),
+}
+
+
+def _geometry(events):
+    """The ``geometry`` events, each with the unique and state counts of
+    the last ``wave`` event before it: where in the run the rung moved
+    (a JAX event a call, the port's a wave, so a call's last wave)."""
+    out, last = [], None
+    for e in events:
+        if e["event"] == "wave":
+            last = (e["unique"], e["states"])
+        elif e["event"] == "geometry":
+            out.append(({k: v for k, v in e.items() if k not in ("t", "engine")},
+                        last))
+    return out
+
+
+def _by_key(snap, n):
+    """Every shard's state with each slot named by the key it holds: on
+    the sorted path a key may take another slot than in the JAX table
+    (``parallel/hashset.py``), so the queue (the order states were
+    found), each queued state's row, parent and ebits, and the stats rows
+    (discoveries as keys) are compared by key."""
+    cap = snap["key_hi"].shape[0] // n
+    bits = cap.bit_length() - 1
+    qlen = snap["queue"].shape[0] // n
+    key = (snap["key_hi"].astype(np.uint64) << np.uint64(32)) | snap["key_lo"]
+
+    def name(gid):
+        gid = int(gid)
+        if gid == 0xFFFFFFFF:
+            return None
+        return gid >> bits, int(key[(gid >> bits) * cap + (gid & (cap - 1))])
+
+    stats = snap["stats"]
+    shards = []
+    for s in range(n):
+        tail = int(stats[s, 2])
+        states = [
+            (int(key[s * cap + q]), snap["store"][s * cap + q].tolist(),
+             name(snap["parent"][s * cap + q]), int(snap["ebits"][s * cap + q]))
+            for q in snap["queue"][s * qlen: s * qlen + tail].tolist()
+        ]
+        shards.append((states, stats[s, :12].tolist(),
+                       [name(g) for g in stats[s, 12:]]))
+    return shards
+
+
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("case", sorted(RETUNED))
+def test_untraced_tuners_retune_at_jax_call_ends(case, n, tmp_path):
+    """The untraced loop's density tuners run where the JAX
+    ``FusedWaveLoop`` runs them, after each committed call, with the
+    call's density: on the sorted path, where JAX's journal shows a sort
+    rung downshift (asserted first), the port gives the same ``geometry``
+    events at the same points of the run, ``tuned_kwargs()`` (with the
+    tuned ``sort_lanes``) and every shard's state, key by key, at 1/2/4/8
+    shards."""
+    from stateright_tpu.models.fixtures import GridWalk as JaxGridWalk
+    from stateright_tpu_torch.models.fixtures import GridWalk
+
+    model, kw, unique = RETUNED[case]
+    jpath = str(tmp_path / "j.jsonl")
+    jck = model((JaxTwoPhaseSys, JaxGridWalk)).checker().spawn_tpu_sharded(
+        mesh=_mesh(n), journal=jpath, **kw).join()
+    want = _geometry(jax_read_journal(jpath))
+    assert any(g["sort_lanes"] < want[0][0]["sort_lanes"] for g, _ in want[1:])
+    ppath = str(tmp_path / "p.jsonl")
+    ck = _port(model((TwoPhaseSys, GridWalk)).checker(), n, journal=ppath, **kw)
+    assert _geometry(read_journal(ppath)) == want
+    assert ck.tuned_kwargs() == jck.tuned_kwargs()
+    assert "sort_lanes" in ck.tuned_kwargs()
+    snap = _snapshot(ck, tmp_path / "p.npz")
+    jsnap = _snapshot(jck, tmp_path / "j.npz")
+    assert sorted(snap) == sorted(jsnap)
+    for k in jsnap:
+        assert snap[k].shape == jsnap[k].shape, k
+    assert _by_key(snap, n) == _by_key(jsnap, n)
+    assert ck.unique_state_count() == jck.unique_state_count() == unique
+
+
 def test_trap_counter_four_shards():
     """The eventually counterexample across shards
     (``test_tpu_sharded.py:39``): ``reaches limit`` ends in the trap."""

@@ -170,7 +170,7 @@ def test_roofline_peaks_and_models(monkeypatch):
         assert roofline.copy_bytes(lanes, 5) == jroofline.copy_bytes(lanes, 5)
     assert roofline.hbm_util_frac(1e9, 0.5, 2e9) == jroofline.hbm_util_frac(1e9, 0.5, 2e9)
     assert roofline.hbm_util_frac(1e9, 0.0, 2e9) == 0.0
-    assert roofline.sort_bytes(1000) == 8 * 2 * 12 * 1000
+    assert roofline.sort_bytes(1000) == (8 + 8 * 2 * 12) * 1000
     assert roofline.slot_bytes(10) == 80
 
 
