@@ -301,8 +301,15 @@ Phases, in order; any failure exits non-zero:
     the owners' insert through its mask entry, the single card's
     fingerprints, and K12's mask entry against its twin on the widest
     owner batch;
-71. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
-    launches, times and bound all from that path's run and shapes -- the
+71. K26 (``owner_bucket``) and K20's probe against their twins on fuzzed
+    inputs (:func:`phase_bucket_fuzz`, :func:`phase_cold_probe_fuzz`):
+    bit-equal at 1 to 1,024 owners and 0 to 2**20 - 3 lanes, rows of 1 to
+    80 words, every lane to one owner, buckets full and one over; chunks of
+    1 to 2**20 keys, keys at and above 2**63, queries at a chunk's ends,
+    all-false and all-true masks, with and without ``origin``;
+72. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
+    launches, times and bound all from that path's run and shapes (K20's
+    probe rows also the time turning through the wave's chunks) -- the
     ``nvidia-smi`` line, and last the ``{"ok": true, "device": {...}}``
     line.
 
@@ -328,6 +335,7 @@ is visible or the port's package is not beside it.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -973,7 +981,8 @@ def kernel_row(rows, path):
     and its INT32 operations over :func:`int32_rate`."""
     ops_per_sec = int32_rate()
 
-    def row(name, err, ms, plain_ms, nbytes, library_ms=None, ops=0):
+    def row(name, err, ms, plain_ms, nbytes, library_ms=None, ops=0,
+            rotating_ms=None):
         bytes_ms = nbytes / HBM_BYTES_PER_SEC * 1e3
         ops_ms = ops / ops_per_sec * 1e3
         r = dict(
@@ -983,12 +992,16 @@ def kernel_row(rows, path):
             bound_by="operations" if ops_ms > bytes_ms else "bytes",
             library_ms=library_ms,
         )
+        if rotating_ms is not None:
+            r["rotating_ms"] = rotating_ms
         if path is not None:
             rows[name, path] = r
         log(f"  {name} [{path or 'checked'}]: max_abs_err={err} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}: bytes={nbytes} -> {bytes_ms:.4f} ms, "
-            f"int32 ops={ops} -> {ops_ms:.4f} ms) library_ms={library_ms}")
+            f"int32 ops={ops} -> {ops_ms:.4f} ms) library_ms={library_ms}"
+            + ("" if rotating_ms is None else
+               f" rotating_ms={rotating_ms:.4f} (a new chunk each call)"))
         if err:
             raise AssertionError(f"{name} disagrees with its plain twin")
 
@@ -2562,6 +2575,146 @@ def phase_prededup_fuzz(torch):
             f"twin at three geometries; the prefix entry at counts {counts}")
 
 
+def phase_bucket_fuzz(torch):
+    """K26 against its twin, bit-equal (send buffer, counts, overflow), on
+    fuzzed representatives: 1 to 1,024 owners; 0, 1, a tile less and more
+    one, the tile-size switches, 32,768, 106,496 and 2**20 - 3 lanes; rows
+    of 1, 7, 74 and 80 words, strided views of wider rows reached through
+    a row index; buckets with room to spare, exactly full (the largest
+    bucket's size) and one short of it (the overflow bit, a lane dropped);
+    and every lane to one owner."""
+    import numpy as np
+
+    from stateright_tpu_torch.ops.u32 import from_numpy_u32
+    from stateright_tpu_torch.parallel.exchange import (
+        owner_bucket, owner_bucket_plain, owner_mix_host_np,
+    )
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 26)
+
+    def u32(x):
+        return from_numpy_u32(np.asarray(x, np.uint32), dev)
+
+    def keys(u, n, one_owner):
+        hi = rng.integers(0, 2**32, size=u, dtype=np.uint32)
+        lo = rng.integers(0, 2**32, size=u, dtype=np.uint32)
+        if one_owner and u:
+            # Draw until u keys land on owner 0.
+            hs, ls = [], []
+            while sum(h.shape[0] for h in hs) < u:
+                h = rng.integers(0, 2**32, size=4 * u * n, dtype=np.uint32)
+                l = rng.integers(0, 2**32, size=h.shape[0], dtype=np.uint32)
+                at = owner_mix_host_np(h, l) % n == 0
+                hs.append(h[at])
+                ls.append(l[at])
+            hi, lo = np.concatenate(hs)[:u], np.concatenate(ls)[:u]
+        return hi, lo
+
+    cases = []
+    sizes = (0, 1, 255, 257, 511, 67_584, 67_585, 135_168, 135_169, 32_768,
+             106_496, (1 << 20) - 3)
+    widths = (1, 7, 74, 80)
+    for i, n in enumerate((1, 2, 3, 4, 8, 64, 1024)):
+        for j, u in enumerate(sizes):
+            if n == 1024 and u > 106_496:
+                continue  # a 418 MB buffer: 2**20 lanes run at n <= 64
+            cases.append((n, u, widths[(i + j) % 4], (i + j) % 3, False))
+    cases += [(8, 32_768, 74, 0, True), (4, 106_496, 7, 1, True),
+              (2, 257, 1, 2, True), (1024, 4_096, 80, 1, True)]
+    t0 = time.monotonic()
+    for n, u, w, mode, one_owner in cases:
+        hi, lo = keys(u, n, one_owner)
+        valid = torch.from_numpy(rng.random(u) < (1.0, 0.7, 0.3)[mode]).to(dev)
+        r = u + 3
+        wide = u32(rng.integers(0, 2**32, size=(r, w + 5), dtype=np.uint32))
+        rows = wide[:, :w]  # a strided view: rows lie w + 5 words apart
+        a = 3
+        states = max(1, (u + a - 1) // a)
+        args = [u32(hi), u32(lo), valid, rows,
+                u32(rng.integers(0, r, size=u)),
+                u32(rng.integers(0, states * a, size=u)), a,
+                u32(rng.integers(0, 2**32, size=states, dtype=np.uint32)),
+                u32(rng.integers(0, 2**32, size=states, dtype=np.uint32)), n]
+        # Room to spare, then exactly the largest bucket, then one short.
+        counts = owner_bucket_plain(*args, 1)[1]
+        top = int(counts[:n].max()) if n else 0
+        bkts = sorted({max(1, (u + n - 1) // n + u // (4 * n) + 1), max(1, top),
+                       max(1, top - 1)})
+        for bkt in bkts:
+            got = owner_bucket(*args, bkt)
+            want = owner_bucket_plain(*args, bkt)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, p.to(g.dtype)) for g, p in zip(got, want)):
+                raise AssertionError(
+                    f"owner_bucket disagrees with its twin at n={n}, u={u}, "
+                    f"w={w}, bkt={bkt}, one_owner={one_owner}")
+        del args, wide, rows, valid, got, want
+    log(f"  owner_bucket: {len(cases)} fuzzed batches at up to three bucket "
+        f"sizes each, bit-equal to the twin ({time.monotonic() - t0:.1f}s)")
+
+
+def phase_cold_probe_fuzz(torch):
+    """K20's probe against its twin, bit-equal (the mask it leaves), on
+    fuzzed chunks of 1, 2, 8, 4,096, 8,192, 16,384, 2**15 and 2**20 keys,
+    part of them above 2**63 and the rest padded with the all-ones key;
+    queries drawn from the chunk, at its first and last key, the pad key
+    and fresh keys; all-false, all-true and partial masks, one of them a
+    view that starts off a 16-byte boundary; with and without ``origin``."""
+    import numpy as np
+
+    from stateright_tpu_torch.ops.u32 import from_numpy_u32
+    from stateright_tpu_torch.tiered.cold_join import cold_probe, cold_probe_plain
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 20)
+    ones = np.uint64(0xFFFFFFFFFFFFFFFF)
+    t0 = time.monotonic()
+    cases = 0
+    for c in (1, 2, 8, 4096, 8192, 16384, 1 << 15, 1 << 20):
+        for fill in sorted({c, max(1, c // 3), max(0, c - 1)}):
+            real = rng.integers(0, 1 << 63, size=fill, dtype=np.uint64)
+            real[: fill // 2] |= np.uint64(1 << 63)
+            real = np.sort(real)
+            chunk = np.full(c, ones, np.uint64)
+            chunk[:fill] = real
+            chunk_t = torch.from_numpy(chunk.view(np.int64)).to(dev)
+            for n, p, use_origin, skew in ((1, 1.0, False, 0), (37, 0.5, True, 3),
+                                           (100_003, 0.2, False, 5),
+                                           ((1 << 21) + 5, 0.2, True, 0),
+                                           (50_000, 0.0, False, 0),
+                                           (50_000, 1.0, True, 7)):
+                m = n + 11
+                pool = [real, rng.integers(0, 2**64, size=max(1, m // 2),
+                                           dtype=np.uint64)]
+                q = np.concatenate(pool)[rng.integers(
+                    0, fill + max(1, m // 2), size=m)]
+                if fill:
+                    q[:2] = (real[0], real[-1])
+                q[2 % m] = ones
+                hi = from_numpy_u32((q >> np.uint64(32)).astype(np.uint32), dev)
+                lo = from_numpy_u32(q.astype(np.uint32), dev)
+                origin = (from_numpy_u32(rng.integers(0, m, size=n).astype(np.uint32),
+                                         dev) if use_origin else None)
+                if not use_origin:
+                    hi, lo = hi[:n].contiguous(), lo[:n].contiguous()
+                backing = torch.from_numpy(rng.random(n + skew) < p).to(dev)
+                mask = backing[skew:]  # skew bytes past a 16-byte boundary
+                before = backing[:skew].clone()
+                want = mask.clone()
+                cold_probe_plain(hi, lo, origin, want, chunk_t)
+                cold_probe(hi, lo, origin, mask, chunk_t)
+                torch.cuda.synchronize()
+                if not torch.equal(mask, want) or not torch.equal(backing[:skew],
+                                                                  before):
+                    raise AssertionError(
+                        f"cold_probe disagrees with its twin at C={c}, "
+                        f"fill={fill}, n={n}, origin={use_origin}, skew={skew}")
+                cases += 1
+    log(f"  cold_probe: {cases} fuzzed passes bit-equal to the twin "
+        f"({time.monotonic() - t0:.1f}s)")
+
+
 def bounded_paxos_model(c, max_round):
     from stateright_tpu_torch.actor import Network
     from stateright_tpu_torch.models.paxos import PaxosModelCfg
@@ -3399,6 +3552,13 @@ def phase_cold_kernels(torch, rows, path, cap):
     o = torch.arange(n, device="cuda") if origin is None else origin.long()
     flipped_q = fp64_of(hi[o], lo[o])[is_new0] ^ _SIGN
     flipped_c = chunks[0] ^ _SIGN
+    # The tiered loop probes each chunk once, right after loading it: time
+    # the probe turning through the wave's chunks (past the 50 MB L2 on
+    # tiered-raft's 16 of 8 MB) beside the same chunk again and again.
+    turns = itertools.cycle(chunks)
+    rotating_ms = time_ms(
+        torch, lambda: cold_probe(hi, lo, origin, first, next(turns)),
+        max(10, len(chunks)), setup=fresh)
     row("cold_probe", err,
         time_ms(torch, lambda: cold_probe(hi, lo, origin, first, chunks[0]), 10,
                 setup=fresh),
@@ -3406,7 +3566,8 @@ def phase_cold_kernels(torch, rows, path, cap):
                 2, setup=fresh),
         n + n_new * key_bytes + first_hits + 8 * c,
         library_ms=time_ms(torch, lambda: torch.searchsorted(flipped_c, flipped_q), 10),
-        ops=n_new * COLD_STEP_OPS * (c.bit_length() - 1))
+        ops=n_new * COLD_STEP_OPS * (c.bit_length() - 1),
+        rotating_ms=rotating_ms)
     log(f"  {path} cold wave: {n} buffer lanes, {n_new} hot-new, "
         f"{wave['n_fresh']} fresh, {first_hits} hits in the first pass, "
         f"{len(chunks)} passes of {c} keys over "
@@ -5685,6 +5846,12 @@ def main() -> int:
     launches["sh-paxos2s"] = phase_sh_sorted(torch, gpu, rows)
     torch.cuda.empty_cache()
 
+    log("phase 71: K26 and K20's probe against their twins on fuzzed inputs")
+    phase_bucket_fuzz(torch)
+    torch.cuda.empty_cache()
+    phase_cold_probe_fuzz(torch)
+    torch.cuda.empty_cache()
+
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")
     kernels = []
     for path, names in PATH_KERNELS.items():
@@ -5698,6 +5865,7 @@ def main() -> int:
                 max_abs_err=r["max_abs_err"], bit_equal=r["bit_equal"],
                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
+                **{k: r[k] for k in ("rotating_ms",) if k in r},
             ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)

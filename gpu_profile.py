@@ -3,7 +3,8 @@
 
     python3 gpu_profile.py [--model rm10|paxos3|paxos6|sc4|abd2|abd3o|raft|
                                     pp13|pp11s|paxos3b|raft10s|sym12|
-                                    lww2d7|sh-rm10|sim-rm10|sim-raft|ens-abd|
+                                    lww2d7|sh-rm10|sh-paxos3|sim-rm10|
+                                    sim-raft|ens-abd|
                                     tiered-paxos3|tiered-raft[,...]]
                            [--runs N] [--trace-dir DIR] [--tree DIR]
 
@@ -21,7 +22,9 @@ through the sorted fallback, phase 23), ``run_paxos3b`` (``paxos check
 depth 10 through the sorted fallback, phase 26), ``run_sym12`` (``2pc
 check-sym 12``, phase 27) or ``run_lww`` (the LWW register, 2 nodes to
 depth 7, phase 29) -- or ``sh-rm10`` (``2pc check 10`` on four shards of
-the card, ``spawn_gpu_sharded``, phase 53) -- or one of the device walk's:
+the card, ``spawn_gpu_sharded``, phase 53) or ``sh-paxos3`` (``paxos check
+3`` on four shards, phase 52, where K26's card time is least hidden) --
+or one of the device walk's:
 ``sim-rm10`` (2pc rm=10
 through ``spawn_gpu_simulation``, one round of 2**18 walkers at T = 64),
 ``sim-raft`` (raft at depth 12, 2**16 walkers a round to 10M states,
@@ -33,8 +36,8 @@ under a 2 MB budget, ``run_tiered_paxos3``, phase 34) or ``tiered-raft``
 host's cold filter (windowing, chunk copies, K20's launches and the fresh
 count's readback: the ``cold_probe_sec_total`` metric), the copies by
 direction (host to card, card to host, on the card) and K20's kernels
-are shown apart; for ``sh-rm10`` the profiled run's waves, retries,
-grows and host seconds by span -- ``--runs`` times
+are shown apart; for ``sh-rm10`` and ``sh-paxos3`` the profiled run's
+waves, retries, grows and host seconds by span -- ``--runs`` times
 untraced (wall seconds of each, then median and spread), and once more
 under ``torch.profiler``: device time per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
@@ -85,6 +88,18 @@ def run_sh_rm10(torch):
         TwoPhaseSys(rm_count=chip_smoke.RM).checker,
         dict(mesh=chip_smoke.sharded_mesh(), **chip_smoke.SH_RM10),
         chip_smoke.GOLDEN_RM10)
+    return checker, elapsed
+
+
+def run_sh_paxos3(torch):
+    """``paxos check 3`` on four shards of the card (phase 52)."""
+    import chip_smoke
+
+    _launches, checker, elapsed = chip_smoke.run_sharded(
+        torch, chip_smoke.gpu_line(), "sh-paxos3",
+        chip_smoke.paxos_model(3).checker,
+        dict(mesh=chip_smoke.sharded_mesh(), **chip_smoke.SH_PAXOS3),
+        chip_smoke.GOLDEN_PAXOS3)
     return checker, elapsed
 
 
@@ -141,7 +156,7 @@ def main() -> int:
 
 MODELS = ("rm10", "paxos3", "paxos6", "sc4", "abd2", "abd3o", "raft", "pp13",
           "pp11s", "paxos3b", "raft10s", "sym12", "lww2d7", "sh-rm10",
-          "sim-rm10", "sim-raft",
+          "sh-paxos3", "sim-rm10", "sim-raft",
           "ens-abd", "tiered-paxos3", "tiered-raft")
 
 
@@ -165,6 +180,7 @@ def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
         "sym12": chip_smoke.run_sym12,
         "lww2d7": chip_smoke.run_lww,
         "sh-rm10": run_sh_rm10,
+        "sh-paxos3": run_sh_paxos3,
         "sim-rm10": run_sim_rm10_wide,
         "sim-raft": chip_smoke.run_sim_raft_wide,
         "ens-abd": lambda torch: chip_smoke.run_ens(torch, chip_smoke.ENS_WIDE),

@@ -20,13 +20,29 @@
 // elements, so capping the lower bound at chunk_len - 1 never hides a hit.
 //
 // Bound: the query is bytes (the new bytes and the new lanes' keys, read
-// once).  The probe reads the same, plus the chunk, whose log2(chunk_len)
-// dependent loads a lane mostly hit in L2 (a 256 KB chunk at the default
-// 2**15 keys, 8 MB at 2**20): it is latency-bound.
-// Design: one thread a lane in a grid-stride loop.  The query reduces
-// within a warp by shuffles, then across the block in shared memory, and
-// one thread a block does a 64-bit atomicMin and atomicMax.  The probe's
-// search is branchless: pos advances by half or not at every step.
+// once).  So is the probe on paper (the mask, the new lanes' keys, one
+// byte a hit, the chunk once); in practice it is dependent 32-byte sector
+// reads out of L2: the top levels of every lane's lower bound are shared
+// (L1 or shared memory serves them), but the bottom ten or so of a
+// 2**20-key chunk land each in its own sector.
+// Design (probe): one thread a lane in a grid-stride loop over at most
+// 1,056 blocks of 256 threads, which the card schedules as SMs free up, so
+// the work balances itself even where a wave's new lanes cluster.
+// Each block first copies the last key of each of S = 64 windows of the
+// chunk into shared memory (the index is paid once a block, and L1 already
+// holds the top levels every lane shares, so a small one is enough).  A
+// new lane whose key lies outside the chunk's first and last key stops
+// there; the others find their window in shared memory and finish with a
+// branchless lower bound inside it (C/S keys), capped at its last key,
+// then an equality test.  Designs
+// that read the mask 16 bytes a thread (a block-wide list of new lanes; a
+// list a warp; a two-phase kernel that compacts the lanes in range, then
+// searches them from a 32 KB index; several lanes a thread searched side
+// by side) were tried on the captured waves: each left too few threads
+// searching, or waited on its slowest block, and was slower than this one.
+// The query: one thread a lane in a grid-stride loop, reduced within a
+// warp by shuffles, then across the block in shared memory, and one thread
+// a block does a 64-bit atomicMin and atomicMax.
 #include "sr_common.cuh"
 
 namespace {
@@ -82,23 +98,37 @@ __global__ void query_kernel(const uint32_t* __restrict__ hi,
   }
 }
 
-__global__ void probe_kernel(const uint32_t* __restrict__ hi,
-                             const uint32_t* __restrict__ lo,
-                             const uint32_t* __restrict__ origin,
-                             uint8_t* __restrict__ is_new, int64_t n,
-                             const unsigned long long* __restrict__ chunk,
-                             int64_t chunk_len) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+constexpr int kIndexKeys = 64;  // 512 bytes of shared memory a block
+constexpr unsigned kProbeBlocks = 132 * 8;
+
+__global__ void __launch_bounds__(kThreads) probe_kernel(
+    const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
+    const uint32_t* __restrict__ origin, uint8_t* __restrict__ is_new,
+    int64_t n, const unsigned long long* __restrict__ chunk, int s,
+    int64_t step) {
+  // The last key of each of the chunk's s windows of `step` keys.
+  __shared__ unsigned long long idx[kIndexKeys];
+  for (int i = threadIdx.x; i < s; i += kThreads)
+    idx[i] = __ldg(chunk + static_cast<int64_t>(i) * step + step - 1);
+  __syncthreads();
+  // A key below the chunk's first or above its last is not in it.
+  const unsigned long long first_key = __ldg(chunk);
+  const unsigned long long last_key = idx[s - 1];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        j < n; j += stride) {
     if (!is_new[j]) continue;
     const unsigned long long q = lane_key(hi, lo, origin, j);
+    if (q < first_key || q > last_key) continue;
+    // The window: the first whose last key is not below q, found in shared
+    // memory; then the lower bound inside it, capped at its last key.
+    int g = 0;
+    for (int half = s >> 1; half > 0; half >>= 1) g += idx[g + half - 1] < q ? half : 0;
+    const unsigned long long* win = chunk + static_cast<int64_t>(g) * step;
     int64_t pos = 0;
-    for (int64_t half = chunk_len >> 1; half > 0; half >>= 1) {
-      const unsigned long long c = __ldg(chunk + pos + half - 1);
-      pos += c < q ? half : 0;
-    }
-    if (__ldg(chunk + pos) == q) is_new[j] = 0;
+    for (int64_t half = step >> 1; half > 0; half >>= 1)
+      pos += __ldg(win + pos + half - 1) < q ? half : 0;
+    if (__ldg(win + pos) == q) is_new[j] = 0;
   }
 }
 
@@ -128,8 +158,11 @@ extern "C" int sr_cold_probe(const uint32_t* hi, const uint32_t* lo,
                              int64_t n, const unsigned long long* chunk,
                              int64_t chunk_len, cudaStream_t stream) {
   if (n > 0) {
-    probe_kernel<<<sr::grid_for(n, kThreads), kThreads, 0, stream>>>(
-        hi, lo, origin, is_new, n, chunk, chunk_len);
+    const int64_t s = chunk_len < kIndexKeys ? chunk_len : kIndexKeys;
+    unsigned blocks = sr::grid_for(n, kThreads);
+    if (blocks > kProbeBlocks) blocks = kProbeBlocks;
+    probe_kernel<<<blocks, kThreads, 0, stream>>>(hi, lo, origin, is_new, n, chunk,
+                                                  static_cast<int>(s), chunk_len / s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -91,11 +91,14 @@ def owner_bucket(hi, lo, valid, rows, ridx, olane, a: int, gids, ebs,
         raise ValueError("need 1 <= n <= 1024, bkt >= 1 and a >= 1")
     if any(t.shape[0] != u for t in (lo, valid, ridx, olane)):
         raise ValueError("hi, lo, valid, ridx and olane differ in length")
+    if u >= 1 << 31:
+        raise ValueError("owner_bucket takes fewer than 2**31 lanes")
     send = torch.empty((n, bkt, w + 3), dtype=torch.int32, device=dev)
     counts = torch.empty((n + 1,), dtype=torch.int64, device=dev)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty((max(1, (u + 2047) // 2048) * (n + 1),),
-                          dtype=torch.int64, device=dev)
+    launch = cuda.stream(send)
+    scratch = _bucket_scratch(dev, launch,
+                              3 + max(1, (u + 255) // 256) * n + 2 * u)
     fn = cuda.function(
         "exchange", "sr_owner_bucket",
         [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.P, cuda.I64, cuda.I32, cuda.P,
@@ -108,13 +111,34 @@ def owner_bucket(hi, lo, valid, rows, ridx, olane, a: int, gids, ebs,
         rows.stride(0) if rows.shape[0] > 1 else w, w, cuda.ptr(ridx),
         cuda.ptr(olane), a, cuda.ptr(gids), cuda.ptr(ebs), n, bkt,
         cuda.ptr(send), cuda.ptr(counts), cuda.ptr(overflow), cuda.ptr(scratch),
-        cuda.stream(send),
+        launch,
     )
     cuda.check(code, "exchange", "owner_bucket")
     return send, counts, overflow
 
 
 owner_bucket.launches = 0
+
+# K26's ticket and control words, look-back words and representatives'
+# list, kept per card and stream (the wrapper's signature is the JAX
+# call's, so nothing else could hold them): the kernel never clears the
+# look-back words (each call's words carry its epoch) and its last block
+# out resets the control words, so a call allocates nothing beyond its
+# outputs.  Calls on one stream run in order; the scratch is zeroed again
+# before the 30-bit epoch could wrap.
+_EPOCH_CALLS = 1 << 29
+_SCRATCH: dict = {}
+
+
+def _bucket_scratch(dev: torch.device, launch, words: int) -> torch.Tensor:
+    key = (dev.index, launch.handle.value)
+    held = _SCRATCH.get(key)
+    if held is None or held[0].shape[0] < words or held[1] >= _EPOCH_CALLS:
+        size = words if held is None else max(words, held[0].shape[0])
+        held = [torch.zeros((size,), dtype=torch.int64, device=dev), 0]
+        _SCRATCH[key] = held
+    held[1] += 1
+    return held[0]
 
 
 def owner_bucket_plain(hi, lo, valid, rows, ridx, olane, a: int, gids, ebs,

@@ -1545,7 +1545,8 @@ def test_cuda_traced_run_matches_untraced(tmp_path):
 def test_cuda_owner_bucket_matches_twin():
     """K26 against its twin on seeded representatives: invalid lanes, row
     indices and parents through index maps, a strided row view, buckets
-    under and over ``bkt`` at 2, 4 and 8 shards, and an empty shard."""
+    under and over ``bkt`` at 2, 4 and 8 shards, and an empty shard; rows
+    of 74 words and 1,024 owners."""
     from stateright_tpu_torch.parallel.exchange import (
         owner_bucket, owner_bucket_plain,
     )
@@ -1553,7 +1554,9 @@ def test_cuda_owner_bucket_matches_twin():
     dev = _card()
     rng = np.random.default_rng(26)
     for n, u, bkt, w in ((2, 5_000, 2_432, 2), (4, 100_000, 13_312, 42),
-                         (4, 100_000, 128, 5), (8, 3, 8, 3), (4, 0, 128, 2)):
+                         (4, 100_000, 128, 5), (8, 3, 8, 3), (4, 0, 128, 2),
+                         (4, 32_768, 4_096, 74), (1024, 50_000, 64, 74),
+                         (1024, 300_000, 300, 7)):
         count = max(1, u // 3)
         rows = _t(rng.integers(0, 2**32, size=(u + 7, w + 3), dtype=np.uint32),
                   dev)[:, :w]
@@ -1568,6 +1571,49 @@ def test_cuda_owner_bucket_matches_twin():
         )
         for k, p in zip(owner_bucket(*args), owner_bucket_plain(*args)):
             assert torch.equal(k, p.to(k.dtype)), (n, u, bkt)
+
+
+@pytest.mark.cuda
+def test_cuda_cold_probe_matches_twin():
+    """K20's probe against its twin: chunks of 1, 2, 8, 2**15 and 2**20
+    keys, half of the real keys above 2**63, the rest the all-ones pad;
+    queries from the chunk, at its first and last key, the pad key and
+    fresh keys; with and without an origin map; an all-false, an all-true
+    and a partial mask, one a view off a 16-byte boundary."""
+    from stateright_tpu_torch.tiered.cold_join import cold_probe, cold_probe_plain
+
+    dev = _card()
+    rng = np.random.default_rng(20)
+    ones = np.uint64(0xFFFFFFFFFFFFFFFF)
+    for c, fill, n, p, use_origin, skew in (
+        (1, 1, 100, 1.0, False, 0), (2, 1, 1_000, 0.5, True, 3),
+        (8, 5, 7, 1.0, False, 1), (1 << 15, 20_000, 300_000, 0.2, False, 0),
+        (1 << 15, 1 << 15, 50_000, 0.0, True, 0),
+        (1 << 20, 700_000, 2_000_000, 0.2, True, 5),
+    ):
+        real = rng.integers(0, 1 << 63, size=fill, dtype=np.uint64)
+        real[: fill // 2] |= np.uint64(1 << 63)
+        real = np.sort(real)
+        chunk = np.full(c, ones, np.uint64)
+        chunk[:fill] = real
+        m = n + 5
+        q = np.concatenate([real, rng.integers(0, 2**64, size=m, dtype=np.uint64)])
+        q = q[rng.integers(0, q.shape[0], size=m)]
+        q[:3] = (real[0], real[-1], ones)
+        hi = _t((q >> np.uint64(32)).astype(np.uint32), dev)
+        lo = _t(q.astype(np.uint32), dev)
+        origin = _t(rng.integers(0, m, size=n).astype(np.uint32), dev) if use_origin else None
+        if not use_origin:
+            hi, lo = hi[:n].contiguous(), lo[:n].contiguous()
+        backing = torch.from_numpy(rng.random(n + skew) < p).to(dev)
+        mask = backing[skew:]
+        before = backing[:skew].clone()
+        want = mask.clone()
+        chunk_t = torch.from_numpy(chunk.view(np.int64)).to(dev)
+        cold_probe_plain(hi, lo, origin, want, chunk_t)
+        cold_probe(hi, lo, origin, mask, chunk_t)
+        assert torch.equal(mask, want), (c, n, use_origin)
+        assert torch.equal(backing[:skew], before)
 
 
 @pytest.mark.cuda

@@ -160,29 +160,47 @@ def _bucket_inputs(rng, n, per_dest, invalid, w):
     return hi[pick], lo[pick], valid, rows, gid, eb
 
 
+def _check_bucketing(rng, n, bkt, w, per_dest, invalid):
+    """The twin against JAX's bucketing on :func:`_bucket_inputs`: send
+    buffer, counts and overflow bit equal; returns the overflow bit."""
+    hi, lo, valid, rows, gid, eb = _bucket_inputs(rng, n, per_dest, invalid, w)
+    want = _jax_bucketing(n, bkt, w)(
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(valid),
+        jnp.asarray(rows), jnp.asarray(gid), jnp.asarray(eb),
+    )
+    lanes = torch.arange(hi.shape[0], dtype=torch.int32)
+    send, counts, overflow = owner_bucket_plain(
+        from_numpy_u32(hi, "cpu"), from_numpy_u32(lo, "cpu"),
+        torch.from_numpy(valid), from_numpy_u32(rows, "cpu"), lanes, lanes,
+        1, from_numpy_u32(gid, "cpu"), from_numpy_u32(eb, "cpu"), n, bkt,
+    )
+    assert np.array_equal(to_numpy_u32(send), np.asarray(want[0]))
+    assert np.array_equal(counts.numpy(), np.asarray(want[1]))
+    assert bool(overflow) == bool(want[2])
+    return bool(overflow)
+
+
 def test_owner_bucket_twin_matches_jax():
     """K26's twin against JAX's bucketing: seeded keys with invalid lanes
     and one destination past its bucket (flag 32); send buffer, counts and
     overflow bit equal."""
     rng = np.random.default_rng(26)
-    n, bkt, w = 4, 128, 3
     for per_dest, expect_overflow in (((200, 90, 60, 100), True),
                                       ((100, 128, 7, 0), False)):
-        hi, lo, valid, rows, gid, eb = _bucket_inputs(rng, n, per_dest, 300, w)
-        want = _jax_bucketing(n, bkt, w)(
-            jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(valid),
-            jnp.asarray(rows), jnp.asarray(gid), jnp.asarray(eb),
-        )
-        u_sz = hi.shape[0]
-        lanes = torch.arange(u_sz, dtype=torch.int32)
-        send, counts, overflow = owner_bucket_plain(
-            from_numpy_u32(hi, "cpu"), from_numpy_u32(lo, "cpu"),
-            torch.from_numpy(valid), from_numpy_u32(rows, "cpu"), lanes, lanes,
-            1, from_numpy_u32(gid, "cpu"), from_numpy_u32(eb, "cpu"), n, bkt,
-        )
-        assert np.array_equal(to_numpy_u32(send), np.asarray(want[0]))
-        assert np.array_equal(counts.numpy(), np.asarray(want[1]))
-        assert bool(overflow) == bool(want[2]) == expect_overflow
+        assert _check_bucketing(rng, 4, 128, 3, per_dest, 300) == expect_overflow
+
+
+@pytest.mark.parametrize("n, bkt, per_dest, invalid", [
+    (8, 64, (40, 0, 0, 0, 0, 0, 0, 0), 5),  # every lane to one owner
+    (4, 1, (3, 1, 0, 2), 4),                # one slot a bucket
+    (4, 16, (0, 0, 0, 0), 0),               # no lane at all
+], ids=["one-owner", "bkt1", "empty"])
+def test_owner_bucket_twin_matches_jax_extremes(n, bkt, per_dest, invalid):
+    """K26's twin against JAX's bucketing at the card fuzz's extremes: send
+    buffer, counts and overflow bit equal."""
+    rng = np.random.default_rng(126)
+    overflow = _check_bucketing(rng, n, bkt, 2, per_dest, invalid)
+    assert overflow == any(k > bkt for k in per_dest)
 
 
 def test_shard_commit_twin_matches_jax():
