@@ -39,7 +39,7 @@ direction (host to card, card to host, on the card) and K20's kernels
 are shown apart; for ``sh-rm10`` and ``sh-paxos3`` the profiled run's
 waves, retries, grows and host seconds by span -- ``--runs`` times
 untraced (wall seconds of each, then median and spread), and once more
-under ``torch.profiler``: device time per kernel name, the card's busy
+under ``torch.profiler``: device time and calls per kernel name, the card's busy
 share of the traced run's wall time, and, with ``--trace-dir``, a Chrome
 trace written there.  The traced run pays the
 profiler's overhead; the untraced runs are the measurement.  A search's
@@ -212,10 +212,11 @@ def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
     # Device-side events only (kernels, copies, fills): the CPU ops that
     # launched them report the same time again.  One stream, so the sum
     # is the busy time.
-    by_name = {}
+    by_name, calls_by_name = {}, {}
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
+            calls_by_name[evt.key] = calls_by_name.get(evt.key, 0) + evt.count
     busy_ms = sum(by_name.values())
     median = statistics.median(times)
     print(f"traced run: {traced_s:.4f} s wall, device busy {busy_ms:.1f} ms; "
@@ -223,7 +224,8 @@ def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
           f"{median:.4f} s; trace {trace}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     for name, ms in top:
-        print(f"  {ms:9.2f} ms  {name[:100]}")
+        print(f"  {ms:9.2f} ms  {calls_by_name[name]:8d} calls  "
+              f"{ms / calls_by_name[name]:.5f} ms each  {name[:100]}")
     tiered = {}
     if model.startswith("tiered-"):
         m = _checker.metrics()
@@ -285,6 +287,7 @@ def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
         "device_busy_ms": busy_ms,
         "device_busy_share_of_median": busy_ms / 1e3 / median,
         "device_ms_by_kernel": dict(top),
+        "device_calls_by_kernel": {name: calls_by_name[name] for name, _ in top},
         **({"tiered": tiered} if tiered else {}),
         **({"sharded": sharded} if sharded else {}),
     }
