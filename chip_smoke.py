@@ -301,12 +301,21 @@ Phases, in order; any failure exits non-zero:
     the owners' insert through its mask entry, the single card's
     fingerprints, and K12's mask entry against its twin on the widest
     owner batch;
-71. K26 (``owner_bucket``) and K20's probe against their twins on fuzzed
-    inputs (:func:`phase_bucket_fuzz`, :func:`phase_cold_probe_fuzz`):
-    bit-equal at 1 to 1,024 owners and 0 to 2**20 - 3 lanes, rows of 1 to
-    80 words, every lane to one owner, buckets full and one over; chunks of
-    1 to 2**20 keys, keys at and above 2**63, queries at a chunk's ends,
-    all-false and all-true masks, with and without ``origin``;
+71. K26 (``owner_bucket``), K20's probe, K4 (both entries) and K27
+    (``shard_commit``) against their twins on fuzzed inputs
+    (:func:`phase_bucket_fuzz`, :func:`phase_cold_probe_fuzz`,
+    :func:`phase_insert_fuzz`, :func:`phase_commit_fuzz`): bit-equal at 1
+    to 1,024 owners and 0 to 2**20 - 3 lanes, rows of 1 to 80 words, every
+    lane to one owner, buckets full and one over; chunks of 1 to 2**20
+    keys, keys at and above 2**63, queries at a chunk's ends, all-false and
+    all-true masks, with and without ``origin``; K4 at 1 to 2**20 lanes
+    around its one-block tile, one key in 1 to 1,000 lanes, keys present
+    before, a full table, a replayed CUDA graph of the device entry and
+    the epoch's wrap; K27 with no, every or only last-tile lanes new, a
+    queue that overflows, rows of 1 and 77 words, strided or contiguous
+    ``gid``/``eb``; each entry's operations on the card per call counted
+    as the nodes of a captured graph and logged (K4: one on its one-block
+    path, two above; K27: one);
 72. one ``{"kernels": [...]}`` line -- a row per kernel and path, its
     launches, times and bound all from that path's run and shapes (K20's
     probe rows also the time turning through the wave's chunks) -- the
@@ -1491,8 +1500,6 @@ def check_insert_dev(torch, row, table, hi, lo, active):
         HashSet, insert_batch_claim_dev, insert_batch_claim_plain, keys_equal,
     )
 
-    if table.meta is None:
-        table.meta = torch.zeros_like(table.keys)
     epoch = torch.tensor([7], dtype=torch.int32, device=hi.device)
     saved = table.keys.clone()
     k_new, k_ok = insert_batch_claim_dev(table, hi, lo, active, epoch)
@@ -2713,6 +2720,299 @@ def phase_cold_probe_fuzz(torch):
                 cases += 1
     log(f"  cold_probe: {cases} fuzzed passes bit-equal to the twin "
         f"({time.monotonic() - t0:.1f}s)")
+
+
+def launches_per_call(torch, fn) -> int:
+    """The operations one call of ``fn`` puts on the card (kernels, fills
+    and copies): the nodes of a CUDA graph that captures the call, counted
+    by ``libcuda``'s ``cuGraphGetNodes``.  A call on the capture stream
+    first makes what a wrapper keeps per stream (K26's and K27's scratch)
+    before the capture; the captured call never runs."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_size_t)]
+    nodes = ctypes.c_size_t(0)
+    code = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                                   ctypes.byref(nodes))
+    if code:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {code}")
+    return nodes.value
+
+
+# K4's one-block path takes buffers of at most this many lanes.
+INSERT_TILE = 4096
+
+
+def phase_insert_fuzz(torch):
+    """K4's host and device-epoch entries against the twin, bit-equal
+    (the new mask, ``probe_ok``, the key set; with ``with_slots`` each
+    active lane's slot holds its key): 1, a tile less one, a tile, a tile
+    and one, and 2**20 lanes; keys with hi >= 2**31; one key in 1, 2 and
+    1,000 lanes; keys present before the call; a full table (``probe_ok``
+    false); a CUDA graph of the device entry replayed over four waves,
+    each tagged with a fresh epoch; the epoch at its wrap on both entries.
+    Logs each entry's operations on the card per call."""
+    import numpy as np
+
+    from stateright_tpu_torch.ops.u32 import from_numpy_u32
+    from stateright_tpu_torch.parallel.hashset import (
+        _EPOCH_MAX, HashSet, insert_batch_claim, insert_batch_claim_dev,
+        insert_batch_claim_plain, keys_equal,
+    )
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 4)
+    t0 = time.monotonic()
+
+    def halves(keys):
+        keys = np.asarray(keys, np.uint64)
+        return (from_numpy_u32((keys >> np.uint64(32)).astype(np.uint32), dev),
+                from_numpy_u32(keys.astype(np.uint32), dev))
+
+    def fresh_keys(m):
+        keys = rng.integers(1, 2**64, size=m, dtype=np.uint64)
+        keys[: m // 2] |= np.uint64(1 << 63)  # hi >= 2**31
+        return keys
+
+    def table_with(cap, present):
+        """A card table and its twin's key plane, holding ``present``."""
+        p_keys = torch.zeros((cap,), dtype=torch.int64, device=dev)
+        if len(present):
+            hi, lo = halves(present)
+            insert_batch_claim_plain(p_keys, hi, lo, torch.ones(
+                (len(present),), dtype=torch.bool, device=dev))
+        return HashSet(p_keys.clone()), p_keys
+
+    def check(what, table, p_keys, keys, active, entry, epoch=None):
+        hi, lo = halves(keys)
+        if entry == "host":
+            new, ok, slot = insert_batch_claim(table, hi, lo, active,
+                                               with_slots=True)
+        else:
+            new, ok = insert_batch_claim_dev(table, hi, lo, active, epoch)
+            slot = None
+        p_new, p_ok = insert_batch_claim_plain(p_keys, hi, lo, active)
+        torch.cuda.synchronize()
+        good = (torch.equal(new, p_new) and bool(ok) == bool(p_ok)
+                and keys_equal(table, HashSet(p_keys)))
+        if slot is not None and bool(p_ok):
+            act = torch.nonzero(active).flatten()
+            key = (hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
+            good = good and torch.equal(table.keys[slot[act].long()], key[act])
+        if not good:
+            raise AssertionError(f"insert_batch_claim ({entry}) disagrees with "
+                                 f"its twin: {what}")
+        return bool(p_ok)
+
+    cases = 0
+    for n in (1, INSERT_TILE - 1, INSERT_TILE, INSERT_TILE + 1, 1 << 20):
+        # Room for every key the five calls bring: which keys a filling
+        # table takes depends on the order the claims land in.
+        cap = 1 << max(12, (8 * n).bit_length())
+        for entry in ("host", "dev"):
+            present = fresh_keys(cap // 8)
+            table, p_keys = table_with(cap, present)
+            epoch = torch.tensor([41], dtype=torch.int32, device=dev)
+            # Random keys: a third present before the call, the rest from a
+            # pool half the batch (duplicates within the batch).
+            pool = fresh_keys(max(1, n // 2))
+            keys = np.where(rng.random(n) < 1 / 3,
+                            present[rng.integers(0, len(present), size=n)],
+                            pool[rng.integers(0, len(pool), size=n)])
+            active = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+            check(f"n={n}, random", table, p_keys, keys, active, entry, epoch)
+            # One key in 1, 2 and 1,000 lanes (as many as the batch holds),
+            # the rest fresh; every lane active.
+            for copies in (1, 2, 1000):
+                keys = fresh_keys(n)
+                lanes = rng.permutation(n)[: min(copies, n)]
+                keys[lanes] = fresh_keys(1)[0]
+                check(f"n={n}, one key in {len(lanes)} lanes", table, p_keys,
+                      keys, torch.ones((n,), dtype=torch.bool, device=dev),
+                      entry, epoch)
+            cases += 4
+            if entry == "dev" and int(epoch) != 45:
+                raise AssertionError("the device entry did not advance its "
+                                     f"epoch once a call: {int(epoch)}")
+    # A full table: every absent key probes the whole table.
+    for entry in ("host", "dev"):
+        for n in (5, INSERT_TILE + 7):
+            present = fresh_keys(64)
+            table, p_keys = table_with(64, present)
+            keys = np.concatenate([present[rng.integers(0, 64, size=n // 2)],
+                                   fresh_keys(n - n // 2)])
+            ok = check(f"full table, n={n}", table, p_keys, keys,
+                       torch.ones((n,), dtype=torch.bool, device=dev), entry,
+                       torch.tensor([3], dtype=torch.int32, device=dev))
+            if ok:
+                raise AssertionError("a full table left probe_ok true")
+            cases += 1
+    # The epoch at its wrap: the host entry clears the tags past
+    # _EPOCH_MAX; the fused loop clears them and the word before it.
+    for entry in ("host", "dev"):
+        table, p_keys = table_with(1 << 15, fresh_keys(1 << 11))
+        # The word holds _EPOCH_MAX - 1 (int32 -2): the call tags with
+        # _EPOCH_MAX.
+        epoch = torch.tensor([-2], dtype=torch.int32, device=dev)
+        table.epoch = _EPOCH_MAX - 1
+        for step in range(3):
+            keys = fresh_keys(INSERT_TILE + 9)
+            keys[1::3] = keys[::3][: len(keys[1::3])]  # pairs of one key
+            check(f"wrap step {step}", table, p_keys, keys, torch.ones(
+                (len(keys),), dtype=torch.bool, device=dev), entry, epoch)
+            if entry == "dev":
+                word = int(epoch) & 0xFFFFFFFF
+                if word != (_EPOCH_MAX if step == 0 else step):
+                    raise AssertionError(f"the epoch word reads {word} at step {step}")
+                if step == 0:  # the caller's clear at the wrap
+                    table.tags.zero_()
+                    epoch.zero_()
+            cases += 1
+        if entry == "host" and table.epoch != 2:
+            raise AssertionError(f"the host entry's epoch is {table.epoch} after the wrap")
+    # A CUDA graph of the device entry, replayed wave after wave.
+    for n in (300, INSERT_TILE + 300):
+        table, p_keys = table_with(1 << 16, fresh_keys(1 << 12))
+        epoch = torch.tensor([9], dtype=torch.int32, device=dev)
+        hi, lo = halves(fresh_keys(n))
+        act = torch.ones((n,), dtype=torch.bool, device=dev)
+        p_new, _ = insert_batch_claim_plain(p_keys, hi, lo, act)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # loads the kernel before the capture
+            new, _ok = insert_batch_claim_dev(table, hi, lo, act, epoch)
+        torch.cuda.current_stream().wait_stream(side)
+        if not torch.equal(new, p_new):
+            raise AssertionError("insert_batch_claim_dev disagrees before the capture")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_new, g_ok = insert_batch_claim_dev(table, hi, lo, act, epoch)
+        for wave in range(4):
+            keys = fresh_keys(n)
+            keys[: n // 4] = keys[n // 4 : n // 2]  # duplicates in the wave
+            w_hi, w_lo = halves(keys)
+            hi.copy_(w_hi)
+            lo.copy_(w_lo)
+            act.copy_(torch.from_numpy(rng.random(n) < 0.8).to(dev))
+            graph.replay()
+            p_new, p_ok = insert_batch_claim_plain(p_keys, hi, lo, act)
+            torch.cuda.synchronize()
+            if not (torch.equal(g_new, p_new) and bool(g_ok) == bool(p_ok)
+                    and keys_equal(table, HashSet(p_keys))
+                    and int(epoch) == 11 + wave):
+                raise AssertionError(
+                    f"the replayed device entry disagrees at wave {wave} "
+                    f"(n={n}, epoch {int(epoch)})")
+            cases += 1
+        del graph
+    # Operations on the card per call, each entry on each path.
+    table = HashSet.empty(1 << 16, dev)
+    epoch = torch.zeros((1,), dtype=torch.int32, device=dev)
+    per_call = {}
+    for n in (INSERT_TILE, INSERT_TILE + 1):
+        hi, lo = halves(fresh_keys(n))
+        act = torch.ones((n,), dtype=torch.bool, device=dev)
+        path = "one block" if n <= INSERT_TILE else "grid"
+        per_call["insert_batch_claim", path] = launches_per_call(
+            torch, lambda: insert_batch_claim(table, hi, lo, act))
+        per_call["insert_batch_claim_dev", path] = launches_per_call(
+            torch, lambda: insert_batch_claim_dev(table, hi, lo, act, epoch))
+    for (name, path), k in per_call.items():
+        log(f"  {name} [{path}]: {k} operation(s) on the card a call")
+    design = {"one block": 1, "grid": 2}
+    if any(k != design[path] for (_name, path), k in per_call.items()):
+        raise AssertionError(f"K4 launches other than its design: {per_call}")
+    log(f"  insert_batch_claim: {cases} fuzzed calls bit-equal to the twin "
+        f"({time.monotonic() - t0:.1f}s)")
+
+
+def phase_commit_fuzz(torch):
+    """K27 against its twin, bit-equal (store, parent, ebits, queue and
+    n_new): no new lane, every lane new, new lanes only in the last tile;
+    a queue that ends inside the batch; rows of 1 word and of the widest
+    model row the script drives (paxos check 6's); with and without
+    ``origin``; ``gid``/``eb`` strided views of a packed receive buffer
+    and contiguous ones.  Logs its operations on the card per call."""
+    import numpy as np
+
+    from stateright_tpu_torch.ops.u32 import from_numpy_u32
+    from stateright_tpu_torch.parallel.exchange import (
+        shard_commit, shard_commit_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 27)
+    widest = max(m.compiled().state_width for m in (
+        paxos_model(6), raft_model(), abd_model(3, True),
+        single_copy_model(4, 1), lww_model(3)))
+    t0 = time.monotonic()
+
+    def u32(x):
+        return from_numpy_u32(np.asarray(x, np.uint32), dev)
+
+    cases = []
+    for w in (1, widest):
+        for r, pattern in ((5_000, "none"), (5_000, "all"), (7 * 256 + 100, "last"),
+                           (1, "all"), (256, "all"), (257, "last"),
+                           (40_000, "random"), (300_000, "random")):
+            for overflow, origin, strided in ((False, False, True),
+                                              (True, True, False),
+                                              (False, True, True)):
+                cases.append((w, r, pattern, overflow, origin, strided))
+    last = None
+    for w, r, pattern, overflow, use_origin, strided in cases:
+        cap = 1 << max(10, r.bit_length() + 1)
+        if pattern == "none":
+            mask = np.zeros(r, bool)
+        elif pattern == "all":
+            mask = np.ones(r, bool)
+        elif pattern == "last":
+            mask = np.zeros(r, bool)
+            mask[(r - 1) // 256 * 256 :] = rng.random(r - (r - 1) // 256 * 256) < 0.6
+        else:
+            mask = rng.random(r) < 0.3
+        n_new = int(mask.sum())
+        is_new = torch.from_numpy(mask).to(dev)
+        slot = u32(rng.permutation(cap)[:r])
+        origin = u32(rng.permutation(r)) if use_origin else None
+        recv = u32(rng.integers(0, 2**32, size=(r, w + 3), dtype=np.uint32))
+        rows = recv[:, :w]
+        gid, eb = recv[:, w], recv[:, w + 1]
+        if not strided:
+            gid, eb = gid.contiguous(), eb.contiguous()
+        tail = int(rng.integers(0, 100))
+        qlen = tail + n_new // 2 if overflow else cap + 64
+        tables = [[u32(rng.integers(0, 2**32, size=shape, dtype=np.uint32))
+                   for shape in ((cap, w), (cap,), (cap,), (qlen,))]]
+        tables.append([t.clone() for t in tables[0]])
+        counts = [fn(is_new, slot, origin, rows, gid, eb, *tabs, tail)
+                  for fn, tabs in zip((shard_commit, shard_commit_plain), tables)]
+        torch.cuda.synchronize()
+        if not (int(counts[0]) == int(counts[1]) == n_new
+                and all(torch.equal(k, q) for k, q in zip(*tables))):
+            raise AssertionError(
+                f"shard_commit disagrees with its twin at w={w}, r={r}, "
+                f"{pattern}, overflow={overflow}, origin={use_origin}, "
+                f"strided={strided}")
+        last = (is_new, slot, origin, rows, gid, eb, tables[0], tail)
+    is_new, slot, origin, rows, gid, eb, tabs, tail = last
+    per_call = launches_per_call(torch, lambda: shard_commit(
+        is_new, slot, origin, rows, gid, eb, *tabs, tail))
+    log(f"  shard_commit: {per_call} operation(s) on the card a call")
+    if per_call != 1:
+        raise AssertionError(f"K27 put {per_call} operations on the card a call")
+    log(f"  shard_commit: {len(cases)} fuzzed commits bit-equal to the twin, "
+        f"rows of 1 and {widest} words ({time.monotonic() - t0:.1f}s)")
 
 
 def bounded_paxos_model(c, max_round):
@@ -5846,10 +6146,15 @@ def main() -> int:
     launches["sh-paxos2s"] = phase_sh_sorted(torch, gpu, rows)
     torch.cuda.empty_cache()
 
-    log("phase 71: K26 and K20's probe against their twins on fuzzed inputs")
+    log("phase 71: K26, K20's probe, K4 and K27 against their twins on "
+        "fuzzed inputs")
     phase_bucket_fuzz(torch)
     torch.cuda.empty_cache()
     phase_cold_probe_fuzz(torch)
+    torch.cuda.empty_cache()
+    phase_insert_fuzz(torch)
+    torch.cuda.empty_cache()
+    phase_commit_fuzz(torch)
     torch.cuda.empty_cache()
 
     log(f"all phases passed in {time.monotonic() - t_start:.1f}s")

@@ -222,7 +222,7 @@ def profile_model(torch, chip_smoke, model, args, card, root) -> dict:
     print(f"traced run: {traced_s:.4f} s wall, device busy {busy_ms:.1f} ms; "
           f"busy share {busy_ms / 1e3 / median:.3f} of the untraced median "
           f"{median:.4f} s; trace {trace}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
     for name, ms in top:
         print(f"  {ms:9.2f} ms  {calls_by_name[name]:8d} calls  "
               f"{ms / calls_by_name[name]:.5f} ms each  {name[:100]}")

@@ -64,10 +64,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr uint32_t kNone = 0xFFFFFFFFu;  // invalid or past u: no bucket
-constexpr unsigned long long kAggregate = 1ull << 62;  // the tile's count
-constexpr unsigned long long kInclusive = 2ull << 62;  // the prefix through it
-constexpr unsigned long long kEpochMask = (1ull << 30) - 1;
-constexpr int kLookBack = 4;      // status words a lane reads a step
 constexpr int64_t kZeroUnit = 2048;  // send words a helper warp zeroes at once
 constexpr int kMaxHelpers = 2 * 132;
 constexpr int kMaxTiles = 2 * 132;  // tiles above this take more lanes each
@@ -78,73 +74,13 @@ __device__ __forceinline__ uint32_t owner_of(uint32_t hi, uint32_t lo,
   return sr::fmix32(lo ^ sr::rotl32(hi, 7) ^ 0xA511E9B3u) % n;
 }
 
-__device__ __forceinline__ unsigned long long status_word(
-    unsigned long long flag, uint32_t epoch, uint32_t value) {
-  return flag | ((static_cast<unsigned long long>(epoch) & kEpochMask) << 32) |
-         value;
-}
-
-// Published in this call: a flag set and this call's epoch.
-__device__ __forceinline__ bool published(unsigned long long w, uint32_t epoch) {
-  return (w >> 62) != 0 &&
-         ((w >> 32) & kEpochMask) == (static_cast<unsigned long long>(epoch) & kEpochMask);
-}
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p,
-                                             unsigned long long w) {
-  *reinterpret_cast<volatile unsigned long long*>(p) = w;
-}
-
-// The count of owner d's lanes in the tiles before `tile` (one warp): the
-// lanes read the status words of the 128 nearest tiles not yet added, and
-// the warp adds them down to the nearest inclusive prefix; a word not yet
-// published stops the step there and is read again.
-__device__ uint32_t warp_look_back(const unsigned long long* status,
-                                   int64_t tile, uint32_t n, uint32_t d,
-                                   uint32_t epoch) {
-  const uint32_t lane = threadIdx.x & 31;
-  uint32_t excl = 0;
-  int64_t j = tile - 1;  // the nearest tile not yet added
-  for (;;) {
-    unsigned long long w[kLookBack];
-#pragma unroll
-    for (int q = 0; q < kLookBack; ++q) {
-      const int64_t t = j - static_cast<int64_t>(lane + 32 * q);
-      // Before tile 0: an inclusive zero (tile 0's own word stops first).
-      w[q] = t >= 0 ? load_status(status + t * n + d)
-                    : status_word(kInclusive, epoch, 0);
-    }
-    uint32_t e_incl = kNone, e_wait = kNone;  // distances back from j
-#pragma unroll
-    for (int q = kLookBack - 1; q >= 0; --q) {
-      const uint32_t e = lane + 32 * q;
-      if (!published(w[q], epoch)) {
-        e_wait = e;
-      } else if (w[q] & kInclusive) {
-        e_incl = e;
-      }
-    }
-    e_incl = __reduce_min_sync(0xFFFFFFFFu, e_incl);
-    e_wait = __reduce_min_sync(0xFFFFFFFFu, e_wait);
-    const bool done = e_incl < e_wait;
-    const uint32_t stop =
-        done ? e_incl + 1 : (e_wait == kNone ? 32 * kLookBack : e_wait);
-    uint32_t s = 0;
-#pragma unroll
-    for (int q = 0; q < kLookBack; ++q) {
-      if (lane + 32 * q < stop) s += static_cast<uint32_t>(w[q]);
-    }
-    excl += __reduce_add_sync(0xFFFFFFFFu, s);
-    if (done) return excl;
-    if (stop == 0) __nanosleep(32);
-    j -= stop;
-  }
-}
+using sr::kAggregate;
+using sr::kInclusive;
+using sr::load_status;
+using sr::published;
+using sr::status_word;
+using sr::store_status;
+using sr::warp_look_back;
 
 // Zero send words [lo, hi) with one warp: up to 3 words each side, 16
 // bytes a store between (the buffer starts 16-byte aligned).

@@ -12,15 +12,24 @@
 // or i.  n_new = the count of new lanes.  The queue is FIFO in the order
 // the insert saw its lanes, which is the BFS order of the shard.
 //
-// Bound: bytes.  The new mask is read twice (one byte a lane); each new
-// state's slot, row, gid and ebits are read once, its row, parent and ebits
-// written once at its slot and its queue entry once.
-// Design: two launches, the compaction of K3 fused with the scatter.  (1)
-// each block counts the new lanes of a tile of 2048; (2) each block sums the
-// earlier tiles' counts, ranks its lanes with one block scan (each thread
-// owns 8 consecutive lanes, so the rank is lane order), and writes each new
-// lane's state at its slot and its slot at the queue position; block 0
-// writes n_new.
+// Bound: bytes.  The new mask is read once (one byte a lane); each new
+// state's slot, origin, row, gid and ebits are read once, its row, parent
+// and ebits written once at its slot and its queue entry once.  At the
+// sharded paths' widths that is under a microsecond of memory time: what
+// costs is latency, launches and how the rows' words are spread over the
+// threads (a row copied word by word by one thread coalesces nowhere).
+// Design: one launch.  Blocks of 256 threads take 256-lane tiles by ticket
+// (in lane order, so a tile waits only on running tiles), rank their new
+// lanes with a block scan (lane order), publish the tile's count and take
+// its queue offset from a warp's decoupled look-back over the earlier
+// tiles' epoch-tagged status words (sr::warp_look_back, K26's).  The new
+// lanes' source row and slot are staged in shared memory; parent, ebits
+// and the queue entry are written a thread a lane, and the rows by the
+// whole block as flattened words -- consecutive threads on consecutive
+// words of a row, eight words in flight a thread -- so a row is read and
+// written in runs.  The last tile writes n_new.  The ticket and status
+// words live in a scratch the wrapper keeps per card and stream (shared
+// with K26); the last ticket of a call opens the next epoch.
 //
 // K28, the second entry (sr_shard_log_append): a tiered shard's append of
 // the fresh lanes to its row log.  Replaces stateright_tpu/tiered/
@@ -49,8 +58,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;
-constexpr int kTile = kThreads * kItems;
+constexpr int kCopyWords = 8;  // row words in flight a thread
 
 // K28's tile: one lane a thread, so a block copies the rows of 256 lanes
 // at most and even a few thousand lanes spread over tens of blocks.
@@ -73,59 +81,91 @@ __global__ void tile_count_kernel(const uint8_t* __restrict__ is_new,
   if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
 }
 
-__global__ void commit_kernel(const uint8_t* __restrict__ is_new, int64_t r,
-                              const uint32_t* __restrict__ slot,
-                              const uint32_t* __restrict__ origin,
-                              const uint32_t* __restrict__ rows,
-                              int64_t row_stride, int w,
-                              const uint32_t* __restrict__ gid,
-                              int64_t gid_stride,
-                              const uint32_t* __restrict__ eb,
-                              int64_t eb_stride, uint32_t* __restrict__ store,
-                              uint32_t* __restrict__ parent,
-                              uint32_t* __restrict__ ebits,
-                              uint32_t* __restrict__ queue, int64_t qlen,
-                              int64_t tail,
-                              const int64_t* __restrict__ tile_counts,
-                              int64_t ntiles, int64_t* __restrict__ n_new) {
-  unsigned long long before = 0, all = 0;
-  for (int64_t t = threadIdx.x; t < ntiles; t += blockDim.x) {
-    const unsigned long long c = static_cast<unsigned long long>(tile_counts[t]);
-    if (t < blockIdx.x) before += c;
-    all += c;
+// scratch: the ticket word ((epoch << 32) | tickets drawn), two words
+// K26 keeps, then a status word a tile.
+__global__ void __launch_bounds__(kThreads) commit_kernel(
+    const uint8_t* __restrict__ is_new, int64_t r,
+    const uint32_t* __restrict__ slot, const uint32_t* __restrict__ origin,
+    const uint32_t* __restrict__ rows, int64_t row_stride, int w,
+    const uint32_t* __restrict__ gid, int64_t gid_stride,
+    const uint32_t* __restrict__ eb, int64_t eb_stride,
+    uint32_t* __restrict__ store, uint32_t* __restrict__ parent,
+    uint32_t* __restrict__ ebits, uint32_t* __restrict__ queue, int64_t qlen,
+    int64_t tail, int64_t ntiles, int64_t* __restrict__ n_new,
+    unsigned long long* __restrict__ scratch) {
+  __shared__ unsigned long long s_ticket;
+  __shared__ uint32_t s_before;  // new lanes in the tiles before this one
+  __shared__ uint32_t s_src[kThreads];
+  __shared__ uint32_t s_slot[kThreads];
+  if (threadIdx.x == 0) {
+    // The last ticket of the call opens the next epoch (every block has
+    // drawn by then).
+    const unsigned long long old = atomicAdd(scratch, 1ull);
+    if (static_cast<uint32_t>(old) == gridDim.x - 1)
+      atomicExch(scratch, ((old >> 32) + 1) << 32);
+    s_ticket = old;
   }
-  unsigned long long sum;
-  sr::block_exclusive_scan<kThreads, unsigned long long>(before, &sum);
-  const unsigned long long offset = sum;
-  sr::block_exclusive_scan<kThreads, unsigned long long>(all, &sum);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *n_new = static_cast<int64_t>(sum);
+  __syncthreads();
+  const uint32_t epoch = static_cast<uint32_t>(s_ticket >> 32);
+  const int64_t tile = static_cast<uint32_t>(s_ticket);
+  unsigned long long* status = scratch + 3;
 
-  const int64_t base =
-      static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  bool keep[kItems];
-  uint32_t c = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k;
-    keep[k] = i < r && is_new[i];
-    c += keep[k] ? 1u : 0u;
+  const int64_t i = tile * kThreads + threadIdx.x;
+  const bool keep = i < r && is_new[i];
+  uint32_t count;
+  const uint32_t rank =
+      sr::block_exclusive_scan<kThreads, uint32_t>(keep ? 1u : 0u, &count);
+  if (threadIdx.x < 32) {
+    uint32_t before = 0;
+    if (tile == 0) {
+      if (threadIdx.x == 0)
+        sr::store_status(status, sr::status_word(sr::kInclusive, epoch, count));
+    } else {
+      if (threadIdx.x == 0)
+        sr::store_status(status + tile,
+                         sr::status_word(sr::kAggregate, epoch, count));
+      before = sr::warp_look_back(status, tile, 1, 0, epoch);
+      if (threadIdx.x == 0)
+        sr::store_status(status + tile,
+                         sr::status_word(sr::kInclusive, epoch, before + count));
+    }
+    if (threadIdx.x == 0) s_before = before;
   }
-  uint32_t total;
-  const uint32_t prefix = sr::block_exclusive_scan<kThreads, uint32_t>(c, &total);
-  int64_t pos = tail + static_cast<int64_t>(offset) + prefix;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (!keep[k]) continue;
-    const int64_t i = base + k;
-    const uint32_t s = slot[i];
-    const int64_t src = origin != nullptr ? origin[i] : i;
-    const uint32_t* row = rows + src * row_stride;
-    uint32_t* dst = store + static_cast<int64_t>(s) * w;
-    for (int c2 = 0; c2 < w; ++c2) dst[c2] = row[c2];
+  if (keep) {
+    s_src[rank] = origin != nullptr ? origin[i] : static_cast<uint32_t>(i);
+    s_slot[rank] = slot[i];
+  }
+  __syncthreads();
+  const int64_t first = tail + s_before;  // this tile's first queue position
+  if (tile == ntiles - 1 && threadIdx.x == 0)
+    *n_new = static_cast<int64_t>(s_before) + count;
+
+  if (threadIdx.x < count) {
+    const uint32_t s = s_slot[threadIdx.x];
+    const int64_t src = s_src[threadIdx.x];
     parent[s] = gid[src * gid_stride];
     ebits[s] = eb[src * eb_stride];
+    const int64_t pos = first + threadIdx.x;
     if (pos < qlen) queue[pos] = s;
-    ++pos;
+  }
+  const uint32_t words = count * static_cast<uint32_t>(w);
+  for (uint32_t f0 = threadIdx.x; f0 < words; f0 += kCopyWords * kThreads) {
+    uint32_t val[kCopyWords];
+    int64_t dst[kCopyWords];
+#pragma unroll
+    for (int q = 0; q < kCopyWords; ++q) {
+      const uint32_t f = f0 + q * kThreads;
+      dst[q] = -1;
+      if (f >= words) continue;
+      const uint32_t j = f / static_cast<uint32_t>(w);
+      const uint32_t c = f - j * static_cast<uint32_t>(w);
+      val[q] = __ldg(rows + static_cast<int64_t>(s_src[j]) * row_stride + c);
+      dst[q] = static_cast<int64_t>(s_slot[j]) * w + c;
+    }
+#pragma unroll
+    for (int q = 0; q < kCopyWords; ++q) {
+      if (dst[q] >= 0) store[dst[q]] = val[q];
+    }
   }
 }
 
@@ -215,7 +255,9 @@ extern "C" int sr_shard_log_append(const uint8_t* fresh, int64_t r,
 // origin: r words or null; rows: row q at rows + q * row_stride, w words;
 // gid, eb: word q at gid + q * gid_stride (eb likewise); store: capacity *
 // w words; parent, ebits: capacity words; queue: qlen words; n_new: one
-// int64; tile_scratch: max(1, ceil(r / 2048)) int64 words.
+// int64; scratch: at least 3 + max(1, ceil(r / 256)) 64-bit words, zeroed
+// before its first call and then kept (the calls that share it must not
+// overlap).
 extern "C" int sr_shard_commit(const uint8_t* is_new, int64_t r,
                                const uint32_t* slot, const uint32_t* origin,
                                const uint32_t* rows, int64_t row_stride, int w,
@@ -224,15 +266,13 @@ extern "C" int sr_shard_commit(const uint8_t* is_new, int64_t r,
                                uint32_t* store, uint32_t* parent,
                                uint32_t* ebits, uint32_t* queue, int64_t qlen,
                                int64_t tail, int64_t* n_new,
-                               int64_t* tile_scratch, cudaStream_t stream) {
-  int64_t ntiles = (r + kTile - 1) / kTile;
-  if (ntiles < 1) ntiles = 1;
-  tile_count_kernel<kItems>
-      <<<static_cast<unsigned>(ntiles), kThreads, 0, stream>>>(is_new, r,
-                                                              tile_scratch);
+                               unsigned long long* scratch,
+                               cudaStream_t stream) {
+  int64_t ntiles = (r + kThreads - 1) / kThreads;
+  if (ntiles < 1) ntiles = 1;  // r = 0: one empty tile writes n_new
   commit_kernel<<<static_cast<unsigned>(ntiles), kThreads, 0, stream>>>(
       is_new, r, slot, origin, rows, row_stride, w, gid, gid_stride, eb,
-      eb_stride, store, parent, ebits, queue, qlen, tail, tile_scratch, ntiles,
-      n_new);
+      eb_stride, store, parent, ebits, queue, qlen, tail, ntiles, n_new,
+      scratch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // Shared device helpers for the port's kernels: the murmur3-style 32-bit
 // mixers of stateright_tpu/ops/device_fp.py (bit-exact), a block-wide scan,
-// a one-block offsets scan, and the error-string export every library
+// a one-block offsets scan, a warp's decoupled look-back over epoch-tagged
+// status words (K26, K27), and the error-string export every library
 // carries for its ctypes wrapper.
 #pragma once
 
@@ -101,6 +102,87 @@ __global__ void offsets_scan_kernel(int64_t* __restrict__ counts, int64_t n,
     run += c;
   }
   if (threadIdx.x == 0 && total != nullptr) *total = static_cast<int64_t>(all);
+}
+
+// Decoupled look-back (Merrill and Garland, 2016) over 64-bit status words,
+// one a tile (and key): a flag (the tile's own count, or the inclusive
+// prefix through it), a 30-bit per-call epoch and a 32-bit value, read
+// with one load.  The words are never cleared: a word of another epoch
+// reads as unpublished.  Tiles are taken by ticket, in order, so a tile
+// only ever waits on tiles already running.
+constexpr unsigned long long kAggregate = 1ull << 62;  // the tile's count
+constexpr unsigned long long kInclusive = 2ull << 62;  // the prefix through it
+constexpr unsigned long long kEpochMask = (1ull << 30) - 1;
+constexpr int kLookBack = 4;  // status words a lane reads a step
+
+__device__ __forceinline__ unsigned long long status_word(
+    unsigned long long flag, uint32_t epoch, uint32_t value) {
+  return flag | ((static_cast<unsigned long long>(epoch) & kEpochMask) << 32) |
+         value;
+}
+
+// Published in this call: a flag set and this call's epoch.
+__device__ __forceinline__ bool published(unsigned long long w, uint32_t epoch) {
+  return (w >> 62) != 0 &&
+         ((w >> 32) & kEpochMask) == (static_cast<unsigned long long>(epoch) & kEpochMask);
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long w) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = w;
+}
+
+// The sum of key d's values in the tiles before `tile` (one warp; status
+// word of tile t and key d at status[t * n + d]): the lanes read the words
+// of the 128 nearest tiles not yet added, and the warp adds them down to
+// the nearest inclusive prefix; a word not yet published stops the step
+// there and is read again.
+__device__ inline uint32_t warp_look_back(const unsigned long long* status,
+                                          int64_t tile, uint32_t n, uint32_t d,
+                                          uint32_t epoch) {
+  constexpr uint32_t kNone = 0xFFFFFFFFu;
+  const uint32_t lane = threadIdx.x & 31;
+  uint32_t excl = 0;
+  int64_t j = tile - 1;  // the nearest tile not yet added
+  for (;;) {
+    unsigned long long w[kLookBack];
+#pragma unroll
+    for (int q = 0; q < kLookBack; ++q) {
+      const int64_t t = j - static_cast<int64_t>(lane + 32 * q);
+      // Before tile 0: an inclusive zero (tile 0's own word stops first).
+      w[q] = t >= 0 ? load_status(status + t * n + d)
+                    : status_word(kInclusive, epoch, 0);
+    }
+    uint32_t e_incl = kNone, e_wait = kNone;  // distances back from j
+#pragma unroll
+    for (int q = kLookBack - 1; q >= 0; --q) {
+      const uint32_t e = lane + 32 * q;
+      if (!published(w[q], epoch)) {
+        e_wait = e;
+      } else if (w[q] & kInclusive) {
+        e_incl = e;
+      }
+    }
+    e_incl = __reduce_min_sync(0xFFFFFFFFu, e_incl);
+    e_wait = __reduce_min_sync(0xFFFFFFFFu, e_wait);
+    const bool done = e_incl < e_wait;
+    const uint32_t stop =
+        done ? e_incl + 1 : (e_wait == kNone ? 32 * kLookBack : e_wait);
+    uint32_t s = 0;
+#pragma unroll
+    for (int q = 0; q < kLookBack; ++q) {
+      if (lane + 32 * q < stop) s += static_cast<uint32_t>(w[q]);
+    }
+    excl += __reduce_add_sync(0xFFFFFFFFu, s);
+    if (done) return excl;
+    if (stop == 0) __nanosleep(32);
+    j -= stop;
+  }
 }
 
 }  // namespace sr

@@ -97,7 +97,7 @@ def owner_bucket(hi, lo, valid, rows, ridx, olane, a: int, gids, ebs,
     counts = torch.empty((n + 1,), dtype=torch.int64, device=dev)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
     launch = cuda.stream(send)
-    scratch = _bucket_scratch(dev, launch,
+    scratch = _lookback_scratch(dev, launch,
                               3 + max(1, (u + 255) // 256) * n + 2 * u)
     fn = cuda.function(
         "exchange", "sr_owner_bucket",
@@ -119,18 +119,19 @@ def owner_bucket(hi, lo, valid, rows, ridx, olane, a: int, gids, ebs,
 
 owner_bucket.launches = 0
 
-# K26's ticket and control words, look-back words and representatives'
-# list, kept per card and stream (the wrapper's signature is the JAX
-# call's, so nothing else could hold them): the kernel never clears the
-# look-back words (each call's words carry its epoch) and its last block
-# out resets the control words, so a call allocates nothing beyond its
-# outputs.  Calls on one stream run in order; the scratch is zeroed again
-# before the 30-bit epoch could wrap.
+# K26's and K27's ticket and control words, look-back words and K26's
+# representatives' list, kept per card and stream (the wrappers'
+# signatures are the JAX calls', so nothing else could hold them): the
+# kernels never clear the look-back words (each call's words carry its
+# epoch, and both kernels draw their epochs from the one ticket word) and
+# K26's last block out resets its control words, so a call allocates
+# nothing beyond its outputs.  Calls on one stream run in order; the
+# scratch is zeroed again before the 30-bit epoch could wrap.
 _EPOCH_CALLS = 1 << 29
 _SCRATCH: dict = {}
 
 
-def _bucket_scratch(dev: torch.device, launch, words: int) -> torch.Tensor:
+def _lookback_scratch(dev: torch.device, launch, words: int) -> torch.Tensor:
     key = (dev.index, launch.handle.value)
     held = _SCRATCH.get(key)
     if held is None or held[0].shape[0] < words or held[1] >= _EPOCH_CALLS:
@@ -200,9 +201,11 @@ def shard_commit(is_new: torch.Tensor, slot: torch.Tensor,
         raise ValueError(f"store must be int32[capacity, {w}]")
     if w > 1 and rows.stride(1) != 1:
         raise ValueError("each row's words must be contiguous")
+    if r >= 1 << 31:
+        raise ValueError("shard_commit takes fewer than 2**31 lanes")
     n_new = torch.empty((), dtype=torch.int64, device=dev)
-    scratch = torch.empty((max(1, (r + 2047) // 2048),), dtype=torch.int64,
-                          device=dev)
+    launch = cuda.stream(store)
+    scratch = _lookback_scratch(dev, launch, 3 + max(1, (r + 255) // 256))
     fn = cuda.function(
         "shard_commit", "sr_shard_commit",
         [cuda.P, cuda.I64, cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.P,
@@ -216,7 +219,7 @@ def shard_commit(is_new: torch.Tensor, slot: torch.Tensor,
         rows.stride(0), w, cuda.ptr(gid), gid.stride(0), cuda.ptr(eb),
         eb.stride(0), cuda.ptr(store), cuda.ptr(parent), cuda.ptr(ebits),
         cuda.ptr(queue), queue.shape[0], tail, cuda.ptr(n_new),
-        cuda.ptr(scratch), cuda.stream(store),
+        cuda.ptr(scratch), launch,
     )
     cuda.check(code, "shard_commit", "shard_commit")
     return n_new

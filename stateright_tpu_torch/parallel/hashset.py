@@ -5,13 +5,17 @@ open-addressing table keyed by the 64-bit packed-state fingerprint, linear
 probing from :func:`home_slot`, whole waves of candidate keys inserted at
 once.  Empty slots are 0; fingerprints are never 0 (``ops/device_fp.py``).
 
-Layout: one ``int64`` word per slot holding the key's bits ``hi:lo`` -- the
-JAX package's ``key_hi``/``key_lo`` planes interleaved slot for slot, so a
+Layout: one 16-byte slot per table entry, ``{key, tag}`` as an
+``int64[capacity, 2]`` tensor (:attr:`HashSet.slots`).  The key word holds
+the key's bits ``hi:lo`` -- :attr:`HashSet.keys` is that column, the JAX
+package's ``key_hi``/``key_lo`` planes interleaved slot for slot, so a
 table converts either way without a rebuild (:meth:`HashSet.from_planes`,
 :meth:`HashSet.planes`): both engines probe from the same home slot, and
 linear probing places a key anywhere along its probe run, whatever the
-insertion order.  On the card a second ``int64`` plane, ``meta``, carries
-the per-call election tags of the K4 kernel (``csrc/hashset.cu``).
+insertion order.  The tag word (:attr:`HashSet.tags`) carries the K4
+kernel's per-call election tag (``csrc/hashset.cu``) in the key's own
+sector; the twin never reads it.  Two int32 control words (``ctl``,
+zero between calls) carry K4's fail flag and done count.
 
 The insert is IN PLACE: :func:`insert_batch_claim` mutates the table it is
 given (the JAX version returns a new one), so a wave holds one table, not
@@ -44,20 +48,26 @@ _SIGN = -(1 << 63)  # XOR with it turns the signed int64 order unsigned
 
 
 class HashSet:
-    """Key plane (and, on the card, the election plane) of the table;
-    capacity is a power of two."""
+    """The table's slots (key and election tag, 16 bytes a slot) and K4's
+    control words; capacity is a power of two."""
 
     def __init__(self, keys: torch.Tensor):
-        cap = keys.shape[0]
+        """A table holding ``keys`` (int64[capacity]: hi:lo, 0 = empty)."""
+        self._adopt(torch.stack([keys, torch.zeros_like(keys)], 1))
+
+    def _adopt(self, slots: torch.Tensor) -> None:
+        cap = slots.shape[0]
         if cap & (cap - 1) or not 1 <= cap <= 1 << 31:
             raise ValueError("capacity must be a power of two <= 2**31")
-        self.keys = keys  # int64[capacity]: hi:lo, 0 = empty
-        self.meta = None  # int64[capacity] on the card, made on first insert
+        self.slots = slots  # int64[capacity, 2]: {key, tag}
+        self.ctl = torch.zeros((2,), dtype=torch.int32, device=slots.device)
         self.epoch = 0  # the last insert call's election tag
 
     @classmethod
     def empty(cls, capacity: int, device) -> "HashSet":
-        return cls(torch.zeros((capacity,), dtype=torch.int64, device=device))
+        table = cls.__new__(cls)
+        table._adopt(torch.zeros((capacity, 2), dtype=torch.int64, device=device))
+        return table
 
     @classmethod
     def from_planes(cls, key_hi: np.ndarray, key_lo: np.ndarray, device) -> "HashSet":
@@ -74,11 +84,22 @@ class HashSet:
         return hi, lo
 
     @property
+    def keys(self) -> torch.Tensor:
+        """The key words, int64[capacity] (hi:lo, 0 = empty): a view of the
+        slots, so writing it writes the table."""
+        return self.slots[:, 0]
+
+    @property
+    def tags(self) -> torch.Tensor:
+        """K4's election tags, int64[capacity] (a view of the slots)."""
+        return self.slots[:, 1]
+
+    @property
     def capacity(self) -> int:
-        return self.keys.shape[0]
+        return self.slots.shape[0]
 
     def load_factor(self) -> float:
-        """Occupied-slot fraction, read from the key plane."""
+        """Occupied-slot fraction, read from the key words."""
         return int((self.keys != 0).sum()) / self.capacity
 
 
@@ -308,25 +329,14 @@ def insert_batch_claim(
         )
         out = (new, ok) + ((probe,) if with_rounds else ())
         return out + ((slot,) if with_slots else ())
-    n, slot, is_new, ok, probe = _claim_args(table, hi, lo, active, with_rounds)
-    if table.meta is None or table.epoch >= _EPOCH_MAX:
-        table.meta = torch.zeros_like(table.keys)
+    if table.epoch >= _EPOCH_MAX:
+        table.tags.zero_()
         table.epoch = 0
     table.epoch += 1
-    fn = cuda.function(
-        "hashset", "sr_insert_claim",
-        [cuda.P, cuda.P, cuda.U64, cuda.P, cuda.P, cuda.P, cuda.I64,
-         cuda.U32, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P],
-    )
     insert_batch_claim.launches += 1
-    code = fn(
-        cuda.ptr(table.keys), cuda.ptr(table.meta), table.capacity,
-        cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, table.epoch,
-        cuda.ptr(slot), cuda.ptr(is_new), cuda.ptr(ok),
-        cuda.P(None) if probe is None else cuda.ptr(probe), cuda.stream(table.keys),
-    )
-    cuda.check(code, "hashset", "insert_batch_claim")
-    out = (is_new, ok != 0) + ((probe,) if with_rounds else ())
+    is_new, ok, probe, slot = _claim(table, hi, lo, active, with_rounds,
+                                     "sr_insert_claim", cuda.U32, table.epoch)
+    out = (is_new, ok) + ((probe,) if with_rounds else ())
     return out + ((slot,) if with_slots else ())
 
 
@@ -339,43 +349,33 @@ def insert_batch_claim_dev(table: HashSet, hi: torch.Tensor, lo: torch.Tensor,
     """K4's device-epoch entry, for the fused wave loop: the answer of
     :func:`insert_batch_claim`, with the claim epoch a one-word int32
     tensor on the card (K29's epoch word) holding the last call's epoch,
-    which the call advances by one on the card and tags its claims with,
-    so a replayed graph tags every wave afresh.  The caller keeps
-    ``table.meta`` allocated and clears it before the word wraps.  The
-    twin advances the word too."""
+    which the call tags its claims with plus one and advances on the card
+    at its end, so a replayed graph tags every wave afresh.  The caller
+    clears ``table.tags`` before the word wraps.  The twin advances the
+    word too."""
     if hi.device.type == "cpu":
         epoch += 1
         return insert_batch_claim(table, hi, lo, active, with_rounds=with_rounds)
-    n, slot, is_new, ok, probe = _claim_args(table, hi, lo, active, with_rounds)
     cuda.require(epoch, "epoch", torch.int32, 1, hi.device)
-    if table.meta is None:
-        raise ValueError("the device-epoch entry needs table.meta")
-    fn = cuda.function(
-        "hashset", "sr_insert_claim_dev",
-        [cuda.P, cuda.P, cuda.U64, cuda.P, cuda.P, cuda.P, cuda.I64,
-         cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.P],
-    )
     insert_batch_claim_dev.launches += 1
-    code = fn(
-        cuda.ptr(table.keys), cuda.ptr(table.meta), table.capacity,
-        cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, cuda.ptr(epoch),
-        cuda.ptr(slot), cuda.ptr(is_new), cuda.ptr(ok),
-        cuda.P(None) if probe is None else cuda.ptr(probe),
-        cuda.stream(table.keys),
-    )
-    cuda.check(code, "hashset", "insert_batch_claim_dev")
-    return (is_new, ok != 0) + ((probe,) if with_rounds else ())
+    is_new, ok, probe, _slot = _claim(table, hi, lo, active, with_rounds,
+                                      "sr_insert_claim_dev", cuda.P,
+                                      cuda.ptr(epoch))
+    return (is_new, ok) + ((probe,) if with_rounds else ())
 
 
 insert_batch_claim_dev.launches = 0
 
 
-def _claim_args(table: HashSet, hi, lo, active, with_rounds: bool):
-    """K4's checked inputs and new outputs: ``(n, slot, is_new, ok,
-    probe)``."""
+def _claim(table: HashSet, hi, lo, active, with_rounds: bool, symbol: str,
+           epoch_type, epoch):
+    """One K4 launch sequence through the entry ``symbol`` (its epoch
+    argument a value or a device word): checks the inputs, makes the
+    outputs and returns ``(is_new, probe_ok, probe or None, slot)``."""
     dev = hi.device
     n = hi.shape[0]
-    cuda.require(table.keys, "table.keys", torch.int64, 1, dev)
+    cuda.require(table.slots, "table.slots", torch.int64, 2, dev)
+    cuda.require(table.ctl, "table.ctl", torch.int32, 1, dev)
     cuda.require(hi, "hi", torch.int32, 1, dev)
     cuda.require(lo, "lo", torch.int32, 1, dev)
     cuda.require(active, "active", torch.bool, 1, dev)
@@ -385,9 +385,22 @@ def _claim_args(table: HashSet, hi, lo, active, with_rounds: bool):
         raise ValueError("at most 2**32 - 1 lanes per insert")
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     is_new = torch.empty((n,), dtype=torch.bool, device=dev)
-    ok = torch.ones((), dtype=torch.int32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
     probe = torch.zeros((2,), dtype=torch.int64, device=dev) if with_rounds else None
-    return n, slot, is_new, ok, probe
+    fn = cuda.function(
+        "hashset", symbol,
+        [cuda.P, cuda.U64, cuda.P, cuda.P, cuda.P, cuda.I64, epoch_type,
+         cuda.P, cuda.P, cuda.P, cuda.P, cuda.P],
+    )
+    code = fn(
+        cuda.ptr(table.slots), table.capacity,
+        cuda.ptr(hi), cuda.ptr(lo), cuda.ptr(active), n, epoch,
+        cuda.ptr(slot), cuda.ptr(is_new), cuda.ptr(ok), cuda.ptr(table.ctl),
+        cuda.P(None) if probe is None else cuda.ptr(probe),
+        cuda.stream(table.slots),
+    )
+    cuda.check(code, "hashset", symbol)
+    return is_new, ok, probe, slot
 
 
 def insert_batch_claim_plain(

@@ -995,7 +995,7 @@ class GpuChecker(Checker):
             self._dedup_factor, self._sortless, self._sort_width(),
             self._step_width(), self._waves_per_call,
             self._options._target_max_depth or 0, self._fw_masks,
-            c.table.keys.data_ptr(), c.table.meta.data_ptr(),
+            c.table.slots.data_ptr(), c.table.ctl.data_ptr(),
             c.rows.data_ptr(), c.parent.data_ptr(), c.ebits.data_ptr(),
             self._stats.data_ptr(),
         )
@@ -1027,10 +1027,8 @@ class GpuChecker(Checker):
             self._stats = self._stats_from_carry()
         table = c.table
         if self._device.type == "cuda":
-            if table.meta is None:
-                table.meta = torch.zeros_like(table.keys)
             if table.epoch + self._waves_per_call + 1 >= _EPOCH_MAX:
-                table.meta.zero_()
+                table.tags.zero_()
                 table.epoch = 0
         self._ctl_word(CTL_EPOCH).fill_(table.epoch)
         wave_ctl(self._stats, len(self._properties), begin=True,

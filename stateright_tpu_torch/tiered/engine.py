@@ -47,12 +47,12 @@ from ..parallel.wavefront import GpuChecker, Wave
 from .cold_join import cold_probe, cold_query, cold_windows, load_chunk
 from .cold_store import ColdStore
 
-# What one hot-table slot costs on the card: the 64-bit key word plus K4's
-# persistent 64-bit election plane (csrc/hashset.cu).  The JAX engine's
-# slot is 12 bytes (8 key bytes and a transient 4-byte claim plane), so at
-# some budgets the two packages size different tables: 0.875 MB gives
-# 65,536 slots there and 32,768 here.  The discovery set does not depend
-# on the budget.
+# What one hot-table slot costs on the card: one 16-byte {key, tag} slot,
+# the 64-bit key word beside K4's 64-bit election tag (csrc/hashset.cu).
+# The JAX engine's slot is 12 bytes (8 key bytes and a transient 4-byte
+# claim plane), so at some budgets the two packages size different
+# tables: 0.875 MB gives 65,536 slots there and 32,768 here.  The
+# discovery set does not depend on the budget.
 _BYTES_PER_SLOT = 16
 _MIN_CAPACITY = 256
 _M64 = (1 << 64) - 1
@@ -60,7 +60,7 @@ _M64 = (1 << 64) - 1
 
 def capacity_for_budget(memory_budget_mb: float) -> int:
     """The largest power-of-two hot-table capacity whose bytes on the card
-    (16 a slot: key word and election word) fit ``memory_budget_mb``.
+    (16 a slot: key word and election tag) fit ``memory_budget_mb``.
     Fractional budgets are allowed; one too small for the 256-slot minimum
     table raises rather than round up past the cap."""
     if not math.isfinite(float(memory_budget_mb)) or memory_budget_mb <= 0:

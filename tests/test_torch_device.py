@@ -295,23 +295,32 @@ def test_cuda_compact_matches_twin():
 
 
 @pytest.mark.cuda
-def test_cuda_insert_batch_claim_matches_twin():
+@pytest.mark.parametrize("n", [300_000, 1, 4095, 4096, 4097])
+def test_cuda_insert_batch_claim_matches_twin(n):
+    """K4's host entry against its twin: the grid path (300,000 lanes, a
+    tile and one) and the one-block path (up to a tile of 4,096 lanes),
+    keys with hi >= 2**31, duplicates and keys present before."""
     dev = _card()
     rng = np.random.default_rng(24)
     cap = 1 << 20
     k_table = HashSet.empty(cap, dev)
     p_keys = torch.zeros(cap, dtype=torch.int64, device=dev)
     for _ in range(4):
-        keys = rng.integers(1, 2**40, size=300_000, dtype=np.uint64)
-        dup = rng.random(300_000) < 0.5
+        keys = rng.integers(1, 2**64, size=n, dtype=np.uint64)
+        dup = rng.random(n) < 0.5
         keys[dup] = rng.integers(1, 2**16, size=int(dup.sum()), dtype=np.uint64)
         hi = _t((keys >> np.uint64(32)).astype(np.uint32), dev)
         lo = _t((keys & np.uint64(0xFFFFFFFF)).astype(np.uint32), dev)
-        active = torch.from_numpy(rng.random(300_000) < 0.7).to(dev)
-        k_new, k_ok = insert_batch_claim(k_table, hi, lo, active)
+        active = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+        k_new, k_ok, slot = insert_batch_claim(k_table, hi, lo, active,
+                                               with_slots=True)
         p_new, p_ok = insert_batch_claim_plain(p_keys, hi, lo, active)
         assert torch.equal(k_new, p_new) and bool(k_ok) and bool(p_ok)
         assert keys_equal(k_table, HashSet(p_keys))
+        key = (hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
+        act = torch.nonzero(active).flatten()
+        assert torch.equal(k_table.keys[slot[act].long()], key[act])
+        assert bool((slot[~active] == -1).all())
 
 
 def _paxos(c, never_decided=False):
@@ -1483,19 +1492,22 @@ def test_cuda_append_block_matches_twin(two_phase, sorted_path):
 
 
 @pytest.mark.cuda
-def test_cuda_insert_reports_its_probe_figures():
+@pytest.mark.parametrize("n", [20_000, 4097, 4096, 1])
+def test_cuda_insert_reports_its_probe_figures(n):
     """K4's ``with_rounds`` figures: its longest chain and the slots its
-    lanes read, counted again from where each lane's key landed."""
+    lanes read, counted again from where each lane's key landed -- on the
+    grid path and on the one-block path."""
     from stateright_tpu_torch.parallel.hashset import home_slot
 
     dev = _card()
     rng = np.random.default_rng(32)
     cap = 1 << 16
     table = HashSet.empty(cap, dev)
-    keys = rng.integers(1, 2**40, size=20_000, dtype=np.uint64)
+    keys = rng.integers(1, 2**40, size=n, dtype=np.uint64)
     hi = _t((keys >> np.uint64(32)).astype(np.uint32), dev)
     lo = _t((keys & np.uint64(0xFFFFFFFF)).astype(np.uint32), dev)
-    active = torch.from_numpy(rng.random(20_000) < 0.9).to(dev)
+    active = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    active[0] = True
     new, ok, probe = insert_batch_claim(table, hi, lo, active, with_rounds=True)
     assert bool(ok)
     key = (hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
@@ -1660,6 +1672,10 @@ def test_cuda_shard_commit_matches_twin():
     for r, w, cap, p_new, tail, origin in (
         (300_000, 2, 1 << 20, 0.3, 17, False), (50_000, 42, 1 << 17, 0.5, 0, True),
         (5_000, 3, 1 << 13, 0.9, (1 << 13) - 100, False), (10, 2, 64, 0.0, 3, False),
+        # The 256-lane tile's edges: one lane, a tile, a tile and one.
+        (1, 5, 64, 1.0, 0, True), (255, 1, 1 << 10, 0.5, 2, False),
+        (256, 77, 1 << 10, 1.0, 0, True), (257, 2, 1 << 10, 1.0, 9, False),
+        (513, 42, 1 << 11, 0.7, 1 << 11, True),
     ):
         recv = _t(rng.integers(0, 2**32, size=(r, w + 3), dtype=np.uint32), dev)
         is_new = torch.from_numpy(rng.random(r) < p_new).to(dev)

@@ -150,6 +150,45 @@ def test_insert_batch_claim_matches_jax():
     assert torch.equal(round_trip.keys, pt.keys)
 
 
+def test_slot_layout_round_trips_the_jax_planes():
+    """One 16-byte ``{key, tag}`` slot a table entry: a JAX table's
+    ``key_hi``/``key_lo`` planes adopted slot for slot into the key words
+    (tags zero), given back bit-equal by ``planes()``; the key words are a
+    view of the slots, and the port's inserts into the adopted table keep
+    the JAX insert's key set and new lanes."""
+    rng = np.random.default_rng(18)
+    cap = 1 << 10
+    jt = jax_hashset.make_hashset(cap)
+    hi = rng.integers(0, 2**32, size=300, dtype=np.uint32)
+    lo = rng.integers(1, 2**32, size=300, dtype=np.uint32)
+    jt, *_ = jax_hashset.insert_batch_claim(
+        jt, jnp.asarray(hi), jnp.asarray(lo), jnp.ones(300, bool))
+    table = HashSet.from_planes(np.asarray(jt.key_hi), np.asarray(jt.key_lo), "cpu")
+    assert table.slots.shape == (cap, 2) and table.slots.dtype == torch.int64
+    assert table.slots.is_contiguous() and table.slots.element_size() * 2 == 16
+    assert table.keys.data_ptr() == table.slots.data_ptr()
+    assert not bool(table.tags.any())
+    want = _keys(jt.key_hi, jt.key_lo).view(np.int64)
+    assert np.array_equal(table.keys.numpy(), want)
+    khi, klo = table.planes()
+    assert np.array_equal(khi, np.asarray(jt.key_hi))
+    assert np.array_equal(klo, np.asarray(jt.key_lo))
+    # Writing the key view writes the table.
+    table.keys[0] = 7
+    assert int(table.slots[0, 0]) == 7 and table.capacity == cap
+    table.keys[0] = int(want[0])
+    # More keys, half of them present: the same answer as the JAX insert.
+    more_hi = np.concatenate([hi[:50], rng.integers(0, 2**32, size=50, dtype=np.uint32)])
+    more_lo = np.concatenate([lo[:50], rng.integers(1, 2**32, size=50, dtype=np.uint32)])
+    jt, _slot, jnew, *_ = jax_hashset.insert_batch_claim(
+        jt, jnp.asarray(more_hi), jnp.asarray(more_lo), jnp.ones(100, bool))
+    new, ok = insert_batch_claim(table, _t(more_hi), _t(more_lo),
+                                 torch.ones(100, dtype=torch.bool))
+    assert bool(ok) and np.array_equal(new.numpy(), np.asarray(jnew))
+    khi, klo = table.planes()
+    assert set(_keys(khi, klo).tolist()) == set(_keys(jt.key_hi, jt.key_lo).tolist())
+
+
 def test_insert_batch_claim_full_table_fails_probe_like_jax():
     rng = np.random.default_rng(5)
     hi = rng.integers(0, 2**32, size=24, dtype=np.uint32)

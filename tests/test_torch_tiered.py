@@ -151,6 +151,18 @@ def test_capacity_for_budget_counts_sixteen_bytes_a_slot():
             capacity_for_budget(bad)
 
 
+def test_budget_table_holds_sixteen_bytes_a_slot():
+    """The hot table a budget derives is one 16-byte slot (key and K4's
+    tag) a table entry: at 2 MB its slots tensor is the budget, 2**17
+    slots, the slot count the JAX engine derives there."""
+    t = TwoPhaseSys(rm_count=3).checker().spawn_gpu_tiered(
+        device="cpu", memory_budget_mb=2, max_frontier=1 << 6).join()
+    table = t._carry.table
+    assert table.capacity == capacity_for_budget(2) == jax_capacity_for_budget(2) == 1 << 17
+    assert table.slots.numel() * table.slots.element_size() == 2 << 20
+    assert t.unique_state_count() == 288
+
+
 # --- K20's twins against the JAX programs ------------------------------------
 
 
